@@ -1,0 +1,391 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (slimt_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero
+without printing a result:
+
+1. probe   — a CUDA card must be present; print its name, compute
+             capability and `nvidia-smi` name and power limit;
+2. build   — build the kernels from ops/csrc at first use;
+3. kernels — each kernel against its plain PyTorch version on the card
+             at the serving path's shapes: the int8 affine bit-equal in
+             every mode, the encoder layer within 2e-5 (the bound the
+             JAX package holds its TPU kernel to); times beside the
+             plain versions';
+4. serve   — a tiny11-width model (32k vocab, emb 256, ffn 1536, 6+2
+             layers, 8 heads; random weights from seed 0) answers
+             request batches of text through Model.forward_async,
+             Model.forward_async_arrays and the runtime's
+             Blocking(...).translate, with and without shortlist
+             and alignment; every kernel's launch count must be > 0;
+5. check   — outputs well formed; CUDA tokens against the plain CPU
+             path on 16 segments (>= 99% equal); forward wall time and
+             tokens/s at B=64 and B=512 (T=64); neither JAX nor the JAX
+             package's models or ops were imported.
+
+The second-to-last line is the kernels' JSON record, the last line
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+from slimt_tpu.config import Config
+from slimt_tpu.runtime.service import Blocking
+
+VOCAB, EMB, FFN, ENC, DEC, HEADS = 32000, 256, 1536, 6, 2, 8
+AFFINE_SOURCE = "slimt_tpu_torch/ops/csrc/qmm_affine.cu"
+LAYER_SOURCE = "slimt_tpu_torch/ops/csrc/encoder_layer.cu"
+LAYER_TOL = 2e-5
+AGREEMENT_MIN = 0.99
+# Of the JAX package the port reuses only the JAX-free config, io, text
+# and runtime modules; none of these may be imported.
+JAX_PACKAGE_COMPUTE = ("slimt_tpu.models", "slimt_tpu.ops", "slimt_tpu.parallel")
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def probe(torch):
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    name = torch.cuda.get_device_name(0)
+    capability = torch.cuda.get_device_capability(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"device: {name} capability={capability} torch={torch.__version__} "
+        f"cuda={torch.version.cuda}")
+    log(smi)  # as `nvidia-smi --query-gpu=name,power.limit` prints it
+    if capability != (9, 0):
+        raise RuntimeError(f"kernels are built for sm_90a, card is {capability}")
+    return name, smi
+
+
+def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def check_affine(torch, qmm, dev):
+    """Kernel vs plain at the serving path's shapes, every mode."""
+    rng = np.random.default_rng(1)
+    emb = torch.from_numpy(
+        rng.integers(-127, 128, (VOCAB, EMB)).astype(np.int8)).to(dev)
+    ids = torch.from_numpy(
+        np.sort(rng.choice(VOCAB, 3072, replace=False))).to(dev)
+    shortlisted = emb.index_select(0, ids)
+    cases = []  # (label, m, w)
+    for m in (1, 7, 64, 512, 2048):  # decode rows: M = B
+        cases.append(("decode", m, (256, 256)))
+        cases.append(("decode", m, (256, 1536)))
+        cases.append(("decode", m, (1536, 256)))
+        cases.append(("projection", m, emb.T))
+        cases.append(("shortlist", m, shortlisted.T))
+    for m in (16 * 64, 64 * 64, 2048 * 128):  # encoder rows: M = B*T
+        for k, n in ((256, 256), (256, 1536), (1536, 256), (512, 512),
+                     (512, 2048), (2048, 512)):
+            if m * max(k, n) <= 2048 * 128 * 1536:
+                cases.append(("encoder", m, (k, n)))
+    worst = 0.0
+    for label, m, w in cases:
+        if isinstance(w, tuple):
+            w = torch.from_numpy(
+                rng.integers(-127, 128, w).astype(np.int8)).to(dev)
+        k, n = w.shape
+        x = torch.randn((m, k), device=dev) * 2.0
+        b = torch.randn((n,), device=dev) * 0.05
+        aq, inv = np.float32(20.0), np.float32(1) / np.float32(20.0 * 93.0)
+        for mode in (qmm.AFFINE, qmm.AFFINE_RELU, qmm.ACCUMULATOR):
+            got = qmm.affine_kernel(x, w, b, aq, inv, mode)
+            want = qmm.affine_plain(x, w, b, aq, inv, mode)
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            worst = max(worst, err)
+            if not torch.equal(got, want):
+                raise RuntimeError(
+                    f"affine {label} M={m} K={k} N={n} mode={mode}: "
+                    f"not bit-equal, max |diff| {err}")
+    log(f"affine: {len(cases)} shapes x 3 modes bit-equal to plain "
+        f"(max |diff| {worst})")
+    for bad_k in (0, qmm.MAX_K + 1):
+        try:
+            qmm.affine_kernel(torch.zeros((1, bad_k), device=dev),
+                              torch.zeros((bad_k, 4), dtype=torch.int8,
+                                          device=dev), None, 1.0, 1.0)
+        except ValueError:
+            continue
+        raise RuntimeError(f"affine accepted K={bad_k}")
+
+    timings = []
+    for label, m, k, n, mode, w in (
+        ("encoder FFN1 B=512 T=64", 512 * 64, 256, 1536, qmm.AFFINE_RELU, None),
+        ("encoder FFN2 B=512 T=64", 512 * 64, 1536, 256, qmm.AFFINE, None),
+        ("decode FFN1 B=512", 512, 256, 1536, qmm.AFFINE_RELU, None),
+        ("projection B=512 V=32000", 512, 256, VOCAB, qmm.ACCUMULATOR, emb.T),
+        ("projection B=64 V=32000", 64, 256, VOCAB, qmm.ACCUMULATOR, emb.T),
+        ("projection B=1 V=32000", 1, 256, VOCAB, qmm.ACCUMULATOR, emb.T),
+    ):
+        if w is None:
+            w = torch.from_numpy(
+                rng.integers(-127, 128, (k, n)).astype(np.int8)).to(dev)
+        x = torch.randn((m, k), device=dev)
+        b = torch.randn((n,), device=dev)
+        kernel = cuda_ms(torch, lambda: qmm.affine_kernel(x, w, b, 20.0, 1e-4, mode))
+        plain = cuda_ms(torch, lambda: qmm.affine_plain(x, w, b, 20.0, 1e-4, mode))
+        tops = 2.0 * m * k * n / (kernel * 1e-3) / 1e12
+        log(f"time affine {label} (M={m} K={k} N={n}): kernel {kernel:.4f} ms "
+            f"({tops:.2f} TOP/s), plain {plain:.4f} ms")
+        timings.append((kernel, plain))
+    return worst, timings[0]
+
+
+def check_layer(torch, enc, dev, load_host, params_from_numpy):
+    """Layer kernel vs plain at tiny and base widths, padded rows."""
+    worst = 0.0
+    timing = None
+    for emb, ffn in ((256, 1536), (512, 2048)):
+        layer = params_from_numpy(load_host(emb, ffn, 1, 1), dev)["encoder"][0]
+        for t in (16, 64, 128):
+            b = 4
+            x = torch.randn((b, t, emb), device=dev)
+            mask = torch.ones((b, t), device=dev)
+            mask[1, t // 2:] = 0
+            mask[3] = 0  # a padding row
+            mask_add = ((1.0 - mask) * -99999999.0)[:, None, None, :]
+            got = enc.layer_kernel(x, layer, mask_add, HEADS)
+            want = enc.layer_plain(x, layer, mask_add, HEADS)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"encoder layer E={emb} T={t}: non-finite")
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            log(f"encoder layer E={emb} F={ffn} T={t}: max |diff| {err:.3g}")
+            if err > LAYER_TOL:
+                raise RuntimeError(
+                    f"encoder layer E={emb} T={t}: max |diff| {err} > {LAYER_TOL}")
+        for b, t in ((64, 64), (512, 64)):
+            x = torch.randn((b, t, emb), device=dev)
+            mask_add = torch.zeros((b, 1, 1, t), device=dev)
+            kernel = cuda_ms(torch, lambda: enc.layer_kernel(x, layer, mask_add, HEADS), 10)
+            plain = cuda_ms(torch, lambda: enc.layer_plain(x, layer, mask_add, HEADS), 10)
+            log(f"time encoder layer E={emb} F={ffn} B={b} T={t}: kernel "
+                f"{kernel:.4f} ms, plain {plain:.4f} ms")
+            if (emb, b) == (EMB, 512):
+                timing = (kernel, plain)
+    return worst, timing
+
+
+def make_lines(rng, words, count, low, high):
+    return [" ".join(rng.choice(words, int(rng.integers(low, high))))
+            for _ in range(count)]
+
+
+def serve(model, lines):
+    """The runtime's two entries: forward_async (several dispatched
+    before the first finish) and forward_async_arrays(raw=True)."""
+    vocab = model.vocabulary
+    segments = [vocab.encode(line, add_eos=True)[0][:128] for line in lines]
+    for seg in segments:
+        seg[-1] = vocab.eos_id
+    groups = [segments[:32], segments[32:48], segments[48:]]
+    finishes = [model.forward_async(g, need_alignment=False) for g in groups]
+    finishes.append(model.forward_async(segments[:8], need_alignment=True))
+    results = [finish() for finish in finishes]
+    hyps = [h for r in results[:3] for h in r]
+    limit = int(1.5 * max(len(s) for s in segments))
+    for seg, hyp in zip(segments, hyps):
+        check_hypothesis(model, seg, hyp, limit, aligned=False)
+    for seg, hyp in zip(segments[:8], results[3]):
+        check_hypothesis(model, seg, hyp, limit, aligned=True)
+
+    rows = segments[:32]
+    t_pad = -(-max(len(s) for s in rows) // 16) * 16
+    indices = np.zeros((32, t_pad), np.int32)
+    mask = np.zeros((32, t_pad), np.float32)
+    for i, seg in enumerate(rows):
+        indices[i, :len(seg)] = seg
+        mask[i, :len(seg)] = 1.0
+    lengths = np.array([len(s) for s in rows])
+    words = np.concatenate([np.asarray(s) for s in rows])
+    tokens, steps, align = model.forward_async_arrays(
+        indices, mask, lengths, len(rows), need_alignment=False,
+        shortlist_words=words, raw=True)()
+    if align is not None or tokens.shape[0] != 32:
+        raise RuntimeError("forward_async_arrays: malformed raw result")
+    for i, hyp in enumerate(hyps[:32]):
+        if tokens[i, :steps[i]].tolist() != hyp.target:
+            raise RuntimeError("forward_async_arrays disagrees with forward_async")
+    sample = [vocab.decode(h.target)[0] for h in hyps[:2]]
+
+    # The runtime's service front door (the card has `regex`, which the
+    # text processor needs): split, tokenize, batch, decode, detokenize.
+    # The per-request lane calls model.forward_async; the bulk lane would
+    # import the JAX package's model module for its bucket helpers.
+    with Blocking(Config(prefer_bulk=False)) as service:
+        responses = service.translate(model, list(lines[:32]))
+    if len(responses) != 32 or not all(r.target.text for r in responses):
+        raise RuntimeError("Blocking.translate: malformed responses")
+    return segments, hyps, sample
+
+
+def check_hypothesis(model, seg, hyp, limit, aligned):
+    target = hyp.target
+    if not 1 <= len(target) <= max(1, limit):
+        raise RuntimeError(f"hypothesis length {len(target)} outside 1..{limit}")
+    if any(not 0 <= w < model.vocab_size for w in target):
+        raise RuntimeError("token outside the vocabulary")
+    if model.vocabulary.eos_id in target[:-1]:
+        raise RuntimeError("tokens recorded after EOS")
+    if aligned:
+        align = np.asarray(hyp.alignment, np.float64)
+        if align.shape != (len(target), len(seg)) or not np.isfinite(align).all():
+            raise RuntimeError(f"alignment shape {align.shape}")
+        if np.abs(align.sum(-1) - 1.0).max() > 1e-3:
+            raise RuntimeError("alignment rows do not sum to 1")
+    elif hyp.alignment:
+        raise RuntimeError("alignment returned without being asked for")
+
+
+def agreement(a, b) -> float:
+    same = total = 0
+    for x, y in zip(a, b):
+        n = max(len(x.target), len(y.target))
+        total += n
+        same += sum(1 for i in range(min(len(x.target), len(y.target)))
+                    if x.target[i] == y.target[i])
+    return same / max(total, 1)
+
+
+def forward_rate(torch, model, batch, t):
+    eos = model.vocabulary.eos_id
+    segments = [[3 + (i + j) % 1000 for j in range(t - 1)] + [eos]
+                for i in range(batch)]
+    model.forward(segments, need_alignment=False)  # warm the allocator
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    hyps = model.forward(segments, need_alignment=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    tokens = sum(len(h.target) for h in hyps)
+    return wall, tokens
+
+
+def main() -> None:
+    import torch
+
+    name, smi = probe(torch)
+
+    from slimt_tpu.config import ModelConfig
+    from slimt_tpu.io import load_items
+    from slimt_tpu.io.loader import load_weights
+    from slimt_tpu.io.shortlist import build_synthetic_shortlist
+    from slimt_tpu.io.synthetic import synthetic_model_bytes
+    from slimt_tpu.text import spm_proto
+    from slimt_tpu.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
+    from slimt_tpu_torch import Model, Package
+    from slimt_tpu_torch.io.params import params_from_numpy
+    from slimt_tpu_torch.ops import _build
+    from slimt_tpu_torch.ops import encoder_layer as enc
+    from slimt_tpu_torch.ops import qmm
+
+    dev = torch.device("cuda", 0)
+    start = time.perf_counter()
+    _build.library()
+    log(f"build: {time.perf_counter() - start:.2f} s into {_build.BUILD_DIR}")
+
+    def load_host(emb, ffn, enc_layers, dec_layers, vocab=64):
+        config = ModelConfig(encoder_layers=enc_layers, decoder_layers=dec_layers)
+        return load_weights(load_items(synthetic_model_bytes(
+            config=config, vocab_size=vocab, emb_dim=emb, ffn_dim=ffn, seed=0)),
+            config)
+
+    affine_err, affine_ms = check_affine(torch, qmm, dev)
+    layer_err, layer_ms = check_layer(torch, enc, dev, load_host, params_from_numpy)
+
+    config = ModelConfig(encoder_layers=ENC, decoder_layers=DEC, num_heads=HEADS)
+    model_bytes = synthetic_model_bytes(
+        config=config, vocab_size=VOCAB, emb_dim=EMB, ffn_dim=FFN, seed=0)
+    spm = spm_proto.serialize_model(
+        build_spm_model(DEFAULT_WORDS, target_size=VOCAB))
+    shortlist = build_synthetic_shortlist(VOCAB, best=20, frequent=100)
+    full = Model(config, Package(model_bytes, spm), "cuda")
+    listed = Model(config, Package(model_bytes, spm, shortlist), "cuda")
+    rng = np.random.default_rng(0)
+    lines = make_lines(rng, np.array(DEFAULT_WORDS), 96, 8, 120)
+
+    qmm.affine_kernel.launches = 0
+    enc.layer_kernel.launches = 0
+    served = {}
+    models = {"full vocab": full, "shortlist": listed}
+    for label, model in models.items():
+        start = time.perf_counter()
+        segments, hyps, sample = serve(model, lines)
+        torch.cuda.synchronize()
+        served[label] = segments
+        log(f"serve {label}: {len(hyps)} segments in "
+            f"{time.perf_counter() - start:.3f} s; e.g. {sample[0][:60]!r}")
+    launches = {"qmm_affine": qmm.affine_kernel.launches,
+                "encoder_layer": enc.layer_kernel.launches}
+    log(f"launches in the serving phase: {launches}")
+    if not all(launches.values()):
+        raise RuntimeError(f"a kernel of the path was never launched: {launches}")
+
+    for label, pkg in (("full vocab", Package(model_bytes, spm)),
+                       ("shortlist", Package(model_bytes, spm, shortlist))):
+        cpu = Model(config, pkg, "cpu")
+        segments = served[label][:16]
+        got = models[label].forward(segments, need_alignment=False)
+        want = cpu.forward(segments, need_alignment=False)
+        share = agreement(got, want)
+        log(f"tokens CUDA vs plain CPU ({label}, 16 segments): {share:.6f}")
+        if share < AGREEMENT_MIN:
+            raise RuntimeError(f"token agreement {share} < {AGREEMENT_MIN}")
+
+    for batch in (64, 512):
+        wall, tokens = forward_rate(torch, full, batch, 64)
+        log(f"forward B={batch} T=64 full vocab: {wall * 1e3:.1f} ms, "
+            f"{tokens} tokens, {tokens / wall:.0f} tok/s on {name} ({smi})")
+
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
+              or m.startswith(JAX_PACKAGE_COMPUTE)]
+    if loaded:
+        raise RuntimeError(f"the run imported JAX or the JAX package's models: {loaded}")
+    record = {"kernels": [
+        {"name": "qmm_affine", "route": "cuda", "source": AFFINE_SOURCE,
+         "replaces": "slimt_tpu/ops/qmm_pallas.py:42",
+         "launches": launches["qmm_affine"], "max_abs_err": affine_err,
+         "ms": affine_ms[0], "plain_ms": affine_ms[1]},
+        {"name": "encoder_layer", "route": "cuda", "source": LAYER_SOURCE,
+         "replaces": "slimt_tpu/ops/encoder_layer_pallas.py:87",
+         "launches": launches["encoder_layer"], "max_abs_err": layer_err,
+         "ms": layer_ms[0], "plain_ms": layer_ms[1]},
+    ]}
+    log(json.dumps(record))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

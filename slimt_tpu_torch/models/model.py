@@ -1,0 +1,310 @@
+"""Model on torch: the counterpart of slimt_tpu/models/model.py.
+
+Built from the same Package of artifacts, it owns the weights on one
+device and turns batches of token segments into Hypotheses with the
+same bucketing, shortlist padding, step limits and compact transport
+as the JAX Model, so the runtime (`runtime/service.py`,
+`runtime/bulk.py`) drives it unchanged through `forward_async` and
+`forward_async_arrays`.
+
+The slice implements the declared serving config only. Any config
+value it does not implement raises NotImplementedError naming the
+ROADMAP item that ports it; nothing is substituted silently.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from slimt_tpu.config import ModelConfig
+from slimt_tpu.io import load_items
+from slimt_tpu.io.loader import load_weights, model_dims
+from slimt_tpu.io.shortlist import ShortlistGenerator
+from slimt_tpu.runtime.request import Hypothesis
+from slimt_tpu.text.vocabulary import Vocabulary
+from slimt_tpu.utils import ShortlistMeter
+from slimt_tpu_torch.device import resolve_device
+from slimt_tpu_torch.io.params import params_from_numpy
+from slimt_tpu_torch.models.decode import (
+    compact_result,
+    translate_batch,
+    unpack_compact,
+)
+from slimt_tpu_torch.ops.encoder_layer import MAX_T
+
+# Package, the bucket helpers and their constants are declared in
+# slimt_tpu/models/model.py, which imports the text processor and
+# through it `regex`; the port must import without `regex`, so it
+# declares these few lines itself. Keep them identical.
+SHORTLIST_BUCKET = 1024
+SEQ_BUCKET = 16
+
+_model_ids = itertools.count()
+
+
+def _bucket_seq(t: int) -> int:
+    return max(SEQ_BUCKET, -(-t // SEQ_BUCKET) * SEQ_BUCKET)
+
+
+def _bucket_batch(b: int) -> int:
+    out = 1
+    while out < b:
+        out *= 2
+    return out
+
+
+@dataclasses.dataclass
+class Package:
+    """Artifact bundle: each field is a filesystem path or raw bytes."""
+
+    model: Union[str, bytes]
+    vocabulary: Union[str, bytes]
+    shortlist: Union[str, bytes, None] = None
+    ssplit: Union[str, bytes, None] = None
+
+    @staticmethod
+    def _bytes(source: Union[str, bytes, None]) -> Optional[bytes]:
+        if source is None:
+            return None
+        if isinstance(source, (bytes, bytearray)):
+            return bytes(source)
+        with open(source, "rb") as f:
+            return f.read()
+
+
+def _check_config(config: ModelConfig) -> None:
+    """Raise on every config value this slice does not implement."""
+    unsupported = []
+    if config.kv_cache_dtype != "int16":
+        unsupported.append(
+            f"kv_cache_dtype={config.kv_cache_dtype!r} (ROADMAP Queue 1, item 12)"
+        )
+    if config.argmax_method != "packed_int":
+        unsupported.append(
+            f"argmax_method={config.argmax_method!r} (ROADMAP Queue 1, item 12)"
+        )
+    if config.qmm_provider not in ("xla_int8", "pallas"):
+        item = "11" if config.qmm_provider == "fused_step" else "12"
+        unsupported.append(
+            f"qmm_provider={config.qmm_provider!r} (ROADMAP Queue 1, item {item})"
+        )
+    if config.encoder_dtype is not None:
+        unsupported.append(
+            f"encoder_dtype={config.encoder_dtype!r} (ROADMAP Queue 1, item 12)"
+        )
+    if config.attn_kernel == "on":
+        unsupported.append("attn_kernel='on' (ROADMAP Queue 2, item 3)")
+    if config.encoder_sdpa == "on":
+        unsupported.append("encoder_sdpa='on' (ROADMAP Queue 2, item 8)")
+    if config.flash_attention is True:
+        unsupported.append("flash_attention=True (ROADMAP Queue 1, item 10)")
+    if unsupported:
+        raise NotImplementedError(
+            "not ported yet: " + "; ".join(unsupported)
+        )
+
+
+class Model:
+    def __init__(
+        self,
+        config: ModelConfig,
+        package: Package,
+        device,
+        tgt_length_limit_factor: float = 1.5,
+    ):
+        """Load `package` onto `device` ("cpu" or "cuda"; "cuda"
+        without a card raises). On CUDA every int8 product and encoder
+        layer runs the hand-written kernels of ops/; on the CPU their
+        plain versions."""
+        _check_config(config)
+        self.device = resolve_device(device)
+        self.id = next(_model_ids)
+        self.config = config
+        self.limit_factor = tgt_length_limit_factor
+
+        model_bytes = Package._bytes(package.model)
+        from slimt_tpu.io import checkpoint
+
+        if checkpoint.is_native(model_bytes):
+            raise NotImplementedError(
+                "native (.npz) checkpoints hold stacked layers; the port "
+                "loads marian .bin models (ROADMAP Queue 1, item 1)"
+            )
+        host_params = load_weights(load_items(model_bytes), config)
+        self.vocab_size, self.emb_dim, self.ffn_dim = model_dims(host_params)
+        self.params = params_from_numpy(host_params, self.device)
+
+        self.vocabulary = Vocabulary(Package._bytes(package.vocabulary))
+        self._ssplit = Package._bytes(package.ssplit)
+        self._processor = None
+
+        self.shortlist_generator: Optional[ShortlistGenerator] = None
+        shortlist_bytes = Package._bytes(package.shortlist)
+        if shortlist_bytes:
+            self.shortlist_generator = ShortlistGenerator(
+                shortlist_bytes, vocab_size=self.vocab_size
+            )
+        self.shortlist_meter = ShortlistMeter()
+
+    @property
+    def processor(self):
+        """The TextProcessor, built on first access: it imports the
+        sentence splitter and with it `regex`."""
+        if self._processor is None:
+            from slimt_tpu.text.processor import TextProcessor
+
+            self._processor = TextProcessor(
+                self.config.split_mode,
+                self.vocabulary,
+                self._ssplit.decode("utf-8") if self._ssplit else None,
+            )
+        return self._processor
+
+    # -- device forward ------------------------------------------------
+
+    def forward(
+        self, segments: Sequence[Sequence[int]], need_alignment: bool = True
+    ) -> List[Hypothesis]:
+        """Translate a batch of token segments (each ending in EOS)."""
+        return self.forward_async(segments, need_alignment)()
+
+    def forward_async(
+        self,
+        segments: Sequence[Sequence[int]],
+        need_alignment: bool = True,
+        raw: bool = False,
+    ):
+        """Run the batch and return a zero-arg callable producing the
+        Hypotheses (or, with raw=True, the columnar arrays: tokens
+        [B, steps], per-row step counts, alignment or None)."""
+        batch = len(segments)
+        lengths = [len(s) for s in segments]
+        b_pad = _bucket_batch(batch)
+        t_pad = _bucket_seq(max(lengths))
+        indices = np.full((b_pad, t_pad), self.vocabulary.pad_id, np.int32)
+        mask = np.zeros((b_pad, t_pad), np.float32)
+        for i, segment in enumerate(segments):
+            indices[i, : len(segment)] = segment
+            mask[i, : len(segment)] = 1.0
+        words = None
+        if self.shortlist_generator is not None:
+            words = [w for s in segments for w in s]
+        return self._dispatch(
+            indices, mask, lengths, batch, need_alignment, words, raw=raw
+        )
+
+    def forward_async_arrays(
+        self,
+        indices: np.ndarray,
+        mask: np.ndarray,
+        lengths,
+        batch: int,
+        need_alignment: bool = False,
+        shortlist_words=None,
+        raw: bool = False,
+    ):
+        """Columnar forward on padded [B, T] arrays packed by the
+        caller (the bulk lane)."""
+        return self._dispatch(
+            indices, mask, lengths, batch, need_alignment,
+            shortlist_words, raw=raw,
+        )
+
+    def _dispatch(
+        self, indices, mask, lengths, batch, need_alignment,
+        shortlist_words, raw: bool = False,
+    ):
+        t_pad = indices.shape[1]
+        if t_pad > MAX_T:
+            raise NotImplementedError(
+                f"T={t_pad} > {MAX_T}: the long-context encoder is not "
+                "ported yet (ROADMAP Queue 1, item 10)"
+            )
+        shortlist = None
+        if self.shortlist_generator is not None:
+            words = shortlist_words
+            if words is None:
+                words = []
+            elif isinstance(words, np.ndarray):
+                words = words.tolist()
+            raw_width = len(self.shortlist_generator.generate(words))
+            ids = self.shortlist_generator.generate_padded(
+                words, SHORTLIST_BUCKET
+            ).astype(np.int32)
+            self.shortlist_meter.record_widths(raw_width, len(ids))
+            shortlist = torch.from_numpy(ids).to(self.device)
+
+        # Static bound (sizes the outputs, from the bucketed T) vs the
+        # reference's limit_factor x the batch's actual longest source.
+        max_steps = max(1, int(self.limit_factor * t_pad))
+        actual_max = max((int(n) for n in lengths), default=t_pad)
+        steps_cap = max(1, int(self.limit_factor * actual_max))
+        compact = self.config.compact_transfer and self.vocab_size <= 65535
+        with torch.inference_mode():
+            result = translate_batch(
+                self.params,
+                torch.from_numpy(np.asarray(indices, np.int32)).to(self.device),
+                torch.from_numpy(np.asarray(mask, np.float32)).to(self.device),
+                eos_id=self.vocabulary.eos_id,
+                max_steps=max_steps,
+                num_heads=self.config.num_heads,
+                shortlist=shortlist,
+                decoder_position_zero=self.config.decoder_position_zero,
+                steps_cap=steps_cap,
+                with_alignment=bool(need_alignment),
+            )
+            packed = compact_result(result).packed if compact else None
+
+        def finish():
+            if compact:
+                tokens, valid = unpack_compact(packed, max_steps)
+            else:
+                tokens = result.tokens.cpu().numpy()
+                valid = result.valid.cpu().numpy()
+            align = result.alignment.cpu().numpy() if need_alignment else None
+            if raw:
+                steps = valid[:batch].sum(axis=1).astype(np.int32)
+                return tokens, steps, align
+            histories = []
+            for i in range(batch):
+                steps = int(valid[i].sum())
+                target = tokens[i, :steps].tolist()
+                alignment = (
+                    [align[i, t, : lengths[i]].tolist() for t in range(steps)]
+                    if align is not None
+                    else []
+                )
+                histories.append(Hypothesis(target=target, alignment=alignment))
+            return histories
+
+        return finish
+
+    def warmup(
+        self,
+        batch_buckets: Sequence[int] = (1, 8, 64),
+        seq_buckets: Sequence[int] = (16, 32, 64, 128),
+        alignment: bool = False,
+    ) -> int:
+        """Run each (B, T) bucket once (builds the kernels and fills the
+        allocator's cache). Returns the number of runs."""
+        runs = 0
+        for b in batch_buckets:
+            for t in seq_buckets:
+                segment = [1] * (t - 1) + [self.vocabulary.eos_id]
+                self.forward([segment] * b, need_alignment=False)
+                runs += 1
+                if alignment:
+                    self.forward([segment] * b, need_alignment=True)
+                    runs += 1
+        return runs
+
+    def __repr__(self):
+        return (
+            f"Model(id={self.id}, device={self.device}, vocab={self.vocab_size}, "
+            f"emb={self.emb_dim}, ffn={self.ffn_dim})"
+        )

@@ -1,0 +1,269 @@
+"""Bergamot student transformer on torch: the declared serving path of
+slimt_tpu/models/transformer.py.
+
+Plain functions over the params dict from io/params.py (loader layout,
+per-layer lists). Only what the declared config reaches is here: the
+exact-f32 encoder through the whole-layer kernel, the int16 per-row
+cross-attention cache, the SSRU decoder and the `packed_int` argmax
+over the (optionally shortlisted) tied projection. Every int8 product
+goes through ops/qmm. Masks are additive: 0 for real tokens,
+-99999999 for padding.
+
+Scalars that enter float32 arithmetic are float32 0-dim tensors
+(`_f32`): `python_float / tensor` in torch multiplies by a reciprocal,
+and that rounds differently from the JAX package's division.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from slimt_tpu_torch.ops import encoder_layer as enc
+from slimt_tpu_torch.ops import qmm
+from slimt_tpu_torch.ops.qmm import _f32
+
+MASK_MIN = -99999999.0
+INT16_MAX = 32767.0
+
+
+def layer_norm(x: torch.Tensor, ln: dict) -> torch.Tensor:
+    return enc.layer_norm(x, ln["scale"], ln["bias"])
+
+
+def embed(params: dict, indices: torch.Tensor) -> torch.Tensor:
+    """Token ids → f32 embeddings [.., E] from the int8 table."""
+    emb_q = params["emb"]["q"]
+    rows = emb_q.index_select(0, indices.reshape(-1).to(torch.long))
+    rows = rows.reshape(*indices.shape, emb_q.shape[1])
+    return rows.to(torch.float32) * _f32(params["emb"]["inv"])
+
+
+def sinusoidal_signal(
+    start: int,
+    length: int,
+    emb_dim: int,
+    positions: Optional[torch.Tensor] = None,
+    device=None,
+) -> torch.Tensor:
+    """Marian's sin/cos signal: first half sin, second half cos."""
+    half = emb_dim // 2
+    if positions is None:
+        positions = start + torch.arange(length, dtype=torch.float32, device=device)
+    positions = positions.to(torch.float32)
+    increment = _f32(-math.log(10000.0) / (half - 1.0))
+    inv_timescales = torch.exp(
+        torch.arange(half, dtype=torch.float32, device=positions.device)
+        * increment
+    )
+    angles = positions[:, None] * inv_timescales[None, :]
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
+def transform_embedding(x: torch.Tensor, start: int = 0) -> torch.Tensor:
+    """x * sqrt(E) + positional signal."""
+    emb_dim = x.shape[-1]
+    signal = sinusoidal_signal(start, x.shape[-2], emb_dim, device=x.device)
+    return x * _f32(math.sqrt(emb_dim)) + signal
+
+
+def make_additive_mask(mask: torch.Tensor) -> torch.Tensor:
+    """0/1 mask [B, T] → additive [B, 1, 1, T]."""
+    return ((1.0 - mask) * _f32(MASK_MIN))[:, None, None, :]
+
+
+def _affine(p: dict, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+    return qmm.affine(x, p["q"], p["b"], p["aq"], p["inv"], relu=relu)
+
+
+def encoder_forward(
+    params: dict, word_embedding: torch.Tensor, mask_add: torch.Tensor,
+    num_heads: int,
+) -> torch.Tensor:
+    """[B,T,E] → [B,T,E] through every encoder layer."""
+    x = word_embedding
+    for layer in params["encoder"]:
+        x = enc.encoder_layer_fused(x, layer, mask_add, num_heads)
+    return x
+
+
+def ssru_forward(
+    rnn: dict, state: torch.Tensor, x: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One SSRU step; state is c(t-1) [B, 1, E]. Returns (h, c(t))."""
+    f = torch.sigmoid(_affine(rnn["wf"], x))
+    wx = qmm.dot(x, rnn["w"]["q"], rnn["w"]["aq"], rnn["w"]["inv"])
+    c_t = f * state + (1.0 - f) * wx
+    h = layer_norm(x + torch.relu(c_t), rnn["ln"])
+    return h, c_t
+
+
+def precompute_cross_kv(
+    params: dict, encoder_out: torch.Tensor, num_heads: int
+) -> Tuple[dict, ...]:
+    """Per decoder layer, the joined [B, T, E] int16 cross-attention
+    cache with per-row (b, t) scales: {"k", "v", "kqi", "vqi"}."""
+    one = _f32(1.0)
+    int16_max = _f32(INT16_MAX)
+    floor = _f32(1e-6)
+
+    def q16(a, s):
+        return torch.clamp(
+            torch.round(a * s[..., None]), -INT16_MAX, INT16_MAX
+        ).to(torch.int16)
+
+    caches = []
+    for layer in params["decoder"]:
+        att = layer["att"]
+        k = _affine(att["k"], encoder_out)
+        v = _affine(att["v"], encoder_out)
+        kq = int16_max / torch.maximum(k.abs().amax(-1), floor)
+        vq = int16_max / torch.maximum(v.abs().amax(-1), floor)
+        caches.append(
+            {"k": q16(k, kq), "v": q16(v, vq), "kqi": one / kq, "vqi": one / vq}
+        )
+    return tuple(caches)
+
+
+def _head_selector(emb_dim: int, num_heads: int, device) -> torch.Tensor:
+    """Block-diagonal [E, H] 0/1 matrix: column h selects head h."""
+    eye = torch.eye(num_heads, dtype=torch.float32, device=device)
+    return eye.repeat_interleave(emb_dim // num_heads, dim=0)
+
+
+def _decode_attention_joined(
+    yq: torch.Tensor, kv: dict, mask_add: torch.Tensor, num_heads: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """T_q == 1 cross-attention over the int16 joined cache (the int16
+    branch of the JAX function). Returns (out [B,1,E], attn [B,H,1,T])."""
+    q = yq[:, 0, :]
+    k, v = kv["k"], kv["v"]
+    e = k.shape[-1]
+    scale = _f32(1.0 / math.sqrt(e // num_heads))
+    sel = _head_selector(e, num_heads, q.device)
+    q2 = q[:, :, None] * sel[None]  # [B, E, H]
+    # einsum("bte,beh->bht") as one batched matmul
+    scores = torch.bmm(q2.transpose(1, 2), k.to(torch.float32).transpose(1, 2))
+    scores = scores * scale * kv["kqi"][:, None, :]
+    attn = enc.softmax(scores + mask_add[:, :, 0, :])  # [B, H, T]
+    attn_v = attn * kv["vqi"][:, None, :]
+    res = torch.bmm(attn_v, v.to(torch.float32))  # [B, H, E]
+    out = (res * sel.T[None]).sum(1)  # diagonal-block extract
+    return out[:, None, :], attn[:, :, None, :]
+
+
+def attention_forward(
+    att: dict, q_in: torch.Tensor, mask_add: torch.Tensor, num_heads: int,
+    kv_cache: dict,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode-step cross-attention block incl. residual + post-LN.
+    Returns (out, attn_weights)."""
+    yq = _affine(att["q"], q_in)
+    attn_out, attn = _decode_attention_joined(yq, kv_cache, mask_add, num_heads)
+    out = _affine(att["o"], attn_out)
+    return layer_norm(q_in + out, att["ln"]), attn
+
+
+def _ffn_block(layer: dict, x: torch.Tensor) -> torch.Tensor:
+    """FFN1 → relu → FFN2 → residual → post-LN."""
+    h = _affine(layer["ffn"]["w1"], x, relu=True)
+    y = _affine(layer["ffn"]["w2"], h)
+    return layer_norm(y + x, layer["ffn"]["ln"])
+
+
+def decoder_layer_forward(
+    layer: dict, state: torch.Tensor, x: torch.Tensor,
+    mask_add: torch.Tensor, kv_cache: dict, num_heads: int,
+):
+    """SSRU → cross-attention → FFN. Returns (out, new_state, attn)."""
+    decoder_out, new_state = ssru_forward(layer["rnn"], state, x)
+    out, attn = attention_forward(
+        layer["att"], decoder_out, mask_add, num_heads, kv_cache
+    )
+    return _ffn_block(layer, out), new_state, attn
+
+
+def decoder_step(
+    params: dict,
+    states: Sequence[torch.Tensor],
+    prev_embed: torch.Tensor,
+    mask_add: torch.Tensor,
+    kv_caches: Sequence[dict],
+    num_heads: int,
+    shortlist: Optional[torch.Tensor] = None,
+    projection: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+):
+    """One greedy decode step over all decoder layers. prev_embed is
+    the transformed [B, 1, E] input. Returns (choice [B] int32 — a
+    column of the projection —, new_states, attn [B,H,1,T] of the last
+    layer)."""
+    x = prev_embed
+    new_states = []
+    guided = None
+    for layer, state, kv in zip(params["decoder"], states, kv_caches):
+        x, new_state, guided = decoder_layer_forward(
+            layer, state, x, mask_add, kv, num_heads
+        )
+        new_states.append(new_state)
+    if projection is None:
+        projection = prepare_output_projection(params, shortlist)
+    choice = output_argmax(params, x[:, 0, :], projection)
+    return choice, tuple(new_states), guided
+
+
+def prepare_output_projection(
+    params: dict, shortlist: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(W [E, V or S], b) of the tied logit projection. W is a
+    transposed view of the int8 embedding (or of its shortlisted rows,
+    gathered once per batch); nothing is copied per step."""
+    emb_q = params["emb"]["q"]  # [V, E]
+    bias = params["out"]["b"]
+    if shortlist is not None:
+        ids = shortlist.to(torch.long)
+        return emb_q.index_select(0, ids).T, bias.index_select(0, ids)
+    return emb_q.T, bias
+
+
+def packed_int_argmax(
+    acc: torch.Tensor, b_i32: torch.Tensor, width_bits: int, shift: int
+) -> torch.Tensor:
+    """argmax over floor((acc + b_i32) / 2**shift), first index on
+    ties, as one int32 max over packed keys (value above, reversed
+    column below)."""
+    v = (acc + b_i32) >> shift
+    col = torch.arange(acc.shape[-1], dtype=torch.int32, device=acc.device)
+    mask_col = (1 << width_bits) - 1
+    key = (v << width_bits) | (mask_col - col)
+    best = key.amax(-1)
+    return (mask_col - (best & mask_col)).to(torch.int32)
+
+
+def packed_int_params(width: int, emb_dim: int) -> Tuple[int, int]:
+    """(width_bits, shift) for packed_int_argmax: the reversed column
+    needs width_bits; the value keeps the rest of the int32 budget
+    against the accumulator bound 2*E*127^2."""
+    width_bits = max(1, (width - 1).bit_length())
+    bound = 2 * emb_dim * 127 * 127 + 1
+    value_bits = 31 - width_bits
+    shift = max(0, bound.bit_length() - (value_bits - 1))
+    return width_bits, shift
+
+
+def output_argmax(
+    params: dict, x: torch.Tensor, projection: Tuple[torch.Tensor, torch.Tensor]
+) -> torch.Tensor:
+    """Greedy choice [B] int32 by the `packed_int` method: the int8
+    projection's int32 accumulators plus the bias folded into
+    accumulator units, compared as packed integer keys."""
+    w, b = projection
+    aq = params["out"]["aq"]
+    bq = params["emb"]["scale"]
+    acc = qmm.int8_matmul(x, w, aq)
+    e_dim, width = w.shape
+    width_bits, shift = packed_int_params(width, e_dim)
+    cap = e_dim * 127 * 127
+    b_i32 = torch.clamp(torch.round(b * _f32(aq * bq)), -cap, cap).to(torch.int32)
+    return packed_int_argmax(acc, b_i32, width_bits, shift)

@@ -1,0 +1,105 @@
+"""Build and load the port's CUDA kernels (`ops/csrc/*.cu`).
+
+One `nvcc` call compiles every source into one shared library with a
+plain C interface, written to `slimt_tpu_torch/build/` (git-ignored)
+under a name that carries the hash of the sources and flags, so an
+edit rebuilds and an unchanged tree reuses the library. The library is
+loaded with ctypes; every pointer and the stream pass as c_void_p.
+
+Nothing is built when a module is imported: the first kernel launch
+calls `library()`. Build failures raise with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_lib = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+_SIGNATURES = {
+    # x, w, bias, y, m, k, n, w_stride_k, w_stride_n, aq, inv, mode, stream
+    "slimt_affine": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _F, _F, _I, _P),
+    # x, mask, out, scratch, weights[16], scales[12], b, t, e, f, heads,
+    # att_scale, stream
+    "slimt_encoder_layer": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P
+    ),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources():
+    sources = sorted(_CSRC.glob("*.cu"))
+    headers = sorted(_CSRC.glob("*.cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources + headers:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return sources, digest.hexdigest()[:16]
+
+
+def _build(sources, target: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, target)
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            sources, digest = _sources()
+            target = BUILD_DIR / f"libslimt_kernels_{digest}.so"
+            if not target.exists():
+                _build(sources, target)
+            lib = ctypes.CDLL(str(target))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.slimt_error_string.argtypes = [ctypes.c_int]
+            lib.slimt_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error (cudaGetLastError)."""
+    if code != 0:
+        message = lib.slimt_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code}: {message}")

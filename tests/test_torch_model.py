@@ -1,0 +1,181 @@
+"""The port's Model (slimt_tpu_torch/models/model.py) against the JAX
+Model on tests/helpers.make_package packages: forward, forward_async
+(raw), forward_async_arrays and the runtime's Blocking service give
+the same tokens. Also: "cuda" without a card raises, unported config
+values raise, and importing the port loads neither jax nor regex.
+"""
+
+import dataclasses
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from slimt_tpu.config import Config  # noqa: E402
+from slimt_tpu.models.model import Model as JaxModel  # noqa: E402
+from slimt_tpu.runtime.service import Blocking  # noqa: E402
+from slimt_tpu_torch import Model, Package  # noqa: E402
+from tests.helpers import TINY_TEST_CONFIG, make_package  # noqa: E402
+
+SEGMENTS = [[5, 9, 4, 0], [7, 2, 0], [3, 8, 6, 2, 11, 12, 0], [4, 0]]
+LINES = ["hello world", "the quick brown fox", "a b c", "dog"]
+
+
+def _pair(with_shortlist):
+    config = dataclasses.replace(TINY_TEST_CONFIG)
+    pkg = make_package(config=config, with_shortlist=with_shortlist)
+    port_pkg = Package(pkg.model, pkg.vocabulary, pkg.shortlist, pkg.ssplit)
+    return JaxModel(config, pkg), Model(config, port_pkg, "cpu")
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["full", "shortlist"])
+def models(request):
+    return _pair(request.param)
+
+
+def test_forward_matches_jax(models):
+    jax_model, port = models
+    for need_alignment in (False, True):
+        want = jax_model.forward(SEGMENTS, need_alignment)
+        got = port.forward(SEGMENTS, need_alignment)
+        assert [h.target for h in got] == [h.target for h in want]
+        for g, w in zip(got, want):
+            assert len(g.alignment) == len(w.alignment)
+            if w.alignment:
+                np.testing.assert_allclose(
+                    np.asarray(g.alignment), np.asarray(w.alignment),
+                    atol=1e-5, rtol=0,
+                )
+
+
+def test_forward_async_raw_and_arrays_match_jax(models):
+    jax_model, port = models
+    finishes = [port.forward_async(SEGMENTS, False, raw=True) for _ in range(2)]
+    w_tokens, w_steps, w_align = jax_model.forward_async(
+        SEGMENTS, False, raw=True
+    )()
+    for finish in finishes:
+        tokens, steps, align = finish()
+        assert align is None and w_align is None
+        np.testing.assert_array_equal(steps, w_steps)
+        np.testing.assert_array_equal(tokens, w_tokens)
+
+    b_pad, t_pad = 4, 16
+    indices = np.zeros((b_pad, t_pad), np.int32)
+    mask = np.zeros((b_pad, t_pad), np.float32)
+    for i, seg in enumerate(SEGMENTS):
+        indices[i, : len(seg)] = seg
+        mask[i, : len(seg)] = 1.0
+    lengths = np.array([len(s) for s in SEGMENTS])
+    words = np.concatenate([np.asarray(s) for s in SEGMENTS])
+    args = (indices, mask, lengths, len(SEGMENTS))
+    kwargs = dict(shortlist_words=words, raw=True)
+    got = port.forward_async_arrays(*args, **kwargs)()
+    want = jax_model.forward_async_arrays(*args, **kwargs)()
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    snap, want_snap = (
+        m.shortlist_meter.snapshot() for m in (port, jax_model)
+    )
+    for key in ("avg_generated_width", "avg_padded_width"):
+        assert snap.get(key) == want_snap.get(key)
+
+
+def test_blocking_service_matches_jax(models):
+    jax_model, port = models
+    with Blocking(Config()) as service:
+        want = service.translate(jax_model, LINES)
+        got = service.translate(port, LINES)
+    assert [r.target.text for r in got] == [r.target.text for r in want]
+
+
+def test_cuda_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    pkg = make_package()
+    with pytest.raises(RuntimeError, match="cuda"):
+        Model(TINY_TEST_CONFIG, Package(pkg.model, pkg.vocabulary), "cuda")
+
+
+@pytest.mark.parametrize(
+    "change",
+    [
+        {"kv_cache_dtype": "int8"},
+        {"argmax_method": "exact"},
+        {"qmm_provider": "f32"},
+        {"encoder_dtype": "float16"},
+        {"attn_kernel": "on"},
+        {"encoder_sdpa": "on"},
+        {"flash_attention": True},
+    ],
+)
+def test_unported_config_raises(change):
+    config = dataclasses.replace(TINY_TEST_CONFIG, **change)
+    pkg = make_package()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(config, Package(pkg.model, pkg.vocabulary), "cpu")
+
+
+def test_long_input_raises():
+    pkg = make_package()
+    port = Model(TINY_TEST_CONFIG, Package(pkg.model, pkg.vocabulary), "cpu")
+    with pytest.raises(NotImplementedError, match="T=272"):
+        port.forward([[5] * 260 + [0]])
+
+
+def test_plain_transport_and_warmup_match_compact():
+    pkg = make_package()
+    plain = Model(
+        dataclasses.replace(TINY_TEST_CONFIG, compact_transfer=False),
+        Package(pkg.model, pkg.vocabulary), "cpu",
+    )
+    compact = Model(TINY_TEST_CONFIG, Package(pkg.model, pkg.vocabulary), "cpu")
+    assert [h.target for h in plain.forward(SEGMENTS)] == [
+        h.target for h in compact.forward(SEGMENTS)
+    ]
+    assert plain.warmup(batch_buckets=(1, 2), seq_buckets=(16,)) == 2
+
+
+def test_native_checkpoint_raises():
+    from slimt_tpu.io.checkpoint import convert_marian
+
+    pkg = make_package()
+    blob = convert_marian(pkg.model, TINY_TEST_CONFIG)
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        Model(TINY_TEST_CONFIG, Package(blob, pkg.vocabulary), "cpu")
+
+
+def test_import_loads_neither_jax_nor_regex():
+    code = textwrap.dedent(
+        """
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "regex"):
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import slimt_tpu_torch
+        from slimt_tpu_torch.models import decode, transformer
+        from slimt_tpu_torch.ops import encoder_layer, qmm
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "regex")]
+        assert not loaded, loaded
+        print("ok")
+        """
+    )
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=root, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
