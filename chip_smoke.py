@@ -8,22 +8,34 @@ without printing a result:
 
 1. probe   — a CUDA card must be present; print its name, compute
              capability and `nvidia-smi` name and power limit;
-2. build   — build the kernels from ops/csrc at first use;
+2. build   — build the kernels from ops/csrc at first use (one nvcc per
+             source, in parallel);
 3. kernels — each kernel against its plain PyTorch version on the card
-             at the serving path's shapes: the int8 affine bit-equal in
+             at the serving paths' shapes: the int8 affine bit-equal in
              every mode, the encoder layer within 2e-5 (the bound the
-             JAX package holds its TPU kernel to); times beside the
-             plain versions';
+             JAX package holds its TPU kernel to), the whole decode step
+             within 2e-5 on states and head-0 attention on >= 99% of
+             rows (every row within 0.25: an int8 rounding flip moves
+             a row by up to ~0.06) with >= 99% of choices equal, its
+             projection stage bit-equal given the same rows (a tie
+             across vocab tiles included); times beside the plain
+             versions';
 4. serve   — a tiny11-width model (32k vocab, emb 256, ffn 1536, 6+2
              layers, 8 heads; random weights from seed 0) answers
              request batches of text through Model.forward_async,
              Model.forward_async_arrays and the runtime's
-             Blocking(...).translate, with and without shortlist
-             and alignment; every kernel's launch count must be > 0;
+             Blocking(...).translate, with and without shortlist and
+             alignment: first on the declared path, then on the
+             fused_step latency path; the launch counts are set to 0
+             before each path and read after it, and every kernel of the
+             path must have launched;
 5. check   — outputs well formed; CUDA tokens against the plain CPU
-             path on 16 segments (>= 99% equal); forward wall time and
-             tokens/s at B=64 and B=512 (T=64); neither JAX nor the JAX
-             package's models or ops were imported.
+             path on 16 segments (>= 99% equal) for both paths; forward
+             wall time and tokens/s at B=64 and B=512 (T=64); at B=1,
+             T=32 the fused_step forward against the declared one
+             (median of 5 runs, µs per step, device operations per step
+             by torch.profiler); neither JAX nor the JAX package's
+             models or ops were imported.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -31,7 +43,9 @@ The second-to-last line is the kernels' JSON record, the last line
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -39,12 +53,22 @@ import time
 import numpy as np
 
 from slimt_tpu.config import Config
+from slimt_tpu.runtime.response import Options
 from slimt_tpu.runtime.service import Blocking
 
 VOCAB, EMB, FFN, ENC, DEC, HEADS = 32000, 256, 1536, 6, 2, 8
 AFFINE_SOURCE = "slimt_tpu_torch/ops/csrc/qmm_affine.cu"
 LAYER_SOURCE = "slimt_tpu_torch/ops/csrc/encoder_layer.cu"
+STEP_SOURCE = "slimt_tpu_torch/ops/csrc/decoder_step.cu"
 LAYER_TOL = 2e-5
+STEP_TOL = 2e-5  # the encoder layer's bound, per row
+# The two versions sum in different orders, so now and then a quantized
+# layer-2 input rounds to the neighbouring int8 value in one of them (a
+# "flip": the first layer's states are bit-equal); the few rows it
+# touches move by up to ~0.06. So >= 99% of rows must be within STEP_TOL
+# and every row within FLIP_BOUND.
+FLIP_BOUND = 0.25
+MASK_MIN = -99999999.0
 AGREEMENT_MIN = 0.99
 # Of the JAX package the port reuses only the JAX-free config, io, text
 # and runtime modules; none of these may be imported.
@@ -195,6 +219,196 @@ def check_layer(torch, enc, dev, load_host, params_from_numpy):
     return worst, timing
 
 
+def step_case(torch, tfm, params, gen, b, t, width):
+    """Whole-step arguments on the card: random x, states and int16
+    per-row caches; row 0 padded from t/2, the last row (b > 1) fully
+    masked; the full projection, or a shortlist of `width` columns."""
+    dev = gen.device
+    e = params["emb"]["q"].shape[1]
+    vocab = params["emb"]["q"].shape[0]
+    layers = params["decoder"]
+    x = torch.randn((b, 1, e), device=dev, generator=gen) * 2.0
+    states = tuple(torch.randn((b, 1, e), device=dev, generator=gen) for _ in layers)
+    mask = torch.ones((b, t), device=dev)
+    mask[0, t // 2:] = 0.0
+    if b > 1:
+        mask[-1] = 0.0
+    mask_add = ((1.0 - mask) * MASK_MIN)[:, None, None, :]
+
+    def int16():
+        return torch.randint(-32767, 32768, (b, t, e), device=dev,
+                             dtype=torch.int16, generator=gen)
+
+    def inv_scale():
+        return (torch.rand((b, t), device=dev, generator=gen) * 1.5 + 0.5) / 32767.0
+
+    caches = tuple({"k": int16(), "v": int16(), "kqi": inv_scale(),
+                    "vqi": inv_scale()} for _ in layers)
+    shortlist = None
+    if width:
+        shortlist = torch.randperm(vocab, device=dev, generator=gen)[:width].sort().values
+    projection = tfm.prepare_output_projection(params, shortlist)
+    return (layers, states, x, mask_add, caches, HEADS, projection,
+            params["out"]["aq"], tfm.output_inv(params))
+
+
+def logit_gap(qmm, y, args, choice, want) -> float:
+    """Largest plain-logit gap between the plain and the kernel's choice
+    over the rows where they differ (0 where none differ)."""
+    differ = (choice != want).nonzero().flatten()
+    if not len(differ):
+        return 0.0
+    logits = qmm.affine_plain(y, *args[6], args[7], args[8])[differ]
+    picked = logits.gather(1, choice[differ].long()[:, None])[:, 0]
+    return float((logits.amax(-1) - picked).max())
+
+
+def check_step(torch, dstep, tfm, qmm, dev, load_host, params_from_numpy):
+    """Whole step vs plain at tiny and base widths: states and attn0 within
+    STEP_TOL, >= 99% of choices equal, the projection stage bit-equal
+    given the same rows; a tie across vocab tiles; times."""
+    worst = 0.0
+    rows = same = within = 0
+    worst_gap = 0.0
+    cases = 0
+    tiny = None
+    for emb, ffn in ((EMB, FFN), (512, 2048)):
+        params = params_from_numpy(load_host(emb, ffn, 1, DEC, vocab=VOCAB), dev)
+        if emb == EMB:
+            tiny = params
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(emb)
+        shapes = [(b, t, 0) for b in (1, 8, 33, 64, 512) for t in (16, 64, 128, 256)]
+        shapes += [(b, 64, w) for b in (1, 8, 33, 64, 512) for w in (1024, 3072)]
+        for b, t, width in shapes:
+            args = step_case(torch, tfm, params, gen, b, t, width)
+            choice, states, attn0 = dstep.whole_step_kernel(*args)
+            y, want_states, want_attn0 = dstep.layers_plain(*args[:6])
+            want = dstep.argmax_affine_plain(y, *args[6], args[7], args[8])
+            stage = dstep.argmax_affine_kernel(y, *args[6], args[7], args[8])
+            torch.cuda.synchronize()
+            label = f"whole step E={emb} F={ffn} B={b} T={t} S={width or VOCAB}"
+            if not all(bool(torch.isfinite(s).all()) for s in states + (attn0,)):
+                raise RuntimeError(f"{label}: non-finite output")
+            row_err = (attn0 - want_attn0).abs().amax(-1)
+            for got, ref in zip(states, want_states):
+                row_err = torch.maximum(row_err, (got - ref).abs().amax((1, 2)))
+            err = float(row_err.max())
+            worst = max(worst, err)
+            beyond = int((row_err > STEP_TOL).sum())
+            if beyond:
+                log(f"{label}: {beyond} of {b} rows beyond {STEP_TOL}, max |diff| {err:.3g}")
+            if err > FLIP_BOUND:
+                raise RuntimeError(f"{label}: max |diff| {err} > {FLIP_BOUND}")
+            if not torch.equal(stage, want):
+                raise RuntimeError(f"{label}: projection stage not bit-equal")
+            rows += b
+            within += b - beyond
+            same += int((choice == want).sum())
+            worst_gap = max(worst_gap, logit_gap(qmm, y, args, choice, want))
+            cases += 1
+    share = same / rows
+    log(f"whole step: {cases} cases; states and attn0 within {STEP_TOL} on "
+        f"{within}/{rows} rows ({within / rows:.6f}), max |diff| {worst:.3g}; "
+        f"choices equal on {same}/{rows} rows ({share:.6f}), largest logit gap "
+        f"where they differ {worst_gap:.3g}; projection stage bit-equal")
+    if within / rows < AGREEMENT_MIN or share < AGREEMENT_MIN:
+        raise RuntimeError(f"whole step: rows within {STEP_TOL} {within / rows}, "
+                           f"choices equal {share}; both must be >= {AGREEMENT_MIN}")
+    check_tie(torch, dstep, tfm, tiny)
+    return worst, time_step(torch, dstep, tfm, tiny)
+
+
+def check_tie(torch, dstep, tfm, params):
+    """Two identical projection columns in different vocab tiles: the
+    first must win, in the kernel and in the plain version."""
+    dev = params["emb"]["q"].device
+    emb = params["emb"]["q"].clone()
+    first, second = 301, 20006  # tiles 1 and 78 of 256 columns
+    emb[second] = emb[first]
+    bias = params["out"]["b"].clone()
+    bias[second] = bias[first]
+    ids = torch.arange(0, VOCAB, 7, device=dev)  # holds both, in tiles 0 and 11
+    for label, w, b, col in (
+        ("full", emb.T, bias, first),
+        ("shortlist", emb.index_select(0, ids).T, bias.index_select(0, ids),
+         int((ids == first).nonzero())),
+    ):
+        y = (w[:, col].float() / 40.0).repeat(3, 1).contiguous()
+        got = dstep.argmax_affine_kernel(y, w, b, 20.0, 1e-3)
+        want = dstep.argmax_affine_plain(y, w, b, 20.0, 1e-3)
+        torch.cuda.synchronize()
+        if got.tolist() != [col] * 3 or not torch.equal(got, want):
+            raise RuntimeError(f"tie ({label}): kernel {got.tolist()}, "
+                               f"plain {want.tolist()}, first column {col}")
+    log("projection tie across vocab tiles: the first column wins (full, shortlist)")
+
+
+def time_step(torch, dstep, tfm, params):
+    """Kernel (with its per-batch plan) vs plain, CUDA events, T=64,
+    tiny widths. Returns the B=1 full-vocab pair."""
+    gen = torch.Generator(device=params["emb"]["q"].device)
+    gen.manual_seed(1)
+    timing = None
+    for width in (0, 1024):
+        for b in (1, 8, 64):
+            args = step_case(torch, tfm, params, gen, b, 64, width)
+            plan = dstep.StepPlan(args[0], args[4], args[3], HEADS, args[6],
+                                  args[7], args[8])
+            kernel = cuda_ms(torch, lambda: dstep.whole_step_kernel(*args, plan=plan), 50)
+            plain = cuda_ms(torch, lambda: dstep.whole_step_plain(*args), 20)
+            log(f"time whole step E={EMB} F={FFN} B={b} T=64 S={width or VOCAB}: "
+                f"kernel {kernel:.4f} ms, plain {plain:.4f} ms")
+            if (b, width) == (1, 0):
+                timing = (kernel, plain)
+    return timing
+
+
+def executed_steps(valid: int, limit: int, every: int) -> int:
+    """Decode steps a B=1 forward ran: the loop checks completion every
+    `every` steps, so a row that ended after `valid` steps ran to the
+    next check."""
+    if valid >= limit:
+        return limit
+    return min(limit, -(-valid // every) * every)
+
+
+def latency(torch, model, every, whole_step):
+    """B=1, T=32: median wall of 5 forwards, µs per step, and device
+    operations and kernel time per step from one profiled forward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eos = model.vocabulary.eos_id
+    segment = [[3 + j for j in range(31)] + [eos]]
+    hyps = model.forward(segment, need_alignment=False)
+    launches = whole_step.launches
+    model.forward(segment, need_alignment=False)
+    launched = whole_step.launches - launches
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        model.forward(segment, need_alignment=False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+    steps = executed_steps(len(hyps[0].target), int(1.5 * 32), every)
+    if launched and launched != steps:
+        raise RuntimeError(f"whole step launched {launched} times for {steps} steps")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.forward(segment, need_alignment=False)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in device)
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    log("  device time per step by kernel: " + "; ".join(
+        f"{name[:40]} {us / steps:.1f} us" for name, us in top))
+    return statistics.median(walls), walls, steps, len(device), busy_us
+
+
 def make_lines(rng, words, count, low, high):
     return [" ".join(rng.choice(words, int(rng.integers(low, high))))
             for _ in range(count)]
@@ -243,8 +457,11 @@ def serve(model, lines):
     # import the JAX package's model module for its bucket helpers.
     with Blocking(Config(prefer_bulk=False)) as service:
         responses = service.translate(model, list(lines[:32]))
+        aligned = service.translate(model, list(lines[:8]), Options(alignment=True))
     if len(responses) != 32 or not all(r.target.text for r in responses):
         raise RuntimeError("Blocking.translate: malformed responses")
+    if len(aligned) != 8 or not all(r.alignments for r in aligned):
+        raise RuntimeError("Blocking.translate with alignment: no alignments")
     return segments, hyps, sample
 
 
@@ -304,7 +521,10 @@ def main() -> None:
     from slimt_tpu.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
     from slimt_tpu_torch import Model, Package
     from slimt_tpu_torch.io.params import params_from_numpy
+    from slimt_tpu_torch.models import transformer as tfm
+    from slimt_tpu_torch.models.decode import CHECK_EVERY
     from slimt_tpu_torch.ops import _build
+    from slimt_tpu_torch.ops import decoder_step as dstep
     from slimt_tpu_torch.ops import encoder_layer as enc
     from slimt_tpu_torch.ops import qmm
 
@@ -321,50 +541,74 @@ def main() -> None:
 
     affine_err, affine_ms = check_affine(torch, qmm, dev)
     layer_err, layer_ms = check_layer(torch, enc, dev, load_host, params_from_numpy)
+    step_err, step_ms = check_step(torch, dstep, tfm, qmm, dev, load_host,
+                                   params_from_numpy)
+    log(f"kernel times above on {name} ({smi})")
 
     config = ModelConfig(encoder_layers=ENC, decoder_layers=DEC, num_heads=HEADS)
+    fused_config = dataclasses.replace(config, qmm_provider="fused_step")
     model_bytes = synthetic_model_bytes(
         config=config, vocab_size=VOCAB, emb_dim=EMB, ffn_dim=FFN, seed=0)
     spm = spm_proto.serialize_model(
         build_spm_model(DEFAULT_WORDS, target_size=VOCAB))
     shortlist = build_synthetic_shortlist(VOCAB, best=20, frequent=100)
-    full = Model(config, Package(model_bytes, spm), "cuda")
-    listed = Model(config, Package(model_bytes, spm, shortlist), "cuda")
+    packages = {"full vocab": Package(model_bytes, spm),
+                "shortlist": Package(model_bytes, spm, shortlist)}
     rng = np.random.default_rng(0)
     lines = make_lines(rng, np.array(DEFAULT_WORDS), 96, 8, 120)
+    counters = {"qmm_affine": qmm.affine_kernel,
+                "encoder_layer": enc.layer_kernel,
+                "whole_decode_step": dstep.whole_step_kernel}
+    path_kernels = {"declared": ("qmm_affine", "encoder_layer"),
+                    "fused_step": ("qmm_affine", "encoder_layer", "whole_decode_step")}
 
-    qmm.affine_kernel.launches = 0
-    enc.layer_kernel.launches = 0
-    served = {}
-    models = {"full vocab": full, "shortlist": listed}
-    for label, model in models.items():
-        start = time.perf_counter()
-        segments, hyps, sample = serve(model, lines)
-        torch.cuda.synchronize()
-        served[label] = segments
-        log(f"serve {label}: {len(hyps)} segments in "
-            f"{time.perf_counter() - start:.3f} s; e.g. {sample[0][:60]!r}")
-    launches = {"qmm_affine": qmm.affine_kernel.launches,
-                "encoder_layer": enc.layer_kernel.launches}
-    log(f"launches in the serving phase: {launches}")
-    if not all(launches.values()):
-        raise RuntimeError(f"a kernel of the path was never launched: {launches}")
+    launches = {}
+    paths = {}
+    for path, path_config in (("declared", config), ("fused_step", fused_config)):
+        models = {label: Model(path_config, pkg, "cuda")
+                  for label, pkg in packages.items()}
+        for counter in counters.values():
+            counter.launches = 0
+        served = {}
+        for label, model in models.items():
+            start = time.perf_counter()
+            segments, hyps, sample = serve(model, lines)
+            torch.cuda.synchronize()
+            served[label] = segments
+            log(f"serve {path} {label}: {len(hyps)} segments in "
+                f"{time.perf_counter() - start:.3f} s; e.g. {sample[0][:60]!r}")
+        counts = {key: counter.launches for key, counter in counters.items()}
+        log(f"launches in the {path} serving phase: {counts}")
+        missing = [key for key in path_kernels[path] if not counts[key]]
+        if missing:
+            raise RuntimeError(f"{path}: kernels never launched: {missing}")
+        # The record takes each kernel's count from the first path it serves.
+        for key in path_kernels[path]:
+            launches.setdefault(key, counts[key])
 
-    for label, pkg in (("full vocab", Package(model_bytes, spm)),
-                       ("shortlist", Package(model_bytes, spm, shortlist))):
-        cpu = Model(config, pkg, "cpu")
-        segments = served[label][:16]
-        got = models[label].forward(segments, need_alignment=False)
-        want = cpu.forward(segments, need_alignment=False)
-        share = agreement(got, want)
-        log(f"tokens CUDA vs plain CPU ({label}, 16 segments): {share:.6f}")
-        if share < AGREEMENT_MIN:
-            raise RuntimeError(f"token agreement {share} < {AGREEMENT_MIN}")
+        for label, pkg in packages.items():
+            cpu = Model(path_config, pkg, "cpu")
+            segments = served[label][:16]
+            got = models[label].forward(segments, need_alignment=False)
+            want = cpu.forward(segments, need_alignment=False)
+            share = agreement(got, want)
+            log(f"tokens CUDA vs plain CPU ({path}, {label}, 16 segments): {share:.6f}")
+            if share < AGREEMENT_MIN:
+                raise RuntimeError(f"token agreement {share} < {AGREEMENT_MIN}")
+        paths[path] = models["full vocab"]
 
     for batch in (64, 512):
-        wall, tokens = forward_rate(torch, full, batch, 64)
+        wall, tokens = forward_rate(torch, paths["declared"], batch, 64)
         log(f"forward B={batch} T=64 full vocab: {wall * 1e3:.1f} ms, "
             f"{tokens} tokens, {tokens / wall:.0f} tok/s on {name} ({smi})")
+
+    for path in ("declared", "fused_step", "fused_step", "declared"):
+        wall, walls, steps, ops, busy_us = latency(
+            torch, paths[path], CHECK_EVERY, dstep.whole_step_kernel)
+        log(f"latency {path} B=1 T=32 full vocab: median wall {wall * 1e3:.3f} ms "
+            f"of {[round(w * 1e3, 3) for w in walls]}, {steps} steps, "
+            f"{wall / steps * 1e6:.1f} us/step, {ops / steps:.1f} device ops/step, "
+            f"device busy {busy_us / steps:.1f} us/step (profiled) on {name} ({smi})")
 
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
               or m.startswith(JAX_PACKAGE_COMPUTE)]
@@ -379,6 +623,10 @@ def main() -> None:
          "replaces": "slimt_tpu/ops/encoder_layer_pallas.py:87",
          "launches": launches["encoder_layer"], "max_abs_err": layer_err,
          "ms": layer_ms[0], "plain_ms": layer_ms[1]},
+        {"name": "whole_decode_step", "route": "cuda", "source": STEP_SOURCE,
+         "replaces": "slimt_tpu/ops/decoder_step_pallas.py:497",
+         "launches": launches["whole_decode_step"], "max_abs_err": step_err,
+         "ms": step_ms[0], "plain_ms": step_ms[1]},
     ]}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

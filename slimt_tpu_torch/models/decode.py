@@ -12,6 +12,10 @@ semantics are the reference's, as in the JAX package:
   - with alignment, each step records head 0 of the last decoder
     layer's cross-attention.
 
+Under provider "fused_step" each step is one call of the whole-step
+kernel (ops/decoder_step), whose argument block is built once per
+batch; the argmax is then the exact first maximum.
+
 The loop asks the device whether every row is complete once every
 `check_every` steps (one `.item()`, which waits for the device). Rows
 that are already complete are masked out of tokens, valid and the
@@ -27,9 +31,33 @@ import numpy as np
 import torch
 
 from slimt_tpu_torch.models import transformer as tfm
+from slimt_tpu_torch.ops import decoder_step as dstep
 from slimt_tpu_torch.ops.qmm import _f32
 
 CHECK_EVERY = 8
+
+
+# Providers of the declared path; "fused_step" is the latency path.
+DECLARED_PROVIDERS = (None, "xla_int8", "pallas")
+# Cache dtypes the JAX package coerces to the int16 per-row cache under
+# fused_step (slimt_tpu/models/decode.py:98-106).
+FUSED_STEP_COERCED = (None, "int8", "k8v16", "k16v8", "float16")
+
+
+def check_options(provider: Optional[str], kv_dtype: Optional[str]) -> None:
+    """The loop always runs the int16 per-row cache. Under fused_step the
+    JAX package's coercions to it apply; any other provider or cache
+    raises NotImplementedError naming its ROADMAP item."""
+    if provider not in DECLARED_PROVIDERS + ("fused_step",):
+        raise NotImplementedError(
+            f"provider={provider!r} (ROADMAP Queue 1, item 12)"
+        )
+    coerced = provider == "fused_step" and kv_dtype in FUSED_STEP_COERCED
+    if kv_dtype != "int16" and not coerced:
+        raise NotImplementedError(
+            f"kv_dtype={kv_dtype!r} with provider={provider!r} "
+            "(ROADMAP Queue 1, item 12)"
+        )
 
 
 class GreedyResult(NamedTuple):
@@ -50,14 +78,26 @@ def greedy_decode(
     steps_cap: Optional[int] = None,
     with_alignment: bool = True,
     check_every: int = CHECK_EVERY,
+    provider: Optional[str] = None,
+    kv_dtype: Optional[str] = "int16",
 ) -> GreedyResult:
+    check_options(provider, kv_dtype)
     batch, t_src, emb_dim = encoder_out.shape
     device = encoder_out.device
     kv_caches = tfm.precompute_cross_kv(params, encoder_out, num_heads)
     projection = tfm.prepare_output_projection(params, shortlist)
+    plan = None
+    if provider == "fused_step" and device.type == "cuda":
+        plan = dstep.StepPlan(
+            params["decoder"], kv_caches, mask_add, num_heads, projection,
+            params["out"]["aq"], tfm.output_inv(params),
+        )
+    # One [L, B, 1, E] block: the whole-step kernel reads it in place.
     states = tuple(
-        torch.zeros((batch, 1, emb_dim), dtype=torch.float32, device=device)
-        for _ in params["decoder"]
+        torch.zeros(
+            (len(params["decoder"]), batch, 1, emb_dim),
+            dtype=torch.float32, device=device,
+        ).unbind(0)
     )
     tokens = torch.zeros((batch, max_steps), dtype=torch.int32, device=device)
     valid = torch.zeros((batch, max_steps), dtype=torch.bool, device=device)
@@ -92,7 +132,7 @@ def greedy_decode(
         x = prev_embed * sqrt_e + signal
         choice, states, attn = tfm.decoder_step(
             params, states, x, mask_add, kv_caches, num_heads,
-            projection=projection,
+            projection=projection, provider=provider, plan=plan,
         )
         word = shortlist[choice.to(torch.long)] if shortlist is not None else choice
         word = word.to(torch.int32)
@@ -118,15 +158,20 @@ def translate_batch(
     steps_cap: Optional[int] = None,
     with_alignment: bool = True,
     check_every: int = CHECK_EVERY,
+    provider: Optional[str] = None,
+    kv_dtype: Optional[str] = "int16",
 ) -> GreedyResult:
-    """embed → encoder → greedy decode for a padded [B, T] batch."""
+    """embed → encoder → greedy decode for a padded [B, T] batch.
+    `provider` "fused_step" runs each decode step as one whole-step
+    call; the encoder and the K/V projections stay on the int8 affine,
+    as in the JAX package."""
     word_embedding = tfm.transform_embedding(tfm.embed(params, indices))
     mask_add = tfm.make_additive_mask(mask)
     encoder_out = tfm.encoder_forward(params, word_embedding, mask_add, num_heads)
     return greedy_decode(
         params, encoder_out, mask_add, eos_id, max_steps, num_heads,
         shortlist, decoder_position_zero, steps_cap, with_alignment,
-        check_every,
+        check_every, provider, kv_dtype,
     )
 
 

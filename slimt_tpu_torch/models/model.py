@@ -7,7 +7,8 @@ as the JAX Model, so the runtime (`runtime/service.py`,
 `runtime/bulk.py`) drives it unchanged through `forward_async` and
 `forward_async_arrays`.
 
-The slice implements the declared serving config only. Any config
+The port implements the declared serving config and the `fused_step`
+latency provider (whole-step kernel per decode step). Any config
 value it does not implement raises NotImplementedError naming the
 ROADMAP item that ports it; nothing is substituted silently.
 """
@@ -80,18 +81,26 @@ class Package:
 def _check_config(config: ModelConfig) -> None:
     """Raise on every config value this slice does not implement."""
     unsupported = []
-    if config.kv_cache_dtype != "int16":
+    fused = config.qmm_provider == "fused_step"
+    if fused and config.kv_cache_dtype == "bfloat16":
+        # The bf16 joined cache and the kernel's float-cache branch.
+        unsupported.append(
+            "kv_cache_dtype='bfloat16' with qmm_provider='fused_step' "
+            "(ROADMAP Queue 1, item 12)"
+        )
+    elif config.kv_cache_dtype != "int16" and not fused:
         unsupported.append(
             f"kv_cache_dtype={config.kv_cache_dtype!r} (ROADMAP Queue 1, item 12)"
         )
-    if config.argmax_method != "packed_int":
+    # Under fused_step the kernel's argmax is exact, and argmax_method is
+    # ignored, as in the JAX package.
+    if config.argmax_method != "packed_int" and not fused:
         unsupported.append(
             f"argmax_method={config.argmax_method!r} (ROADMAP Queue 1, item 12)"
         )
-    if config.qmm_provider not in ("xla_int8", "pallas"):
-        item = "11" if config.qmm_provider == "fused_step" else "12"
+    if config.qmm_provider not in ("xla_int8", "pallas", "fused_step"):
         unsupported.append(
-            f"qmm_provider={config.qmm_provider!r} (ROADMAP Queue 1, item {item})"
+            f"qmm_provider={config.qmm_provider!r} (ROADMAP Queue 1, item 12)"
         )
     if config.encoder_dtype is not None:
         unsupported.append(
@@ -257,6 +266,8 @@ class Model:
                 decoder_position_zero=self.config.decoder_position_zero,
                 steps_cap=steps_cap,
                 with_alignment=bool(need_alignment),
+                # _check_config leaves only caches that run as int16.
+                provider=self.config.qmm_provider,
             )
             packed = compact_result(result).packed if compact else None
 

@@ -5,9 +5,11 @@ Plain functions over the params dict from io/params.py (loader layout,
 per-layer lists). Only what the declared config reaches is here: the
 exact-f32 encoder through the whole-layer kernel, the int16 per-row
 cross-attention cache, the SSRU decoder and the `packed_int` argmax
-over the (optionally shortlisted) tied projection. Every int8 product
-goes through ops/qmm. Masks are additive: 0 for real tokens,
--99999999 for padding.
+over the (optionally shortlisted) tied projection, plus the
+`fused_step` latency provider, whose decode step is one call of
+ops/decoder_step (exact first-max argmax). Every int8 product goes
+through ops/qmm. Masks are additive: 0 for real tokens, -99999999 for
+padding.
 
 Scalars that enter float32 arithmetic are float32 0-dim tensors
 (`_f32`): `python_float / tensor` in torch multiplies by a reciprocal,
@@ -19,6 +21,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from slimt_tpu_torch.ops import encoder_layer as enc
@@ -185,6 +188,14 @@ def decoder_layer_forward(
     return _ffn_block(layer, out), new_state, attn
 
 
+def output_inv(params: dict) -> np.float32:
+    """The tied projection's epilogue multiplier 1 / (out.aq * emb.scale),
+    in float32 as the JAX package computes it."""
+    return np.float32(1) / (
+        np.float32(params["out"]["aq"]) * np.float32(params["emb"]["scale"])
+    )
+
+
 def decoder_step(
     params: dict,
     states: Sequence[torch.Tensor],
@@ -194,11 +205,29 @@ def decoder_step(
     num_heads: int,
     shortlist: Optional[torch.Tensor] = None,
     projection: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    provider: Optional[str] = None,
+    plan=None,
 ):
     """One greedy decode step over all decoder layers. prev_embed is
     the transformed [B, 1, E] input. Returns (choice [B] int32 — a
     column of the projection —, new_states, attn [B,H,1,T] of the last
-    layer)."""
+    layer; under "fused_step" only head 0, [B,1,1,T]).
+
+    provider "fused_step" runs the whole step as one call of
+    ops/decoder_step.whole_decode_step (exact first-max argmax); `plan`
+    is that call's loop-invariant argument block (StepPlan), built once
+    per batch on CUDA."""
+    if projection is None:
+        projection = prepare_output_projection(params, shortlist)
+    if provider == "fused_step":
+        from slimt_tpu_torch.ops import decoder_step as dstep
+
+        choice, new_states, attn0 = dstep.whole_decode_step(
+            params["decoder"], states, prev_embed, mask_add, kv_caches,
+            num_heads, projection, params["out"]["aq"], output_inv(params),
+            plan=plan,
+        )
+        return choice, new_states, attn0[:, None, None, :]
     x = prev_embed
     new_states = []
     guided = None
@@ -207,8 +236,6 @@ def decoder_step(
             layer, state, x, mask_add, kv, num_heads
         )
         new_states.append(new_state)
-    if projection is None:
-        projection = prepare_output_projection(params, shortlist)
     choice = output_argmax(params, x[:, 0, :], projection)
     return choice, tuple(new_states), guided
 
@@ -252,12 +279,32 @@ def packed_int_params(width: int, emb_dim: int) -> Tuple[int, int]:
     return width_bits, shift
 
 
+def output_logits(
+    params: dict,
+    x: torch.Tensor,
+    shortlist: Optional[torch.Tensor] = None,
+    projection: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Tied-embedding logits x [B, E] → [B, V or S]: the int8 projection
+    acc * (1 / (out.aq * emb.scale)) + b."""
+    if projection is None:
+        projection = prepare_output_projection(params, shortlist)
+    w, b = projection
+    return qmm.affine(x, w, b, params["out"]["aq"], output_inv(params))
+
+
+def first_max(logits: torch.Tensor) -> torch.Tensor:
+    """jnp.argmax over the last axis: the first index of the maximum."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
 def output_argmax(
     params: dict, x: torch.Tensor, projection: Tuple[torch.Tensor, torch.Tensor]
 ) -> torch.Tensor:
     """Greedy choice [B] int32 by the `packed_int` method: the int8
     projection's int32 accumulators plus the bias folded into
-    accumulator units, compared as packed integer keys."""
+    accumulator units, compared as packed integer keys. (The `exact`
+    method is first_max(output_logits(...)).)"""
     w, b = projection
     aq = params["out"]["aq"]
     bq = params["emb"]["scale"]

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (`ops/csrc/*.cu`).
 
-One `nvcc` call compiles every source into one shared library with a
-plain C interface, written to `slimt_tpu_torch/build/` (git-ignored)
+One `nvcc -c` per source, all started together, then one link make
+one shared library with a plain C interface, written to
+`slimt_tpu_torch/build/` (git-ignored)
 under a name that carries the hash of the sources and flags, so an
 edit rebuilds and an unchanged tree reuses the library. The library is
 loaded with ctypes; every pointer and the stream pass as c_void_p.
@@ -42,6 +43,17 @@ _SIGNATURES = {
     "slimt_encoder_layer": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P
     ),
+    # ptrs, scales, layers, b, t, e, f, heads, s, w_stride_k, w_stride_n,
+    # rows, x, c_in, c_out, attn0, choice, scratch, stream
+    "slimt_whole_decode_step": (
+        _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _I,
+        _P, _P, _P, _P, _P, _P, _P,
+    ),
+    # y, w, bias, choice, scratch, b, e, s, w_stride_k, w_stride_n, aq,
+    # inv, stream
+    "slimt_argmax_affine": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _F, _F, _P
+    ),
 }
 
 
@@ -65,16 +77,38 @@ def _sources():
     return sources, digest.hexdigest()[:16]
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise with the output of any failure."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True))
+        for cmd in cmds
+    ]
+    failures = []
+    for cmd, proc in procs:
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{output}"
+            )
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
 def _build(sources, target: Path) -> None:
+    """One `nvcc -c` per source, all started together, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    stem = f"{target.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    _run_all([
+        [_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)]
+        for src, obj in zip(sources, objects)
+    ])
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+    _run_all([[_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objects)]])
+    for obj in objects:
+        obj.unlink()
     os.replace(tmp, target)
 
 

@@ -16,6 +16,8 @@ from slimt_tpu.io import load_items  # noqa: E402
 from slimt_tpu.io.loader import load_weights  # noqa: E402
 from slimt_tpu.io.synthetic import synthetic_model_bytes  # noqa: E402
 from slimt_tpu_torch.io.params import params_from_numpy  # noqa: E402
+from slimt_tpu_torch.models import transformer as tfm  # noqa: E402
+from slimt_tpu_torch.ops import decoder_step as dstep  # noqa: E402
 from slimt_tpu_torch.ops import encoder_layer as enc  # noqa: E402
 from slimt_tpu_torch.ops import qmm  # noqa: E402
 
@@ -84,3 +86,95 @@ def test_encoder_layer_kernel_matches_plain(card, emb, ffn, t):
     want = enc.layer_plain(x, layer, mask_add, 8)
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 2e-5
+
+
+STEP_VOCAB = 5000  # 20 projection tiles of 256, the last one partial
+
+
+def _step_case(card, b, t, with_shortlist, seed):
+    """Tiny widths (E 256, F 1536, 2 decoder layers, 8 heads): params,
+    inputs and projection on the card; one row padded, one fully
+    masked."""
+    config = ModelConfig(encoder_layers=1, decoder_layers=2, num_heads=8)
+    host = load_weights(load_items(synthetic_model_bytes(
+        config=config, vocab_size=STEP_VOCAB, emb_dim=256, ffn_dim=1536,
+        seed=seed)), config)
+    params = params_from_numpy(host, card)
+    rng = np.random.default_rng(seed)
+    e = 256
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    x = tensor((rng.standard_normal((b, 1, e)) * 2).astype(np.float32))
+    states = tuple(tensor(rng.standard_normal((b, 1, e)).astype(np.float32))
+                   for _ in range(2))
+    mask = np.ones((b, t), np.float32)
+    if b > 1:
+        mask[0, t // 2:] = 0.0
+        mask[-1] = 0.0
+    mask_add = tensor(((1.0 - mask) * np.float32(-99999999.0))[:, None, None, :])
+    caches = tuple(
+        {"k": tensor(rng.integers(-32767, 32768, (b, t, e)).astype(np.int16)),
+         "v": tensor(rng.integers(-32767, 32768, (b, t, e)).astype(np.int16)),
+         "kqi": tensor((rng.uniform(0.5, 2, (b, t)) / 32767).astype(np.float32)),
+         "vqi": tensor((rng.uniform(0.5, 2, (b, t)) / 32767).astype(np.float32))}
+        for _ in range(2)
+    )
+    shortlist = None
+    if with_shortlist:
+        shortlist = tensor(np.sort(rng.choice(STEP_VOCAB, 1024, replace=False)))
+    projection = tfm.prepare_output_projection(params, shortlist)
+    args = (params["decoder"], states, x, mask_add, caches, 8, projection,
+            params["out"]["aq"], tfm.output_inv(params))
+    return params, args
+
+
+@pytest.mark.parametrize("with_shortlist", [False, True], ids=["full", "shortlist"])
+@pytest.mark.parametrize("b,t", [(1, 16), (1, 128), (33, 16), (33, 128)])
+def test_whole_step_kernel_matches_plain(card, b, t, with_shortlist):
+    params, args = _step_case(card, b, t, with_shortlist, seed=b + t)
+    before = dstep.whole_step_kernel.launches
+    choice, states, attn0 = dstep.whole_decode_step(*args)
+    assert dstep.whole_step_kernel.launches == before + 1
+    want_choice, want_states, want_attn0 = dstep.whole_step_plain(*args)
+    torch.cuda.synchronize()
+    for got, want in zip(states, want_states):
+        assert float((got - want).abs().max()) <= 2e-5
+    assert torch.isfinite(attn0).all()
+    assert float((attn0 - want_attn0).abs().max()) <= 2e-5
+    # A differing choice must be a near-tie of the plain logits: the
+    # chosen column within 1e-3 of the maximum.
+    differ = (choice != want_choice).nonzero().flatten()
+    if len(differ):
+        y = dstep.layers_plain(*args[:6])[0]
+        logits = qmm.affine_plain(y, *args[6], args[7], args[8])[differ]
+        picked = logits.gather(1, choice[differ].long()[:, None])[:, 0]
+        gap = float((logits.amax(-1) - picked).max())
+        assert gap <= 1e-3, f"rows {differ.tolist()} differ, logit gap {gap}"
+
+
+@pytest.mark.parametrize("with_shortlist", [False, True], ids=["full", "shortlist"])
+def test_argmax_affine_kernel_bit_equal_with_tie(card, with_shortlist):
+    rng = np.random.default_rng(7)
+    emb = rng.integers(-127, 128, (STEP_VOCAB, 256)).astype(np.int8)
+    emb[4000] = emb[300]  # a tie across projection tiles: 300 must win
+    emb_t = torch.from_numpy(emb).to(card)
+    bias = np.zeros(STEP_VOCAB, np.float32)
+    if with_shortlist:
+        ids = torch.from_numpy(np.arange(0, STEP_VOCAB, 3)).to(card)
+        w, b = emb_t.index_select(0, ids).T, torch.from_numpy(bias[::3].copy()).to(card)
+        first, second = 100, 1333  # rows 300 and 3999 of the embedding
+        w[:, second] = w[:, first]
+    else:
+        w, b = emb_t.T, torch.from_numpy(bias).to(card)
+        first, second = 300, 4000
+    y = torch.from_numpy(rng.standard_normal((40, 256)).astype(np.float32)).to(card)
+    # Rows 0 and 1 point along the tied column: it is their maximum.
+    y[:2] = w[:, first].float() / 40.0
+    before = dstep.argmax_affine_kernel.launches
+    got = dstep.argmax_affine_kernel(y, w, b, 20.0, 1e-3)
+    assert dstep.argmax_affine_kernel.launches == before + 1
+    want = dstep.argmax_affine_plain(y, w, b, 20.0, 1e-3)
+    assert torch.equal(got, want)
+    assert got[:2].tolist() == [first, first]

@@ -163,7 +163,7 @@ def test_import_loads_neither_jax_nor_regex():
         sys.meta_path.insert(0, Block())
         import slimt_tpu_torch
         from slimt_tpu_torch.models import decode, transformer
-        from slimt_tpu_torch.ops import encoder_layer, qmm
+        from slimt_tpu_torch.ops import decoder_step, encoder_layer, qmm
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "regex")]
         assert not loaded, loaded
