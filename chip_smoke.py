@@ -13,29 +13,37 @@ without printing a result:
 3. kernels — each kernel against its plain PyTorch version on the card
              at the serving paths' shapes: the int8 affine bit-equal in
              every mode, the encoder layer within 2e-5 (the bound the
-             JAX package holds its TPU kernel to), the whole decode step
-             within 2e-5 on states and head-0 attention on >= 99% of
-             rows (every row within 0.25: an int8 rounding flip moves
-             a row by up to ~0.06) with >= 99% of choices equal, its
+             JAX package holds its TPU kernel to) on >= 99% of
+             positions, the whole decode step within 2e-5 on states and
+             head-0 attention on >= 99% of rows (every position and row
+             within 0.25: an int8 rounding flip moves one by up to
+             ~0.06) with >= 99% of choices equal, its
              projection stage bit-equal given the same rows (a tie
-             across vocab tiles included); times beside the plain
-             versions';
+             across vocab tiles included); the SSRU and FFN blocks
+             within 2e-5 on >= 99% of rows and every row within 0.25,
+             the decode attention within 2e-5, the projection argmax
+             bit-equal in its three methods (exact, packed_fp16,
+             packed_bf16; a tie across vocab tiles included), at tiny
+             and base widths; times beside the plain versions';
 4. serve   — a tiny11-width model (32k vocab, emb 256, ffn 1536, 6+2
              layers, 8 heads; random weights from seed 0) answers
              request batches of text through Model.forward_async,
              Model.forward_async_arrays and the runtime's
              Blocking(...).translate, with and without shortlist and
-             alignment: first on the declared path, then on the
-             fused_step latency path; the launch counts are set to 0
-             before each path and read after it, and every kernel of the
-             path must have launched;
+             alignment: on the declared path, then on the fused_step
+             latency path, then on the `fused` path (qmm_provider
+             "fused", attn_kernel "on"; the full-vocab model keeps
+             packed_int, which falls to the exact argmax there, the
+             shortlist model takes packed_fp16); the launch counts are
+             set to 0 before each path and read after it, and every
+             kernel of the path must have launched;
 5. check   — outputs well formed; CUDA tokens against the plain CPU
-             path on 16 segments (>= 99% equal) for both paths; forward
-             wall time and tokens/s at B=64 and B=512 (T=64); at B=1,
-             T=32 the fused_step forward against the declared one
-             (median of 5 runs, µs per step, device operations per step
-             by torch.profiler); neither JAX nor the JAX package's
-             models or ops were imported.
+             path on 16 segments (>= 99% equal) for every path; forward
+             wall time and tokens/s at B=64 and B=512 (T=64) on each
+             path; at B=1, T=32 the fused_step and fused forwards
+             against the declared one (median of 5 runs, µs per step,
+             device operations per step by torch.profiler); neither JAX
+             nor the JAX package's models or ops were imported.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -60,13 +68,19 @@ VOCAB, EMB, FFN, ENC, DEC, HEADS = 32000, 256, 1536, 6, 2, 8
 AFFINE_SOURCE = "slimt_tpu_torch/ops/csrc/qmm_affine.cu"
 LAYER_SOURCE = "slimt_tpu_torch/ops/csrc/encoder_layer.cu"
 STEP_SOURCE = "slimt_tpu_torch/ops/csrc/decoder_step.cu"
+BLOCKS_SOURCE = "slimt_tpu_torch/ops/csrc/fused_blocks.cu"
+ATTN_SOURCE = "slimt_tpu_torch/ops/csrc/decode_attn.cu"
+ARGMAX_SOURCE = "slimt_tpu_torch/ops/csrc/logits_argmax.cu"
 LAYER_TOL = 2e-5
-STEP_TOL = 2e-5  # the encoder layer's bound, per row
-# The two versions sum in different orders, so now and then a quantized
-# layer-2 input rounds to the neighbouring int8 value in one of them (a
-# "flip": the first layer's states are bit-equal); the few rows it
-# touches move by up to ~0.06. So >= 99% of rows must be within STEP_TOL
-# and every row within FLIP_BOUND.
+STEP_TOL = 2e-5  # the encoder layer's bound, per row (steps and blocks)
+ATTN_TOL = 2e-5
+# The two versions sum in different orders, so now and then an input to
+# an int8 quantization that lies within a few ulps of a rounding tie
+# (x.5) rounds to the neighbouring int8 value in one of them (a "flip":
+# the encoder layer's attention output or FFN input, a decode step's
+# layer-2 input); the position or row it touches moves by up to ~0.06.
+# So >= 99% of positions or rows must be within their tolerance and
+# every one within FLIP_BOUND.
 FLIP_BOUND = 0.25
 MASK_MIN = -99999999.0
 AGREEMENT_MIN = 0.99
@@ -184,14 +198,18 @@ def check_affine(torch, qmm, dev):
 
 
 def check_layer(torch, enc, dev, load_host, params_from_numpy):
-    """Layer kernel vs plain at tiny and base widths, padded rows."""
+    """Layer kernel vs plain at tiny and base widths, padded rows: >= 99%
+    of positions within LAYER_TOL, every position within FLIP_BOUND."""
     worst = 0.0
+    positions = within = 0
     timing = None
+    gen = torch.Generator(device=dev)
     for emb, ffn in ((256, 1536), (512, 2048)):
         layer = params_from_numpy(load_host(emb, ffn, 1, 1), dev)["encoder"][0]
+        gen.manual_seed(emb)
         for t in (16, 64, 128):
             b = 4
-            x = torch.randn((b, t, emb), device=dev)
+            x = torch.randn((b, t, emb), device=dev, generator=gen)
             mask = torch.ones((b, t), device=dev)
             mask[1, t // 2:] = 0
             mask[3] = 0  # a padding row
@@ -199,14 +217,15 @@ def check_layer(torch, enc, dev, load_host, params_from_numpy):
             got = enc.layer_kernel(x, layer, mask_add, HEADS)
             want = enc.layer_plain(x, layer, mask_add, HEADS)
             torch.cuda.synchronize()
+            label = f"encoder layer E={emb} F={ffn} T={t}"
             if not bool(torch.isfinite(got).all()):
-                raise RuntimeError(f"encoder layer E={emb} T={t}: non-finite")
-            err = float((got - want).abs().max())
+                raise RuntimeError(f"{label}: non-finite")
+            n, ok, err = rows_check(label, (got - want).abs().amax(-1).flatten(),
+                                    LAYER_TOL, FLIP_BOUND)
+            positions += n
+            within += ok
             worst = max(worst, err)
-            log(f"encoder layer E={emb} F={ffn} T={t}: max |diff| {err:.3g}")
-            if err > LAYER_TOL:
-                raise RuntimeError(
-                    f"encoder layer E={emb} T={t}: max |diff| {err} > {LAYER_TOL}")
+            log(f"{label}: max |diff| {err:.3g}")
         for b, t in ((64, 64), (512, 64)):
             x = torch.randn((b, t, emb), device=dev)
             mask_add = torch.zeros((b, 1, 1, t), device=dev)
@@ -216,6 +235,11 @@ def check_layer(torch, enc, dev, load_host, params_from_numpy):
                 f"{kernel:.4f} ms, plain {plain:.4f} ms")
             if (emb, b) == (EMB, 512):
                 timing = (kernel, plain)
+    log(f"encoder layer: {within}/{positions} positions within {LAYER_TOL} "
+        f"({within / positions:.6f}), max |diff| {worst:.3g}")
+    if within / positions < AGREEMENT_MIN:
+        raise RuntimeError(f"encoder layer: positions within {LAYER_TOL} "
+                           f"{within / positions} < {AGREEMENT_MIN}")
     return worst, timing
 
 
@@ -263,7 +287,7 @@ def logit_gap(qmm, y, args, choice, want) -> float:
     return float((logits.amax(-1) - picked).max())
 
 
-def check_step(torch, dstep, tfm, qmm, dev, load_host, params_from_numpy):
+def check_step(torch, dstep, lam, tfm, qmm, dev, load_host, params_from_numpy):
     """Whole step vs plain at tiny and base widths: states and attn0 within
     STEP_TOL, >= 99% of choices equal, the projection stage bit-equal
     given the same rows; a tie across vocab tiles; times."""
@@ -315,13 +339,14 @@ def check_step(torch, dstep, tfm, qmm, dev, load_host, params_from_numpy):
     if within / rows < AGREEMENT_MIN or share < AGREEMENT_MIN:
         raise RuntimeError(f"whole step: rows within {STEP_TOL} {within / rows}, "
                            f"choices equal {share}; both must be >= {AGREEMENT_MIN}")
-    check_tie(torch, dstep, tfm, tiny)
+    check_tie(torch, lam, tfm, tiny)
     return worst, time_step(torch, dstep, tfm, tiny)
 
 
-def check_tie(torch, dstep, tfm, params):
+def check_tie(torch, lam, tfm, params):
     """Two identical projection columns in different vocab tiles: the
-    first must win, in the kernel and in the plain version."""
+    first must win, in the kernel and in the plain version, in every
+    method of the argmax kernel."""
     dev = params["emb"]["q"].device
     emb = params["emb"]["q"].clone()
     first, second = 301, 20006  # tiles 1 and 78 of 256 columns
@@ -335,13 +360,15 @@ def check_tie(torch, dstep, tfm, params):
          int((ids == first).nonzero())),
     ):
         y = (w[:, col].float() / 40.0).repeat(3, 1).contiguous()
-        got = dstep.argmax_affine_kernel(y, w, b, 20.0, 1e-3)
-        want = dstep.argmax_affine_plain(y, w, b, 20.0, 1e-3)
-        torch.cuda.synchronize()
-        if got.tolist() != [col] * 3 or not torch.equal(got, want):
-            raise RuntimeError(f"tie ({label}): kernel {got.tolist()}, "
-                               f"plain {want.tolist()}, first column {col}")
-    log("projection tie across vocab tiles: the first column wins (full, shortlist)")
+        for method in lam.METHODS:
+            got = lam.argmax_affine_kernel(y, w, b, 20.0, 1e-3, method)
+            want = lam.argmax_affine_plain(y, w, b, 20.0, 1e-3, method)
+            torch.cuda.synchronize()
+            if got.tolist() != [col] * 3 or not torch.equal(got, want):
+                raise RuntimeError(f"tie ({label}, {method}): kernel {got.tolist()}, "
+                                   f"plain {want.tolist()}, first column {col}")
+    log("projection tie across vocab tiles: the first column wins "
+        f"(full, shortlist; {', '.join(lam.METHODS)})")
 
 
 def time_step(torch, dstep, tfm, params):
@@ -362,6 +389,171 @@ def time_step(torch, dstep, tfm, params):
             if (b, width) == (1, 0):
                 timing = (kernel, plain)
     return timing
+
+
+def rows_check(label, row_err, tol, bound):
+    """(rows, rows within tol, max error); raises on a non-finite error
+    or one beyond bound."""
+    err = float(row_err.max())
+    if not err <= bound:  # also catches NaN
+        raise RuntimeError(f"{label}: max |diff| {err} > {bound}")
+    within = int((row_err <= tol).sum())
+    if within < row_err.numel():
+        log(f"{label}: {row_err.numel() - within} of {row_err.numel()} rows "
+            f"beyond {tol}, max |diff| {err:.3g}")
+    return row_err.numel(), within, err
+
+
+def check_blocks(torch, fblocks, dev, load_host, params_from_numpy):
+    """SSRU and FFN blocks vs plain at tiny and base widths: >= 99% of
+    rows within STEP_TOL, every row within FLIP_BOUND; times at T=1 rows
+    (decode), B in {1, 64, 512}."""
+    worst = {"ssru_block": 0.0, "ffn_block": 0.0}
+    rows = {"ssru_block": [0, 0], "ffn_block": [0, 0]}
+    timing = {}
+    for emb, ffn in ((EMB, FFN), (512, 2048)):
+        layers = params_from_numpy(load_host(emb, ffn, 1, DEC), dev)["decoder"]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(emb + 1)
+        for b in (1, 8, 33, 64, 512):
+            for layer in layers:
+                x = torch.randn((b, emb), device=dev, generator=gen) * 2.0
+                c = torch.randn((b, emb), device=dev, generator=gen)
+                h, c_t = fblocks.ssru_kernel(x, c, layer["rnn"])
+                want_h, want_c = fblocks.ssru_plain(x, c, layer["rnn"])
+                y = fblocks.ffn_kernel(x, layer["ffn"])
+                want_y = fblocks.ffn_plain(x, layer["ffn"])
+                torch.cuda.synchronize()
+                label = f"E={emb} F={ffn} B={b}"
+                for name, err in (
+                    ("ssru_block", torch.maximum((h - want_h).abs().amax(-1),
+                                                 (c_t - want_c).abs().amax(-1))),
+                    ("ffn_block", (y - want_y).abs().amax(-1)),
+                ):
+                    n, within, e = rows_check(f"{name} {label}", err, STEP_TOL, FLIP_BOUND)
+                    rows[name][0] += n
+                    rows[name][1] += within
+                    worst[name] = max(worst[name], e)
+        layer = layers[0]
+        for b in (1, 64, 512):
+            x = torch.randn((b, emb), device=dev, generator=gen)
+            c = torch.randn((b, emb), device=dev, generator=gen)
+            for name, kernel, plain in (
+                ("ssru_block", lambda: fblocks.ssru_kernel(x, c, layer["rnn"]),
+                 lambda: fblocks.ssru_plain(x, c, layer["rnn"])),
+                ("ffn_block", lambda: fblocks.ffn_kernel(x, layer["ffn"]),
+                 lambda: fblocks.ffn_plain(x, layer["ffn"])),
+            ):
+                pair = (cuda_ms(torch, kernel, 50), cuda_ms(torch, plain, 20))
+                log(f"time {name} E={emb} F={ffn} B={b}: kernel {pair[0]:.4f} ms, "
+                    f"plain {pair[1]:.4f} ms")
+                if (emb, b) == (EMB, 64):
+                    timing[name] = pair
+    for name, (n, within) in rows.items():
+        log(f"{name}: {within}/{n} rows within {STEP_TOL} ({within / n:.6f}), "
+            f"max |diff| {worst[name]:.3g}")
+        if within / n < AGREEMENT_MIN:
+            raise RuntimeError(f"{name}: rows within {STEP_TOL} {within / n} "
+                               f"< {AGREEMENT_MIN}")
+    return worst, timing
+
+
+def check_attention(torch, dattn, dev):
+    """Decode attention vs plain within ATTN_TOL at E 256/512 (8 heads),
+    B in {1, 8, 33, 64, 512}, T in {16, 64, 128}; row 0 padded from T/2
+    and the last row fully masked; times at tiny width, T=64."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    worst = 0.0
+    timing = None
+
+    def case(b, t, e):
+        q = torch.randn((b, e), device=dev, generator=gen)
+        k, v = (torch.randint(-32767, 32768, (b, t, e), device=dev,
+                              dtype=torch.int16, generator=gen) for _ in range(2))
+        kqi, vqi = ((torch.rand((b, t), device=dev, generator=gen) * 1.5 + 0.5)
+                    / 32767.0 for _ in range(2))
+        mask = torch.zeros((b, t), device=dev)
+        mask[0, t // 2:] = MASK_MIN
+        if b > 1:
+            mask[-1] = MASK_MIN
+        return q, k, v, kqi, vqi, mask
+
+    cases = 0
+    for e in (EMB, 512):
+        for b in (1, 8, 33, 64, 512):
+            for t in (16, 64, 128):
+                args = case(b, t, e)
+                got = dattn.decode_attention_kernel(*args, HEADS)
+                want = dattn.attention_plain(*args, HEADS)[0]
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(got).all()):
+                    raise RuntimeError(f"decode attention E={e} B={b} T={t}: non-finite")
+                err = float((got - want).abs().max())
+                worst = max(worst, err)
+                if not err <= ATTN_TOL:
+                    raise RuntimeError(
+                        f"decode attention E={e} B={b} T={t}: max |diff| {err} > {ATTN_TOL}")
+                cases += 1
+    log(f"decode attention: {cases} cases within {ATTN_TOL}, max |diff| {worst:.3g}")
+    for b in (1, 64, 512):
+        args = case(b, 64, EMB)
+        pair = (cuda_ms(torch, lambda: dattn.decode_attention_kernel(*args, HEADS), 50),
+                cuda_ms(torch, lambda: dattn.attention_plain(*args, HEADS), 20))
+        log(f"time decode attention E={EMB} B={b} T=64: kernel {pair[0]:.4f} ms, "
+            f"plain {pair[1]:.4f} ms")
+        if b == 64:
+            timing = pair
+    return worst, timing
+
+
+def check_argmax(torch, lam, tfm, widths):
+    """The argmax kernel bit-equal to plain in every method, at each
+    width's params (tiny first), full vocab and shortlists of 1024 and
+    3072, B in {1, 8, 33, 64, 512}; times at tiny width. Returns (most
+    differing indices in a case, which must be 0; the B=64 exact
+    times)."""
+    cases = differ = 0
+    for params in widths:
+        dev = params["emb"]["q"].device
+        emb = params["emb"]["q"].shape[1]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(emb)
+        projections = {"full": tfm.prepare_output_projection(params)}
+        for width in (1024, 3072):
+            ids = torch.randperm(VOCAB, device=dev, generator=gen)[:width].sort().values
+            projections[f"shortlist {width}"] = tfm.prepare_output_projection(params, ids)
+        aq, inv = params["out"]["aq"], tfm.output_inv(params)
+        for label, (w, b) in projections.items():
+            for rows in (1, 8, 33, 64, 512):
+                y = torch.randn((rows, emb), device=dev, generator=gen) * 2.0
+                for method in lam.METHODS:
+                    got = lam.argmax_affine_kernel(y, w, b, aq, inv, method)
+                    want = lam.argmax_affine_plain(y, w, b, aq, inv, method)
+                    torch.cuda.synchronize()
+                    differ = max(differ, int((got != want).sum()))
+                    if not torch.equal(got, want):
+                        raise RuntimeError(
+                            f"argmax {method} E={emb} {label} B={rows}: not bit-equal")
+                    cases += 1
+    log(f"argmax: {cases} cases at E in (256, 512) bit-equal to plain "
+        f"({', '.join(lam.METHODS)})")
+    timing = None
+    params = widths[0]
+    aq, inv = params["out"]["aq"], tfm.output_inv(params)
+    w, b = tfm.prepare_output_projection(params)
+    gen = torch.Generator(device=w.device)
+    gen.manual_seed(5)
+    for rows in (1, 64, 512):
+        y = torch.randn((rows, EMB), device=dev, generator=gen)
+        for method in lam.METHODS:
+            pair = (cuda_ms(torch, lambda: lam.argmax_affine_kernel(y, w, b, aq, inv, method), 50),
+                    cuda_ms(torch, lambda: lam.argmax_affine_plain(y, w, b, aq, inv, method), 20))
+            log(f"time argmax {method} B={rows} V={VOCAB}: kernel {pair[0]:.4f} ms, "
+                f"plain {pair[1]:.4f} ms")
+            if (rows, method) == (64, "exact"):
+                timing = pair
+    return float(differ), timing
 
 
 def executed_steps(valid: int, limit: int, every: int) -> int:
@@ -524,8 +716,11 @@ def main() -> None:
     from slimt_tpu_torch.models import transformer as tfm
     from slimt_tpu_torch.models.decode import CHECK_EVERY
     from slimt_tpu_torch.ops import _build
+    from slimt_tpu_torch.ops import decode_attn as dattn
     from slimt_tpu_torch.ops import decoder_step as dstep
     from slimt_tpu_torch.ops import encoder_layer as enc
+    from slimt_tpu_torch.ops import fused_blocks as fblocks
+    from slimt_tpu_torch.ops import logits_argmax as lam
     from slimt_tpu_torch.ops import qmm
 
     dev = torch.device("cuda", 0)
@@ -541,12 +736,25 @@ def main() -> None:
 
     affine_err, affine_ms = check_affine(torch, qmm, dev)
     layer_err, layer_ms = check_layer(torch, enc, dev, load_host, params_from_numpy)
-    step_err, step_ms = check_step(torch, dstep, tfm, qmm, dev, load_host,
+    step_err, step_ms = check_step(torch, dstep, lam, tfm, qmm, dev, load_host,
                                    params_from_numpy)
+    block_err, block_ms = check_blocks(torch, fblocks, dev, load_host, params_from_numpy)
+    attn_err, attn_ms = check_attention(torch, dattn, dev)
+    argmax_err, argmax_ms = check_argmax(torch, lam, tfm, [
+        params_from_numpy(load_host(emb, ffn, 1, DEC, vocab=VOCAB), dev)
+        for emb, ffn in ((EMB, FFN), (512, 2048))])
     log(f"kernel times above on {name} ({smi})")
 
     config = ModelConfig(encoder_layers=ENC, decoder_layers=DEC, num_heads=HEADS)
-    fused_config = dataclasses.replace(config, qmm_provider="fused_step")
+    fused_step = dataclasses.replace(config, qmm_provider="fused_step")
+    fused = dataclasses.replace(config, qmm_provider="fused", attn_kernel="on")
+    # Per path, the config of each package's model.
+    path_configs = {
+        "declared": {"full vocab": config, "shortlist": config},
+        "fused_step": {"full vocab": fused_step, "shortlist": fused_step},
+        "fused": {"full vocab": fused,  # packed_int: the exact argmax under fused
+                  "shortlist": dataclasses.replace(fused, argmax_method="packed_fp16")},
+    }
     model_bytes = synthetic_model_bytes(
         config=config, vocab_size=VOCAB, emb_dim=EMB, ffn_dim=FFN, seed=0)
     spm = spm_proto.serialize_model(
@@ -558,14 +766,20 @@ def main() -> None:
     lines = make_lines(rng, np.array(DEFAULT_WORDS), 96, 8, 120)
     counters = {"qmm_affine": qmm.affine_kernel,
                 "encoder_layer": enc.layer_kernel,
-                "whole_decode_step": dstep.whole_step_kernel}
+                "whole_decode_step": dstep.whole_step_kernel,
+                "ssru_block": fblocks.ssru_kernel,
+                "ffn_block": fblocks.ffn_kernel,
+                "decode_attention": dattn.decode_attention_kernel,
+                "argmax_affine": lam.argmax_affine_kernel}
     path_kernels = {"declared": ("qmm_affine", "encoder_layer"),
-                    "fused_step": ("qmm_affine", "encoder_layer", "whole_decode_step")}
+                    "fused_step": ("qmm_affine", "encoder_layer", "whole_decode_step"),
+                    "fused": ("qmm_affine", "encoder_layer", "ssru_block", "ffn_block",
+                              "decode_attention", "argmax_affine")}
 
     launches = {}
     paths = {}
-    for path, path_config in (("declared", config), ("fused_step", fused_config)):
-        models = {label: Model(path_config, pkg, "cuda")
+    for path, configs in path_configs.items():
+        models = {label: Model(configs[label], pkg, "cuda")
                   for label, pkg in packages.items()}
         for counter in counters.values():
             counter.launches = 0
@@ -587,7 +801,7 @@ def main() -> None:
             launches.setdefault(key, counts[key])
 
         for label, pkg in packages.items():
-            cpu = Model(path_config, pkg, "cpu")
+            cpu = Model(configs[label], pkg, "cpu")
             segments = served[label][:16]
             got = models[label].forward(segments, need_alignment=False)
             want = cpu.forward(segments, need_alignment=False)
@@ -597,12 +811,13 @@ def main() -> None:
                 raise RuntimeError(f"token agreement {share} < {AGREEMENT_MIN}")
         paths[path] = models["full vocab"]
 
-    for batch in (64, 512):
-        wall, tokens = forward_rate(torch, paths["declared"], batch, 64)
-        log(f"forward B={batch} T=64 full vocab: {wall * 1e3:.1f} ms, "
-            f"{tokens} tokens, {tokens / wall:.0f} tok/s on {name} ({smi})")
+    for path in paths:
+        for batch in (64, 512):
+            wall, tokens = forward_rate(torch, paths[path], batch, 64)
+            log(f"forward {path} B={batch} T=64 full vocab: {wall * 1e3:.1f} ms, "
+                f"{tokens} tokens, {tokens / wall:.0f} tok/s on {name} ({smi})")
 
-    for path in ("declared", "fused_step", "fused_step", "declared"):
+    for path in ("declared", "fused_step", "fused", "fused", "fused_step", "declared"):
         wall, walls, steps, ops, busy_us = latency(
             torch, paths[path], CHECK_EVERY, dstep.whole_step_kernel)
         log(f"latency {path} B=1 T=32 full vocab: median wall {wall * 1e3:.3f} ms "
@@ -627,6 +842,22 @@ def main() -> None:
          "replaces": "slimt_tpu/ops/decoder_step_pallas.py:497",
          "launches": launches["whole_decode_step"], "max_abs_err": step_err,
          "ms": step_ms[0], "plain_ms": step_ms[1]},
+        {"name": "ssru_block", "route": "cuda", "source": BLOCKS_SOURCE,
+         "replaces": "slimt_tpu/ops/fused_blocks.py:145",
+         "launches": launches["ssru_block"], "max_abs_err": block_err["ssru_block"],
+         "ms": block_ms["ssru_block"][0], "plain_ms": block_ms["ssru_block"][1]},
+        {"name": "ffn_block", "route": "cuda", "source": BLOCKS_SOURCE,
+         "replaces": "slimt_tpu/ops/fused_blocks.py:62",
+         "launches": launches["ffn_block"], "max_abs_err": block_err["ffn_block"],
+         "ms": block_ms["ffn_block"][0], "plain_ms": block_ms["ffn_block"][1]},
+        {"name": "decode_attention", "route": "cuda", "source": ATTN_SOURCE,
+         "replaces": "slimt_tpu/ops/decode_attn_pallas.py:66",
+         "launches": launches["decode_attention"], "max_abs_err": attn_err,
+         "ms": attn_ms[0], "plain_ms": attn_ms[1]},
+        {"name": "argmax_affine", "route": "cuda", "source": ARGMAX_SOURCE,
+         "replaces": "slimt_tpu/ops/logits_argmax.py:70",
+         "launches": launches["argmax_affine"], "max_abs_err": argmax_err,
+         "ms": argmax_ms[0], "plain_ms": argmax_ms[1]},
     ]}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

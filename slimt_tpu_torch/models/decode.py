@@ -12,9 +12,14 @@ semantics are the reference's, as in the JAX package:
   - with alignment, each step records head 0 of the last decoder
     layer's cross-attention.
 
-Under provider "fused_step" each step is one call of the whole-step
-kernel (ops/decoder_step), whose argument block is built once per
-batch; the argmax is then the exact first maximum.
+Under provider "fused" each decoder layer runs the SSRU-block and
+FFN-block kernels; `attn_kernel` runs the decode-attention kernel on
+alignment-free requests (never under "fused_step", as in the JAX
+package); `argmax_method` picks the greedy argmax
+(transformer.output_argmax). Under provider "fused_step" each step is
+one call of the whole-step kernel (ops/decoder_step), whose argument
+block is built once per batch; the argmax is then the exact first
+maximum.
 
 The loop asks the device whether every row is complete once every
 `check_every` steps (one `.item()`, which waits for the device). Rows
@@ -37,8 +42,10 @@ from slimt_tpu_torch.ops.qmm import _f32
 CHECK_EVERY = 8
 
 
-# Providers of the declared path; "fused_step" is the latency path.
+# Providers of the declared path; "fused" runs the block kernels and
+# "fused_step" is the latency path.
 DECLARED_PROVIDERS = (None, "xla_int8", "pallas")
+PROVIDERS = DECLARED_PROVIDERS + ("fused", "fused_step")
 # Cache dtypes the JAX package coerces to the int16 per-row cache under
 # fused_step (slimt_tpu/models/decode.py:98-106).
 FUSED_STEP_COERCED = (None, "int8", "k8v16", "k16v8", "float16")
@@ -48,7 +55,7 @@ def check_options(provider: Optional[str], kv_dtype: Optional[str]) -> None:
     """The loop always runs the int16 per-row cache. Under fused_step the
     JAX package's coercions to it apply; any other provider or cache
     raises NotImplementedError naming its ROADMAP item."""
-    if provider not in DECLARED_PROVIDERS + ("fused_step",):
+    if provider not in PROVIDERS:
         raise NotImplementedError(
             f"provider={provider!r} (ROADMAP Queue 1, item 12)"
         )
@@ -80,8 +87,14 @@ def greedy_decode(
     check_every: int = CHECK_EVERY,
     provider: Optional[str] = None,
     kv_dtype: Optional[str] = "int16",
+    argmax_method: str = "packed_int",
+    attn_kernel: bool = False,
 ) -> GreedyResult:
     check_options(provider, kv_dtype)
+    # The decode-attention kernel serves the alignment-free int16 path
+    # only (it returns no attention weights), as in the JAX package.
+    attn_kernel = bool(attn_kernel) and not with_alignment and (
+        kv_dtype == "int16") and provider != "fused_step"
     batch, t_src, emb_dim = encoder_out.shape
     device = encoder_out.device
     kv_caches = tfm.precompute_cross_kv(params, encoder_out, num_heads)
@@ -133,6 +146,7 @@ def greedy_decode(
         choice, states, attn = tfm.decoder_step(
             params, states, x, mask_add, kv_caches, num_heads,
             projection=projection, provider=provider, plan=plan,
+            argmax_method=argmax_method, attn_kernel=attn_kernel,
         )
         word = shortlist[choice.to(torch.long)] if shortlist is not None else choice
         word = word.to(torch.int32)
@@ -160,18 +174,21 @@ def translate_batch(
     check_every: int = CHECK_EVERY,
     provider: Optional[str] = None,
     kv_dtype: Optional[str] = "int16",
+    argmax_method: str = "packed_int",
+    attn_kernel: bool = False,
 ) -> GreedyResult:
     """embed → encoder → greedy decode for a padded [B, T] batch.
-    `provider` "fused_step" runs each decode step as one whole-step
-    call; the encoder and the K/V projections stay on the int8 affine,
-    as in the JAX package."""
+    `provider` "fused" runs the decoder's SSRU and FFN block kernels,
+    "fused_step" each decode step as one whole-step call; under both the
+    encoder and the K/V projections stay on the whole-layer kernel and
+    the int8 affine, as in the JAX package."""
     word_embedding = tfm.transform_embedding(tfm.embed(params, indices))
     mask_add = tfm.make_additive_mask(mask)
     encoder_out = tfm.encoder_forward(params, word_embedding, mask_add, num_heads)
     return greedy_decode(
         params, encoder_out, mask_add, eos_id, max_steps, num_heads,
         shortlist, decoder_position_zero, steps_cap, with_alignment,
-        check_every, provider, kv_dtype,
+        check_every, provider, kv_dtype, argmax_method, attn_kernel,
     )
 
 

@@ -7,10 +7,13 @@ as the JAX Model, so the runtime (`runtime/service.py`,
 `runtime/bulk.py`) drives it unchanged through `forward_async` and
 `forward_async_arrays`.
 
-The port implements the declared serving config and the `fused_step`
-latency provider (whole-step kernel per decode step). Any config
-value it does not implement raises NotImplementedError naming the
-ROADMAP item that ports it; nothing is substituted silently.
+The port implements the declared serving config, the `fused` provider
+(SSRU and FFN block kernels per decoder layer), the decode-attention
+kernel (`attn_kernel`), the argmax methods exact/packed_fp16/packed_bf16
+and the `fused_step` latency provider (whole-step kernel per decode
+step). Any config value it does not implement raises
+NotImplementedError naming the ROADMAP item that ports it; nothing is
+substituted silently.
 """
 
 from __future__ import annotations
@@ -78,27 +81,28 @@ class Package:
             return f.read()
 
 
+ARGMAX_METHODS = ("packed_int", "exact", "packed_fp16", "packed_bf16")
+
+
 def _check_config(config: ModelConfig) -> None:
-    """Raise on every config value this slice does not implement."""
+    """Raise on every config value this port does not implement."""
     unsupported = []
-    fused = config.qmm_provider == "fused_step"
-    if fused and config.kv_cache_dtype == "bfloat16":
+    fused_step = config.qmm_provider == "fused_step"
+    if fused_step and config.kv_cache_dtype == "bfloat16":
         # The bf16 joined cache and the kernel's float-cache branch.
         unsupported.append(
             "kv_cache_dtype='bfloat16' with qmm_provider='fused_step' "
             "(ROADMAP Queue 1, item 12)"
         )
-    elif config.kv_cache_dtype != "int16" and not fused:
+    elif config.kv_cache_dtype != "int16" and not fused_step:
         unsupported.append(
             f"kv_cache_dtype={config.kv_cache_dtype!r} (ROADMAP Queue 1, item 12)"
         )
     # Under fused_step the kernel's argmax is exact, and argmax_method is
     # ignored, as in the JAX package.
-    if config.argmax_method != "packed_int" and not fused:
-        unsupported.append(
-            f"argmax_method={config.argmax_method!r} (ROADMAP Queue 1, item 12)"
-        )
-    if config.qmm_provider not in ("xla_int8", "pallas", "fused_step"):
+    if config.argmax_method not in ARGMAX_METHODS:
+        unsupported.append(f"argmax_method={config.argmax_method!r} (not a method)")
+    if config.qmm_provider not in ("xla_int8", "pallas", "fused", "fused_step"):
         unsupported.append(
             f"qmm_provider={config.qmm_provider!r} (ROADMAP Queue 1, item 12)"
         )
@@ -106,8 +110,13 @@ def _check_config(config: ModelConfig) -> None:
         unsupported.append(
             f"encoder_dtype={config.encoder_dtype!r} (ROADMAP Queue 1, item 12)"
         )
-    if config.attn_kernel == "on":
-        unsupported.append("attn_kernel='on' (ROADMAP Queue 2, item 3)")
+    if config.encoder_layer_kernel not in ("on", "auto"):
+        # The XLA-style encoder of the JAX package (split-head attention,
+        # and under "fused" the FFN block at encoder shapes).
+        unsupported.append(
+            f"encoder_layer_kernel={config.encoder_layer_kernel!r} "
+            "(ROADMAP Queue 1, item 16)"
+        )
     if config.encoder_sdpa == "on":
         unsupported.append("encoder_sdpa='on' (ROADMAP Queue 2, item 8)")
     if config.flash_attention is True:
@@ -268,6 +277,8 @@ class Model:
                 with_alignment=bool(need_alignment),
                 # _check_config leaves only caches that run as int16.
                 provider=self.config.qmm_provider,
+                argmax_method=self.config.argmax_method,
+                attn_kernel=self._attn_kernel(),
             )
             packed = compact_result(result).packed if compact else None
 
@@ -294,6 +305,13 @@ class Model:
             return histories
 
         return finish
+
+    def _attn_kernel(self) -> bool:
+        """attn_kernel "on", or "auto" on the port's accelerator (CUDA),
+        as the JAX package turns it on for its accelerator backend; the
+        decode loop then gates it to alignment-free int16 requests."""
+        mode = self.config.attn_kernel
+        return mode == "on" or (mode == "auto" and self.device.type == "cuda")
 
     def warmup(
         self,

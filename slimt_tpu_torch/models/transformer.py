@@ -1,15 +1,19 @@
-"""Bergamot student transformer on torch: the declared serving path of
+"""Bergamot student transformer on torch: the serving paths of
 slimt_tpu/models/transformer.py.
 
 Plain functions over the params dict from io/params.py (loader layout,
-per-layer lists). Only what the declared config reaches is here: the
-exact-f32 encoder through the whole-layer kernel, the int16 per-row
-cross-attention cache, the SSRU decoder and the `packed_int` argmax
-over the (optionally shortlisted) tied projection, plus the
-`fused_step` latency provider, whose decode step is one call of
-ops/decoder_step (exact first-max argmax). Every int8 product goes
-through ops/qmm. Masks are additive: 0 for real tokens, -99999999 for
-padding.
+per-layer lists). What the ported configs reach is here: the exact-f32
+encoder through the whole-layer kernel, the int16 per-row
+cross-attention cache, the SSRU decoder and the greedy argmax over the
+(optionally shortlisted) tied projection (`packed_int`, or the argmax
+kernel's exact/packed_fp16/packed_bf16, ops/logits_argmax). Under the
+`fused` provider each decoder layer runs the SSRU-block and FFN-block
+kernels (ops/fused_blocks); `attn_kernel` routes the int16 cache
+through the decode-attention kernel (ops/decode_attn); the
+`fused_step` latency provider makes the decode step one call of
+ops/decoder_step (exact first-max argmax). Every other int8 product
+goes through ops/qmm. Masks are additive: 0 for real tokens, -99999999
+for padding.
 
 Scalars that enter float32 arithmetic are float32 0-dim tensors
 (`_f32`): `python_float / tensor` in torch multiplies by a reciprocal,
@@ -24,8 +28,9 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from slimt_tpu_torch.ops import decode_attn, fused_blocks, logits_argmax, qmm
 from slimt_tpu_torch.ops import encoder_layer as enc
-from slimt_tpu_torch.ops import qmm
+from slimt_tpu_torch.ops.logits_argmax import first_max, packed_argmax_16  # noqa: F401
 from slimt_tpu_torch.ops.qmm import _f32
 
 MASK_MIN = -99999999.0
@@ -93,9 +98,13 @@ def encoder_forward(
 
 
 def ssru_forward(
-    rnn: dict, state: torch.Tensor, x: torch.Tensor
+    rnn: dict, state: torch.Tensor, x: torch.Tensor,
+    provider: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One SSRU step; state is c(t-1) [B, 1, E]. Returns (h, c(t))."""
+    """One SSRU step; state is c(t-1) [B, 1, E]. Returns (h, c(t)).
+    Provider "fused" runs the whole cell as the SSRU-block kernel."""
+    if provider == "fused":
+        return fused_blocks.ssru_block(x, state, rnn)
     f = torch.sigmoid(_affine(rnn["wf"], x))
     wx = qmm.dot(x, rnn["w"]["q"], rnn["w"]["aq"], rnn["w"]["inv"])
     c_t = f * state + (1.0 - f) * wx
@@ -137,12 +146,20 @@ def _head_selector(emb_dim: int, num_heads: int, device) -> torch.Tensor:
 
 
 def _decode_attention_joined(
-    yq: torch.Tensor, kv: dict, mask_add: torch.Tensor, num_heads: int
+    yq: torch.Tensor, kv: dict, mask_add: torch.Tensor, num_heads: int,
+    attn_kernel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """T_q == 1 cross-attention over the int16 joined cache (the int16
-    branch of the JAX function). Returns (out [B,1,E], attn [B,H,1,T])."""
+    branch of the JAX function). Returns (out [B,1,E], attn [B,H,1,T]).
+    `attn_kernel` runs ops/decode_attn instead (alignment-free path:
+    the weights come back as zeros)."""
     q = yq[:, 0, :]
     k, v = kv["k"], kv["v"]
+    if attn_kernel:
+        out = decode_attn.decode_attention_int16(
+            q, k, v, kv["kqi"], kv["vqi"], mask_add[:, 0, 0, :], num_heads)
+        attn = q.new_zeros((q.shape[0], num_heads, 1, k.shape[1]))
+        return out[:, None, :], attn
     e = k.shape[-1]
     scale = _f32(1.0 / math.sqrt(e // num_heads))
     sel = _head_selector(e, num_heads, q.device)
@@ -159,18 +176,24 @@ def _decode_attention_joined(
 
 def attention_forward(
     att: dict, q_in: torch.Tensor, mask_add: torch.Tensor, num_heads: int,
-    kv_cache: dict,
+    kv_cache: dict, attn_kernel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode-step cross-attention block incl. residual + post-LN.
     Returns (out, attn_weights)."""
     yq = _affine(att["q"], q_in)
-    attn_out, attn = _decode_attention_joined(yq, kv_cache, mask_add, num_heads)
+    attn_out, attn = _decode_attention_joined(
+        yq, kv_cache, mask_add, num_heads, attn_kernel)
     out = _affine(att["o"], attn_out)
     return layer_norm(q_in + out, att["ln"]), attn
 
 
-def _ffn_block(layer: dict, x: torch.Tensor) -> torch.Tensor:
-    """FFN1 → relu → FFN2 → residual → post-LN."""
+def _ffn_block(
+    layer: dict, x: torch.Tensor, provider: Optional[str] = None
+) -> torch.Tensor:
+    """FFN1 → relu → FFN2 → residual → post-LN. Provider "fused" runs
+    the whole block as the FFN-block kernel."""
+    if provider == "fused":
+        return fused_blocks.ffn_block(x, layer["ffn"])
     h = _affine(layer["ffn"]["w1"], x, relu=True)
     y = _affine(layer["ffn"]["w2"], h)
     return layer_norm(y + x, layer["ffn"]["ln"])
@@ -179,13 +202,14 @@ def _ffn_block(layer: dict, x: torch.Tensor) -> torch.Tensor:
 def decoder_layer_forward(
     layer: dict, state: torch.Tensor, x: torch.Tensor,
     mask_add: torch.Tensor, kv_cache: dict, num_heads: int,
+    provider: Optional[str] = None, attn_kernel: bool = False,
 ):
     """SSRU → cross-attention → FFN. Returns (out, new_state, attn)."""
-    decoder_out, new_state = ssru_forward(layer["rnn"], state, x)
+    decoder_out, new_state = ssru_forward(layer["rnn"], state, x, provider)
     out, attn = attention_forward(
-        layer["att"], decoder_out, mask_add, num_heads, kv_cache
+        layer["att"], decoder_out, mask_add, num_heads, kv_cache, attn_kernel
     )
-    return _ffn_block(layer, out), new_state, attn
+    return _ffn_block(layer, out, provider), new_state, attn
 
 
 def output_inv(params: dict) -> np.float32:
@@ -207,16 +231,22 @@ def decoder_step(
     projection: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     provider: Optional[str] = None,
     plan=None,
+    argmax_method: str = "packed_int",
+    attn_kernel: bool = False,
 ):
     """One greedy decode step over all decoder layers. prev_embed is
     the transformed [B, 1, E] input. Returns (choice [B] int32 — a
     column of the projection —, new_states, attn [B,H,1,T] of the last
-    layer; under "fused_step" only head 0, [B,1,1,T]).
+    layer; under "fused_step" only head 0, [B,1,1,T]; zeros under
+    `attn_kernel`).
 
-    provider "fused_step" runs the whole step as one call of
-    ops/decoder_step.whole_decode_step (exact first-max argmax); `plan`
-    is that call's loop-invariant argument block (StepPlan), built once
-    per batch on CUDA."""
+    provider "fused" runs each layer's SSRU and FFN as block kernels;
+    `argmax_method` picks the greedy argmax (output_argmax). Provider
+    "fused_step" runs the whole step as one call of
+    ops/decoder_step.whole_decode_step (exact first-max argmax; the
+    method and `attn_kernel` do not apply); `plan` is that call's
+    loop-invariant argument block (StepPlan), built once per batch on
+    CUDA."""
     if projection is None:
         projection = prepare_output_projection(params, shortlist)
     if provider == "fused_step":
@@ -233,10 +263,10 @@ def decoder_step(
     guided = None
     for layer, state, kv in zip(params["decoder"], states, kv_caches):
         x, new_state, guided = decoder_layer_forward(
-            layer, state, x, mask_add, kv, num_heads
+            layer, state, x, mask_add, kv, num_heads, provider, attn_kernel
         )
         new_states.append(new_state)
-    choice = output_argmax(params, x[:, 0, :], projection)
+    choice = output_argmax(params, x[:, 0, :], provider, projection, argmax_method)
     return choice, tuple(new_states), guided
 
 
@@ -293,24 +323,40 @@ def output_logits(
     return qmm.affine(x, w, b, params["out"]["aq"], output_inv(params))
 
 
-def first_max(logits: torch.Tensor) -> torch.Tensor:
-    """jnp.argmax over the last axis: the first index of the maximum."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def packed_argmax_bf16(logits: torch.Tensor) -> torch.Tensor:
+    """The packed argmax over bfloat16-rounded logits."""
+    return packed_argmax_16(logits, torch.bfloat16)
 
 
 def output_argmax(
-    params: dict, x: torch.Tensor, projection: Tuple[torch.Tensor, torch.Tensor]
+    params: dict,
+    x: torch.Tensor,
+    provider: Optional[str] = None,
+    projection: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    method: str = "packed_int",
 ) -> torch.Tensor:
-    """Greedy choice [B] int32 by the `packed_int` method: the int8
-    projection's int32 accumulators plus the bias folded into
-    accumulator units, compared as packed integer keys. (The `exact`
-    method is first_max(output_logits(...)).)"""
+    """Greedy choice [B] int32 over the tied projection's columns.
+
+    "packed_int" under the providers None, "xla_int8" and "pallas": the
+    int8 projection's int32 accumulators plus the bias folded into
+    accumulator units, compared as packed integer keys. Every other
+    case goes to the argmax kernel (ops/logits_argmax), whose index is
+    the JAX package's XLA argmax: "packed_fp16"/"packed_bf16" up to
+    65536 columns, else the exact first maximum. So "fused" with
+    "packed_int" takes the exact argmax, as in the JAX package
+    (transformer.py:1035, :1051-1057)."""
+    if projection is None:
+        projection = prepare_output_projection(params)
     w, b = projection
     aq = params["out"]["aq"]
-    bq = params["emb"]["scale"]
-    acc = qmm.int8_matmul(x, w, aq)
-    e_dim, width = w.shape
-    width_bits, shift = packed_int_params(width, e_dim)
-    cap = e_dim * 127 * 127
-    b_i32 = torch.clamp(torch.round(b * _f32(aq * bq)), -cap, cap).to(torch.int32)
-    return packed_int_argmax(acc, b_i32, width_bits, shift)
+    if method == "packed_int" and provider in (None, "xla_int8", "pallas"):
+        bq = params["emb"]["scale"]
+        acc = qmm.int8_matmul(x, w, aq)
+        e_dim, width = w.shape
+        width_bits, shift = packed_int_params(width, e_dim)
+        cap = e_dim * 127 * 127
+        b_i32 = torch.clamp(torch.round(b * _f32(aq * bq)), -cap, cap).to(torch.int32)
+        return packed_int_argmax(acc, b_i32, width_bits, shift)
+    if method not in logits_argmax.PACKED_DTYPES or w.shape[1] > logits_argmax.MAX_PACKED_WIDTH:
+        method = "exact"
+    return logits_argmax.argmax_affine(x, w, b, aq, output_inv(params), method)

@@ -50,9 +50,23 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P,
     ),
     # y, w, bias, choice, scratch, b, e, s, w_stride_k, w_stride_n, aq,
-    # inv, stream
+    # inv, mode, stream
     "slimt_argmax_affine": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _F, _F, _P
+        _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _F, _F, _I, _P
+    ),
+    # x, c, wf, bf, w, ln_scale, ln_bias, h, c_out, m, e, rows, aq_f,
+    # inv_f, aq_w, inv_w, stream
+    "slimt_ssru_block": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P
+    ),
+    # x, w1, b1, w2, b2, ln_scale, ln_bias, out, m, e, f, rows, aq1, inv1,
+    # aq2, inv2, stream
+    "slimt_ffn_block": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P
+    ),
+    # q, k, v, kqi, vqi, mask, out, b, t, e, heads, scale, stream
+    "slimt_decode_attention": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P
     ),
 }
 

@@ -1,4 +1,5 @@
-// Host-side launchers shared between the kernel sources.
+// Host-side launchers shared between the kernel sources, each defined in
+// one source and called from others.
 #pragma once
 
 #include <cstdint>
@@ -19,6 +20,22 @@ enum AffineMode : int {
 int launch_affine(const float* x, const int8_t* w, const float* bias, void* y,
                   int m, int k, int n, long long w_stride_k,
                   long long w_stride_n, float aq, float inv, int mode,
+                  cudaStream_t stream);
+
+// Argmax methods of the tied projection (logits_argmax.cu).
+enum ArgmaxMode : int {
+  kArgmaxExact = 0,  // first index of the maximum f32 logit
+  kArgmaxFp16 = 1,   // packed key of the float16-rounded logit
+  kArgmaxBf16 = 2    // packed key of the bfloat16-rounded logit
+};
+
+// choice[r] = argmax over n < s of q8(y[r]) W[:, n] inv + bias[n] by
+// `mode`, W[k, n] = w[k * sk + n * sn] int8 [e, s]; the packed modes need
+// s <= 65536. part: 2 * b * ceil(s / 256) floats of scratch. Returns
+// cudaGetLastError() after the launches.
+int launch_argmax(const float* y, const int8_t* w, const float* bias,
+                  int* choice, float* part, int b, int e, int s, long long sk,
+                  long long sn, float aq, float inv, int mode,
                   cudaStream_t stream);
 
 }  // namespace slimt

@@ -1,0 +1,99 @@
+"""Decode-step cross-attention over the joined int16 cache: the
+counterpart of slimt_tpu/ops/decode_attn_pallas.py
+(`decode_attention_int16`).
+
+    s   = ((K . q)_head * (1 / sqrt(D))) * kqi + mask       per head
+    p   = softmax_T(s)
+    out = sum_T (p * vqi) V                                  -> [B, E]
+
+On a CUDA tensor `decode_attention_int16` launches csrc/decode_attn.cu
+or raises; on a CPU tensor it runs `attention_plain`, the elementwise
+formulation (the TPU kernel's kq = K * q, reduced per head), which also
+serves the whole decode step's plain version. Attention weights are not
+returned: the kernel serves the alignment-free path only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from slimt_tpu_torch.ops import _build, qmm
+from slimt_tpu_torch.ops.encoder_layer import softmax
+
+
+def attention_plain(q, k, v, kqi, vqi, mask, num_heads):
+    """q [B, E]; k, v [B, T, E] int16; kqi, vqi, mask [B, T]. Returns
+    (out [B, E], p [B, T, H])."""
+    b, e = q.shape
+    t = k.shape[1]
+    d = e // num_heads
+    prod = k.to(torch.float32) * q[:, None, :]  # [B, T, E]
+    scores = prod.reshape(b, t, num_heads, d).sum(-1) * qmm._f32(1.0 / math.sqrt(d))
+    scores = scores * kqi[:, :, None] + mask[:, :, None]
+    p = softmax(scores.transpose(1, 2)).transpose(1, 2)  # over T
+    p_full = (p * vqi[:, :, None]).repeat_interleave(d, dim=2)
+    return (v.to(torch.float32) * p_full).sum(1), p
+
+
+def check_shapes(b: int, t: int, e: int, num_heads: int) -> None:
+    """Raise ValueError on a shape the kernel does not take."""
+    d = e // num_heads if num_heads > 0 else 0
+    lanes = d // 8
+    if b < 1 or t < 1:
+        raise ValueError(f"decode attention: empty batch B={b}, T={t}")
+    if e < 256 or e % 256:
+        raise ValueError(f"decode attention: E={e} must be a multiple of 256")
+    if num_heads < 1 or e % num_heads or d % 8 or lanes > 32 or lanes & (lanes - 1):
+        raise ValueError(
+            f"decode attention: head dim {d} must be 8 * 2^i, at most 256")
+
+
+def decode_attention_kernel(q, k, v, kqi, vqi, mask, num_heads) -> torch.Tensor:
+    """Launch csrc/decode_attn.cu on CUDA tensors. `launches` counts the
+    launches."""
+    b, t, e = k.shape
+    check_shapes(b, t, e, num_heads)
+    if not q.is_cuda:
+        raise ValueError(f"the kernel takes CUDA tensors, got {q.device}")
+    for name, tensor, shape, dtype in (
+        ("q", q, (b, e), torch.float32), ("k", k, (b, t, e), torch.int16),
+        ("v", v, (b, t, e), torch.int16), ("kqi", kqi, (b, t), torch.float32),
+        ("vqi", vqi, (b, t), torch.float32), ("mask", mask, (b, t), torch.float32),
+    ):
+        if tuple(tensor.shape) != shape or tensor.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {shape}, got "
+                             f"{tensor.dtype} {tuple(tensor.shape)}")
+        if tensor.device != q.device or not tensor.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+        if tensor.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty((b, e), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    code = lib.slimt_decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kqi.data_ptr(), vqi.data_ptr(),
+        mask.data_ptr(), out.data_ptr(), b, t, e, num_heads,
+        ctypes.c_float(np.float32(1.0 / math.sqrt(e // num_heads))),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, code, "slimt_decode_attention")
+    decode_attention_kernel.launches += 1
+    return out
+
+
+decode_attention_kernel.launches = 0
+
+
+def decode_attention_int16(q, k, v, kqi, vqi, mask, num_heads) -> torch.Tensor:
+    """q [B, E] f32 (the Q projection of this step); k, v [B, T, E]
+    int16 joined cache; kqi, vqi [B, T] per-row dequant scales; mask
+    [B, T] additive. Returns out [B, E], before the O projection."""
+    if q.is_cuda:
+        return decode_attention_kernel(
+            q.contiguous(), k, v, kqi, vqi, mask.contiguous(), num_heads)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, kqi, vqi, mask, num_heads)[0]
+    raise ValueError(f"unsupported device {q.device}")

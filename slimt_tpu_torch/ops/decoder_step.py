@@ -27,62 +27,39 @@ JAX kernel are ROADMAP Queue 1, item 12.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from slimt_tpu_torch.models import transformer as tfm
-from slimt_tpu_torch.ops import _build, qmm
-from slimt_tpu_torch.ops.encoder_layer import MAX_T, softmax
+from slimt_tpu_torch.ops import _build, decode_attn, fused_blocks, qmm
+from slimt_tpu_torch.ops.encoder_layer import MAX_T, layer_norm
+from slimt_tpu_torch.ops.fused_blocks import EMB_DIMS, FFN_DIMS
+# The projection stage alone: the exact mode of the argmax kernel.
+from slimt_tpu_torch.ops.logits_argmax import (  # noqa: F401
+    TILE_S,
+    argmax_affine_kernel,
+    argmax_affine_plain,
+)
 
-# Shapes the kernel takes (csrc/decoder_step.cu).
-EMB_DIMS = (256, 512)
-FFN_DIMS = (1536, 2048)
 MAX_LAYERS = 8
-TILE_S = 256  # vocab columns of a projection block
-_LAYER_PTRS = 21  # per layer: 17 weight/LN tensors, K, V, kqi, vqi
-# Rows of a layers block: one row per block spreads a small batch over
-# the SMs; four rows per block cut the weight reads at large batch.
-_ROWS_SMALL_B, _ROWS_LARGE_B, _SMALL_B = 1, 4, 64
 
 
-def _affine(p: dict, x: torch.Tensor, mode=qmm.AFFINE) -> torch.Tensor:
-    return qmm.affine_plain(x, p["q"], p.get("b"), p["aq"], p["inv"], mode)
+def _affine(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return qmm.affine_plain(x, p["q"], p["b"], p["aq"], p["inv"])
 
 
 def _layer_plain(layer, x, c, kv, mask, num_heads):
-    """One decoder layer on [B, E] rows in `_layer_math_bte`'s order.
-    Returns (y, c', attn head 0 [B, T])."""
-    rnn, att, ffn = layer["rnn"], layer["att"], layer["ffn"]
-    b, e = x.shape
-    t = kv["k"].shape[1]
-    d = e // num_heads
-    f = torch.sigmoid(_affine(rnn["wf"], x))
-    wx = _affine(rnn["w"], x)
-    c_t = f * c + (1.0 - f) * wx
-    h = tfm.layer_norm(x + torch.relu(c_t), rnn["ln"])
-
-    q = _affine(att["q"], h)
-    prod = kv["k"].to(torch.float32) * q[:, None, :]  # [B, T, E]
-    scores = prod.reshape(b, t, num_heads, d).sum(-1) * qmm._f32(1.0 / math.sqrt(d))
-    scores = scores * kv["kqi"][:, :, None]
-    scores = scores + mask[:, :, None]
-    p = softmax(scores.transpose(1, 2)).transpose(1, 2)  # over T
-    attn0 = p[:, :, 0]
-    p_full = (p * kv["vqi"][:, :, None]).repeat_interleave(d, dim=2)
-    attn_out = (kv["v"].to(torch.float32) * p_full).sum(1)
-
-    a = tfm.layer_norm(h + _affine(att["o"], attn_out), att["ln"])
-    hidden = _affine(ffn["w1"], a, qmm.AFFINE_RELU)
-    y = _affine(ffn["w2"], hidden)
-    return tfm.layer_norm(y + a, ffn["ln"]), c_t, attn0
-
-
-def argmax_affine_plain(y, w, b, aq, inv) -> torch.Tensor:
-    """Plain projection stage: first max of q8(y) W inv + b, [B] int32."""
-    return tfm.first_max(qmm.affine_plain(y, w, b, aq, inv))
+    """One decoder layer on [B, E] rows in `_layer_math_bte`'s order:
+    the plain SSRU block, decode attention and FFN block. Returns (y,
+    c', attn head 0 [B, T])."""
+    h, c_t = fused_blocks.ssru_plain(x, c, layer["rnn"])
+    att = layer["att"]
+    attn_out, p = decode_attn.attention_plain(
+        _affine(att["q"], h), kv["k"], kv["v"], kv["kqi"], kv["vqi"], mask,
+        num_heads)
+    a = layer_norm(h + _affine(att["o"], attn_out), att["ln"]["scale"], att["ln"]["bias"])
+    return fused_blocks.ffn_plain(a, layer["ffn"]), c_t, p[:, :, 0]
 
 
 def layers_plain(layers, states, x, mask_add, kv_caches, num_heads):
@@ -195,7 +172,7 @@ class StepPlan:
         )
         self.device = dev
         self.shape = (len(layers), b, t, e)
-        self.rows = _ROWS_SMALL_B if b <= _SMALL_B else _ROWS_LARGE_B
+        self.rows = fused_blocks.rows_per_block(b)
         tiles = -(-w.shape[1] // TILE_S)
         self.scratch = torch.empty(b * e + 2 * b * tiles, dtype=torch.float32, device=dev)
         self.args = (
@@ -252,33 +229,6 @@ def whole_step_kernel(
 
 
 whole_step_kernel.launches = 0
-
-
-def argmax_affine_kernel(y, w, b, aq, inv) -> torch.Tensor:
-    """The kernel's projection stage alone on CUDA tensors: first max of
-    q8(y) W inv + b, [B] int32. `launches` counts its launches."""
-    rows, e = y.shape
-    if e not in EMB_DIMS:
-        raise ValueError(f"E={e} not in {EMB_DIMS}")
-    if not y.is_cuda or y.dtype != torch.float32 or not y.is_contiguous():
-        raise ValueError("y must be a contiguous float32 CUDA tensor")
-    _check_projection(w, b, e, y.device)
-    tiles = -(-w.shape[1] // TILE_S)
-    choice = torch.empty((rows,), dtype=torch.int32, device=y.device)
-    scratch = torch.empty(2 * rows * tiles, dtype=torch.float32, device=y.device)
-    lib = _build.library()
-    code = lib.slimt_argmax_affine(
-        y.data_ptr(), w.data_ptr(), b.data_ptr(), choice.data_ptr(),
-        scratch.data_ptr(), rows, e, w.shape[1], w.stride(0), w.stride(1),
-        ctypes.c_float(np.float32(aq)), ctypes.c_float(np.float32(inv)),
-        torch.cuda.current_stream(y.device).cuda_stream,
-    )
-    _build.check(lib, code, "slimt_argmax_affine")
-    argmax_affine_kernel.launches += 1
-    return choice
-
-
-argmax_affine_kernel.launches = 0
 
 
 def whole_decode_step(

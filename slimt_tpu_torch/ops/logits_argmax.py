@@ -1,0 +1,108 @@
+"""The int8 tied projection with its greedy argmax: the counterpart of
+slimt_tpu/ops/logits_argmax.py (`argmax_affine`).
+
+    logits = q8(y) W inv + b                       over the S columns
+    exact:        the first index of the maximum
+    packed_fp16 / packed_bf16: one int32 max over packed keys of the
+                  16-bit-rounded logits (`packed_argmax_16`), S <= 65536
+
+On a CUDA tensor `argmax_affine` launches csrc/logits_argmax.cu or
+raises; on a CPU tensor it runs `argmax_affine_plain`. The kernel's
+index is the plain version's by construction: the same epilogue
+rounding, the first maximum across tiles, the same keys.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from slimt_tpu_torch.ops import _build, qmm
+from slimt_tpu_torch.ops.fused_blocks import EMB_DIMS
+
+# Methods of the kernel, in csrc/slimt_kernels.cuh's ArgmaxMode order.
+METHODS = ("exact", "packed_fp16", "packed_bf16")
+PACKED_DTYPES = {"packed_fp16": torch.float16, "packed_bf16": torch.bfloat16}
+MAX_PACKED_WIDTH = 65536  # the reversed column needs 16 bits
+TILE_S = 256  # vocab columns of a projection block
+
+
+def first_max(logits: torch.Tensor) -> torch.Tensor:
+    """jnp.argmax over the last axis: the first index of the maximum."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def packed_argmax_16(logits: torch.Tensor, dtype) -> torch.Tensor:
+    """argmax(logits.astype(dtype)) with the first index on ties, for a
+    16-bit IEEE-ordered float dtype (float16 or bfloat16), as one int32
+    max over packed keys: the sortable transform of the rounded bits
+    above, the reversed column below. Needs width <= 65536."""
+    bits = logits.to(dtype).view(torch.int16).to(torch.int32) & 0xFFFF
+    sortable = torch.where(bits >= 0x8000, 0xFFFF - bits, bits | 0x8000)
+    col = torch.arange(logits.shape[-1], dtype=torch.int32, device=logits.device)
+    # (sortable - 0x8000) * 2^16 spans [-2^31, 2^31 - 2^16]: no overflow.
+    key = (sortable - 0x8000) * 65536 | (0xFFFF - col)
+    best = key.amax(-1)
+    return (0xFFFF - (best & 0xFFFF)).to(torch.int32)
+
+
+def argmax_affine_plain(y, w, b, aq, inv, method: str = "exact") -> torch.Tensor:
+    """Plain PyTorch version: argmax of q8(y) W inv + b by `method`,
+    [B] int32."""
+    logits = qmm.affine_plain(y, w, b, aq, inv)
+    if method == "exact":
+        return first_max(logits)
+    return packed_argmax_16(logits, PACKED_DTYPES[method])
+
+
+def _check(y, w, b, method: str) -> None:
+    rows, e = y.shape
+    if method not in METHODS:
+        raise ValueError(f"method {method!r} not in {METHODS}")
+    if e not in EMB_DIMS:
+        raise ValueError(f"E={e} not in {EMB_DIMS}")
+    if not y.is_cuda or y.dtype != torch.float32 or not y.is_contiguous():
+        raise ValueError("y must be a contiguous float32 CUDA tensor")
+    if w.dtype != torch.int8 or w.dim() != 2 or w.shape[0] != e:
+        raise ValueError(f"projection W must be int8 [{e}, S], got {w.dtype} {tuple(w.shape)}")
+    if b.dtype != torch.float32 or not b.is_contiguous() or b.shape != (w.shape[1],):
+        raise ValueError("projection bias must be a contiguous float32 [S] tensor")
+    if w.device != y.device or b.device != y.device:
+        raise ValueError("projection must be on y's CUDA device")
+    if method != "exact" and w.shape[1] > MAX_PACKED_WIDTH:
+        raise ValueError(f"{method} needs S <= {MAX_PACKED_WIDTH}, got {w.shape[1]}")
+
+
+def argmax_affine_kernel(y, w, b, aq, inv, method: str = "exact") -> torch.Tensor:
+    """Launch csrc/logits_argmax.cu on CUDA tensors: [B] int32. W may be
+    any strided [E, S] int8 view. `launches` counts the launches."""
+    _check(y, w, b, method)
+    rows, e = y.shape
+    tiles = -(-w.shape[1] // TILE_S)
+    choice = torch.empty((rows,), dtype=torch.int32, device=y.device)
+    scratch = torch.empty(2 * rows * tiles, dtype=torch.float32, device=y.device)
+    lib = _build.library()
+    code = lib.slimt_argmax_affine(
+        y.data_ptr(), w.data_ptr(), b.data_ptr(), choice.data_ptr(),
+        scratch.data_ptr(), rows, e, w.shape[1], w.stride(0), w.stride(1),
+        ctypes.c_float(np.float32(aq)), ctypes.c_float(np.float32(inv)),
+        METHODS.index(method), torch.cuda.current_stream(y.device).cuda_stream,
+    )
+    _build.check(lib, code, "slimt_argmax_affine")
+    argmax_affine_kernel.launches += 1
+    return choice
+
+
+argmax_affine_kernel.launches = 0
+
+
+def argmax_affine(x, w, b, aq, inv, method: str = "exact") -> torch.Tensor:
+    """x [B, E] f32; w [E, S] int8 (any strided view); b [S] f32; inv =
+    1 / (aq * bq). Returns the [B] int32 column chosen by `method`."""
+    if x.is_cuda:
+        return argmax_affine_kernel(x.contiguous(), w, b, aq, inv, method)
+    if x.device.type == "cpu":
+        return argmax_affine_plain(x, w, b, aq, inv, method)
+    raise ValueError(f"unsupported device {x.device}")

@@ -17,9 +17,10 @@ from slimt_tpu.io.loader import load_weights  # noqa: E402
 from slimt_tpu.io.synthetic import synthetic_model_bytes  # noqa: E402
 from slimt_tpu_torch.io.params import params_from_numpy  # noqa: E402
 from slimt_tpu_torch.models import transformer as tfm  # noqa: E402
+from slimt_tpu_torch.ops import decode_attn  # noqa: E402
 from slimt_tpu_torch.ops import decoder_step as dstep  # noqa: E402
 from slimt_tpu_torch.ops import encoder_layer as enc  # noqa: E402
-from slimt_tpu_torch.ops import qmm  # noqa: E402
+from slimt_tpu_torch.ops import fused_blocks, logits_argmax, qmm  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -176,5 +177,83 @@ def test_argmax_affine_kernel_bit_equal_with_tie(card, with_shortlist):
     got = dstep.argmax_affine_kernel(y, w, b, 20.0, 1e-3)
     assert dstep.argmax_affine_kernel.launches == before + 1
     want = dstep.argmax_affine_plain(y, w, b, 20.0, 1e-3)
+    assert torch.equal(got, want)
+    assert got[:2].tolist() == [first, first]
+
+
+def _decoder_layer(card, emb, ffn, seed):
+    config = ModelConfig(encoder_layers=1, decoder_layers=1, num_heads=8)
+    host = load_weights(load_items(synthetic_model_bytes(
+        config=config, vocab_size=64, emb_dim=emb, ffn_dim=ffn, seed=seed)), config)
+    return params_from_numpy(host, card)["decoder"][0]
+
+
+# The blocks' int8 products and epilogues are bit-exact; only LayerNorm
+# and the sigmoid sum or round in another order.
+@pytest.mark.parametrize("m", [1, 33, 130])
+@pytest.mark.parametrize("emb,ffn", [(256, 1536), (512, 2048)])
+def test_fused_blocks_match_plain(card, emb, ffn, m):
+    layer = _decoder_layer(card, emb, ffn, seed=m)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(m)
+    x = torch.randn((m, 1, emb), device=card, generator=gen) * 2.0
+    c = torch.randn((m, 1, emb), device=card, generator=gen)
+    before = (fused_blocks.ssru_kernel.launches, fused_blocks.ffn_kernel.launches)
+    h, c_t = fused_blocks.ssru_block(x, c, layer["rnn"])
+    y = fused_blocks.ffn_block(x, layer["ffn"])
+    assert (fused_blocks.ssru_kernel.launches, fused_blocks.ffn_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_h, want_c = fused_blocks.ssru_plain(x[:, 0], c[:, 0], layer["rnn"])
+    want_y = fused_blocks.ffn_plain(x[:, 0], layer["ffn"])
+    torch.cuda.synchronize()
+    for got, want in ((h, want_h), (c_t, want_c), (y, want_y)):
+        assert tuple(got.shape) == (m, 1, emb)
+        assert float((got[:, 0] - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("b,t", [(1, 16), (24, 64), (33, 128)])
+@pytest.mark.parametrize("emb", [256, 512])
+def test_decode_attention_kernel_matches_plain(card, emb, b, t):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(b + t)
+    q = torch.randn((b, emb), device=card, generator=gen)
+    k, v = (torch.randint(-32767, 32768, (b, t, emb), device=card,
+                          dtype=torch.int16, generator=gen) for _ in range(2))
+    kqi, vqi = ((torch.rand((b, t), device=card, generator=gen) + 0.5) / 32767.0
+                for _ in range(2))
+    mask = torch.zeros((b, t), device=card)
+    mask[0, t // 2:] = -99999999.0
+    mask[-1] = -99999999.0  # a padding row (the only row at b = 1)
+    before = decode_attn.decode_attention_kernel.launches
+    got = decode_attn.decode_attention_int16(q, k, v, kqi, vqi, mask, 8)
+    assert decode_attn.decode_attention_kernel.launches == before + 1
+    want = decode_attn.attention_plain(q, k, v, kqi, vqi, mask, 8)[0]
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("method", logits_argmax.METHODS)
+@pytest.mark.parametrize("with_shortlist", [False, True], ids=["full", "shortlist"])
+def test_argmax_kernel_methods_bit_equal_with_tie(card, method, with_shortlist):
+    rng = np.random.default_rng(9)
+    emb = rng.integers(-127, 128, (STEP_VOCAB, 256)).astype(np.int8)
+    emb[4000] = emb[300]  # a tie across projection tiles: 300 must win
+    emb_t = torch.from_numpy(emb).to(card)
+    bias = torch.from_numpy((rng.standard_normal(STEP_VOCAB) * 0.1).astype(np.float32)).to(card)
+    bias[4000] = bias[300]
+    if with_shortlist:
+        ids = torch.from_numpy(np.arange(0, STEP_VOCAB, 4)).to(card)  # holds 300 and 4000
+        w, b = emb_t.index_select(0, ids).T, bias.index_select(0, ids)
+        first = 75
+    else:
+        w, b = emb_t.T, bias
+        first = 300
+    y = torch.from_numpy(rng.standard_normal((70, 256)).astype(np.float32)).to(card)
+    y[:2] = w[:, first].float() / 40.0
+    before = logits_argmax.argmax_affine_kernel.launches
+    got = logits_argmax.argmax_affine(y, w, b, 20.0, 1e-3, method)
+    assert logits_argmax.argmax_affine_kernel.launches == before + 1
+    want = logits_argmax.argmax_affine_plain(y, w, b, 20.0, 1e-3, method)
     assert torch.equal(got, want)
     assert got[:2].tolist() == [first, first]

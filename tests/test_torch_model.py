@@ -105,12 +105,13 @@ def test_cuda_without_card_raises():
     "change",
     [
         {"kv_cache_dtype": "int8"},
-        {"argmax_method": "exact"},
+        {"qmm_provider": "fused", "kv_cache_dtype": "int8"},
         {"qmm_provider": "f32"},
         {"encoder_dtype": "float16"},
-        {"attn_kernel": "on"},
+        {"kv_cache_dtype": "float16"},
         {"encoder_sdpa": "on"},
         {"flash_attention": True},
+        {"encoder_layer_kernel": "off"},
     ],
 )
 def test_unported_config_raises(change):
@@ -163,7 +164,8 @@ def test_import_loads_neither_jax_nor_regex():
         sys.meta_path.insert(0, Block())
         import slimt_tpu_torch
         from slimt_tpu_torch.models import decode, transformer
-        from slimt_tpu_torch.ops import decoder_step, encoder_layer, qmm
+        from slimt_tpu_torch.ops import (decode_attn, decoder_step, encoder_layer,
+                                         fused_blocks, logits_argmax, qmm)
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "regex")]
         assert not loaded, loaded
