@@ -24,29 +24,48 @@ without printing a result:
              the decode attention within 2e-5, the projection argmax
              bit-equal in its three methods (exact, packed_fp16,
              packed_bf16; a tie across vocab tiles included), at tiny
-             and base widths; times beside the plain versions';
+             and base widths; the split encoder's fused SDPA within
+             2e-5 at B in (1, 33, 512), T in (16, 64, 256), E in (256,
+             512), and its blockwise attention within 2e-5 abs + 1e-5
+             rel at T in (272, 1000, 1024, 2048) (ragged pads), padding
+             rows within 1e-4; the whole step also at T=1024 (B 1, 8,
+             130) and T=2048 (B=130); times beside the plain versions'
+             (and, for the two attention kernels, one
+             scaled_dot_product_attention call's), each with its bound;
 4. serve   — a tiny11-width model (32k vocab, emb 256, ffn 1536, 6+2
              layers, 8 heads; random weights from seed 0) answers
              request batches of text through Model.forward_async,
-             Model.forward_async_arrays and the runtime's
+             Model.forward_async_arrays and the port's own
              Blocking(...).translate, with and without shortlist and
              alignment: on the declared path, then on the fused_step
              latency path, then on the `fused` path (qmm_provider
              "fused", attn_kernel "on"; the full-vocab model keeps
              packed_int, which falls to the exact argmax there, the
-             shortlist model takes packed_fp16); the launch counts are
-             set to 0 before each path and read after it, and every
-             kernel of the path must have launched;
+             shortlist model takes packed_fp16), then on the `split`
+             path (encoder_layer_kernel "off", encoder_sdpa "on"; the
+             shortlist model under "fused"), then on the `long` path
+             (the default config on lines of ~900 tokens through
+             Blocking with a 1024-token wrap and forward_async_arrays at
+             T=1024, on the declared, fused_step and fused decode
+             paths); the launch counts are set to 0 before each path
+             and read after it, and every kernel of the path must have
+             launched;
 5. check   — outputs well formed; CUDA tokens against the plain CPU
-             path on 16 segments (>= 99% equal) for every path; forward
-             wall time and tokens/s at B=64 and B=512 (T=64) on each
-             path; at B=1, T=32 the fused_step and fused forwards
-             against the declared one (median of 5 runs, µs per step,
-             device operations per step by torch.profiler); neither JAX
-             nor the JAX package's models or ops were imported.
+             path (>= 99% equal) for every path: 16 segments, on `long`
+             2 segments of ~900 tokens and the 4 forward_async_arrays
+             rows at T=1024, the CPU's decode capped at 0.1 x T;
+             forward wall time and tokens/s at B=64 and B=512 (T=64)
+             on each short-input path; at B=1, T=32 the fused_step and
+             fused forwards against the declared one (median of 5 runs,
+             µs per step, device operations per step by
+             torch.profiler); the 6-layer encoder at 16,384 tokens a
+             call for T in (256, 512, 768, 1024, 2048), plain SDPA
+             against blockwise (and at T=256 the whole-layer kernel and
+             the fused SDPA): median of 5 by CUDA events, tokens/s;
+             neither JAX nor any slimt_tpu module was imported.
 
-The second-to-last line is the kernels' JSON record, the last line
-{"ok": true, "device": {...}}.
+The second-to-last line is the kernels' JSON record (nine kernels), the
+last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -60,9 +79,9 @@ import time
 
 import numpy as np
 
-from slimt_tpu.config import Config
-from slimt_tpu.runtime.response import Options
-from slimt_tpu.runtime.service import Blocking
+from slimt_tpu_torch.config import Config
+from slimt_tpu_torch.runtime.response import Options
+from slimt_tpu_torch.runtime.service import Blocking
 
 VOCAB, EMB, FFN, ENC, DEC, HEADS = 32000, 256, 1536, 6, 2, 8
 AFFINE_SOURCE = "slimt_tpu_torch/ops/csrc/qmm_affine.cu"
@@ -71,7 +90,10 @@ STEP_SOURCE = "slimt_tpu_torch/ops/csrc/decoder_step.cu"
 BLOCKS_SOURCE = "slimt_tpu_torch/ops/csrc/fused_blocks.cu"
 ATTN_SOURCE = "slimt_tpu_torch/ops/csrc/decode_attn.cu"
 ARGMAX_SOURCE = "slimt_tpu_torch/ops/csrc/logits_argmax.cu"
+ATTENTION_SOURCE = "slimt_tpu_torch/ops/csrc/attention.cu"
 LAYER_TOL = 2e-5
+SDPA_TOL = 2e-5  # the encoder layer's bound
+BLOCKWISE_ATOL, BLOCKWISE_RTOL = 2e-5, 1e-5  # the JAX package's, tests/test_attention.py
 STEP_TOL = 2e-5  # the encoder layer's bound, per row (steps and blocks)
 ATTN_TOL = 2e-5
 # The two versions sum in different orders, so now and then an input to
@@ -84,9 +106,55 @@ ATTN_TOL = 2e-5
 FLIP_BOUND = 0.25
 MASK_MIN = -99999999.0
 AGREEMENT_MIN = 0.99
-# Of the JAX package the port reuses only the JAX-free config, io, text
-# and runtime modules; none of these may be imported.
-JAX_PACKAGE_COMPUTE = ("slimt_tpu.models", "slimt_tpu.ops", "slimt_tpu.parallel")
+# A padding row (every key masked) of the split encoder's attention: its
+# scores sit on the float32 grid of 8 at 1e8, so two sum orders differ
+# there by more than the kernels' tolerance (up to 5.2e-5 seen at
+# T=2048); no token reads that row.
+PAD_TOL = 1e-4
+# Two greedy decodes part for good at a step where the two best logits are
+# a near tie and a rounding flip (see FLIP_BOUND) picks the other one; on
+# the 4 long rows one such row is 25% of the tokens. A row that parts
+# is accepted where the plain logits of the two choices there lie within
+# TIE_GAP.
+TIE_GAP = 0.05
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the
+# bound of a kernel is the larger of its bytes over the memory rate and
+# its operations over the peak rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12  # CUDA cores, no tensor cores
+INT8_OPS = 1979e12
+
+
+def bound(nbytes, f32_ops=0.0, int8_ops=0.0):
+    """(bound ms, "bytes" or "operations") for one call: each input read
+    once, each output written once."""
+    memory = nbytes / HBM_BYTES_PER_S
+    compute = f32_ops / F32_FLOPS + int8_ops / INT8_OPS
+    return max(memory, compute) * 1e3, "bytes" if memory >= compute else "operations"
+
+
+def affine_bound(m, k, n):
+    return bound(4 * m * k + k * n + 4 * n + 4 * m * n, int8_ops=2 * m * k * n)
+
+
+def layer_bound(b, t, e, f):
+    m = b * t
+    weights = 4 * e * e + 2 * e * f + 4 * (9 * e + f)
+    return bound(8 * m * e + 4 * b * t + weights, f32_ops=4 * b * t * t * e,
+                 int8_ops=2 * m * (4 * e * e + 2 * e * f))
+
+
+def step_bound(b, t, e, f, layers, s):
+    per_layer = (4 * e * e + 2 * e * f + 4 * (11 * e + f)  # weights, biases, LNs
+                 + 4 * b * t * e + 8 * b * t)               # int16 K, V; kqi, vqi
+    nbytes = (layers * per_layer + e * s + 4 * s + 4 * b * t + 4 * b * e
+              + 8 * layers * b * e + 4 * b * t + 4 * b)
+    return bound(nbytes, f32_ops=layers * 4 * b * t * e,
+                 int8_ops=2 * b * (layers * (4 * e * e + 2 * e * f) + e * s))
+
+
+def sdpa_bound(b, t, e):
+    return bound(16 * b * t * e + 4 * b * t, f32_ops=4 * b * t * t * e)
 
 
 def log(*parts) -> None:
@@ -304,6 +372,9 @@ def check_step(torch, dstep, lam, tfm, qmm, dev, load_host, params_from_numpy):
         gen.manual_seed(emb)
         shapes = [(b, t, 0) for b in (1, 8, 33, 64, 512) for t in (16, 64, 128, 256)]
         shapes += [(b, 64, w) for b in (1, 8, 33, 64, 512) for w in (1024, 3072)]
+        # Past the encoder's T bound; B=130 takes 4 rows a block at T=1024
+        # and 1 at T=2048.
+        shapes += [(b, 1024, 0) for b in (1, 8, 130)] + [(130, 2048, 0)]
         for b, t, width in shapes:
             args = step_case(torch, tfm, params, gen, b, t, width)
             choice, states, attn0 = dstep.whole_step_kernel(*args)
@@ -556,6 +627,113 @@ def check_argmax(torch, lam, tfm, widths):
     return float(differ), timing
 
 
+def padded_mask(torch, dev, b, t):
+    """(additive [b, 1, 1, t] mask, rows with a real key): row 0 padded
+    over its last third, row 1 a padding row where b > 2. A padding
+    row's scores are MASK_MIN + s, rounded to the float32 grid of 8 at
+    1e8, so its softmax is the rounding of s and differs between two sum
+    orders; no token reads that row. The checks hold it to PAD_TOL and
+    the real rows to their tolerance."""
+    mask = torch.ones((b, t), device=dev)
+    mask[0, t - t // 3:] = 0.0
+    if b > 2:
+        mask[1] = 0.0
+    return ((1.0 - mask) * MASK_MIN)[:, None, None, :], mask.any(-1)
+
+
+def library_sdpa(torch, q, k, v, mask_add):
+    """One torch.nn.functional.scaled_dot_product_attention call on [B,
+    H, T, D] views with the same float mask: the yardstick, never called
+    by the port."""
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask_add)
+
+
+def check_fused_sdpa(torch, att, enc, dev):
+    """Fused SDPA vs plain within SDPA_TOL at every position of the real
+    rows (PAD_TOL on the padding rows), B in (1, 33, 512), T in (16, 64,
+    256), E in (256, 512), 8 heads; times at B=512 T=64 E=256 beside the
+    plain version and the library call."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    worst = worst_pad = 0.0
+    cases = 0
+    for e in (EMB, 512):
+        for b in (1, 33, 512):
+            for t in (16, 64, 256):
+                q, k, v = (torch.randn((b, t, e), device=dev, generator=gen) for _ in range(3))
+                mask_add, real = padded_mask(torch, dev, b, t)
+                got = att.fused_sdpa_kernel(q, k, v, mask_add, HEADS)
+                want = enc.sdpa_plain(q, k, v, mask_add, HEADS)
+                torch.cuda.synchronize()
+                err = float((got[real] - want[real]).abs().max())
+                pad = float((got - want).abs().max())
+                worst = max(worst, err)
+                worst_pad = max(worst_pad, pad)
+                if not (err <= SDPA_TOL and pad <= PAD_TOL):  # also catches NaN
+                    raise RuntimeError(f"fused SDPA B={b} T={t} E={e}: max |diff| {err} "
+                                       f"on the real rows, {pad} on all")
+                cases += 1
+    log(f"fused SDPA: {cases} cases within {SDPA_TOL} on the real rows, max |diff| "
+        f"{worst:.3g}; padding rows within {PAD_TOL}, max |diff| {worst_pad:.3g}")
+    b, t, e = 512, 64, EMB
+    q, k, v = (torch.randn((b, t, e), device=dev, generator=gen) for _ in range(3))
+    mask_add = padded_mask(torch, dev, b, t)[0]
+
+    def heads(a):
+        return a.view(b, t, HEADS, e // HEADS).transpose(1, 2)
+
+    times = (cuda_ms(torch, lambda: att.fused_sdpa_kernel(q, k, v, mask_add, HEADS)),
+             cuda_ms(torch, lambda: enc.sdpa_plain(q, k, v, mask_add, HEADS), 10),
+             cuda_ms(torch, lambda: library_sdpa(torch, heads(q), heads(k), heads(v),
+                                                 mask_add)))
+    bound_ms, by = sdpa_bound(b, t, e)
+    log(f"time fused SDPA B={b} T={t} E={e}: kernel {times[0]:.4f} ms, plain "
+        f"{times[1]:.4f} ms, scaled_dot_product_attention {times[2]:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({by})")
+    return worst, times
+
+
+def check_blockwise(torch, att, dev):
+    """Blockwise attention vs plain within BLOCKWISE_ATOL + BLOCKWISE_RTOL
+    * |plain| at every position of the real rows (PAD_TOL on the padding
+    row), 8 heads of D=32,
+    ragged query tiles; times at B*H=128, T=1024 beside the plain version
+    and the library call."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    worst = 0.0
+    for b, t in ((16, 272), (3, 1000), (16, 1024), (16, 2048)):
+        q, k, v = (torch.randn((b, HEADS, t, 32), device=dev, generator=gen)
+                   for _ in range(3))
+        mask_add, real = padded_mask(torch, dev, b, t)
+        got = att.blockwise_kernel(q, k, v, mask_add)
+        want = att.blockwise_plain(q, k, v, mask_add)
+        torch.cuda.synchronize()
+        pad = float((got - want).abs().max())
+        if not pad <= PAD_TOL:  # also catches NaN
+            raise RuntimeError(f"blockwise B={b} T={t}: max |diff| {pad} > {PAD_TOL}")
+        diff = (got[real] - want[real]).abs()
+        err = float(diff.max())
+        worst = max(worst, err)
+        if not bool((diff <= BLOCKWISE_ATOL + BLOCKWISE_RTOL * want[real].abs()).all()):
+            raise RuntimeError(f"blockwise B={b} T={t}: beyond {BLOCKWISE_ATOL} + "
+                               f"{BLOCKWISE_RTOL} x |plain|, max |diff| {err}")
+        log(f"blockwise B={b} H={HEADS} T={t} D=32: max |diff| {err:.3g} on the real "
+            f"rows, {pad:.3g} on all (padding row within {PAD_TOL})")
+    b, t = 16, 1024
+    q, k, v = (torch.randn((b, HEADS, t, 32), device=dev, generator=gen) for _ in range(3))
+    mask_add = padded_mask(torch, dev, b, t)[0]
+    times = (cuda_ms(torch, lambda: att.blockwise_kernel(q, k, v, mask_add), 10),
+             cuda_ms(torch, lambda: att.blockwise_plain(q, k, v, mask_add), 10),
+             cuda_ms(torch, lambda: library_sdpa(torch, q, k, v, mask_add), 10))
+    bh = b * HEADS
+    bound_ms, by = bound(16 * bh * t * 32 + 4 * b * t, f32_ops=4 * bh * t * t * 32)
+    log(f"time blockwise B*H={bh} T={t} D=32: kernel {times[0]:.4f} ms, plain "
+        f"{times[1]:.4f} ms, scaled_dot_product_attention {times[2]:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({by})")
+    return worst, times
+
+
 def executed_steps(valid: int, limit: int, every: int) -> int:
     """Decode steps a B=1 forward ran: the loop checks completion every
     `every` steps, so a row that ended after `valid` steps ran to the
@@ -644,17 +822,102 @@ def serve(model, lines):
     sample = [vocab.decode(h.target)[0] for h in hyps[:2]]
 
     # The runtime's service front door (the card has `regex`, which the
-    # text processor needs): split, tokenize, batch, decode, detokenize.
-    # The per-request lane calls model.forward_async; the bulk lane would
-    # import the JAX package's model module for its bucket helpers.
-    with Blocking(Config(prefer_bulk=False)) as service:
+    # text processor needs): split, tokenize, batch, decode, detokenize,
+    # on the bulk lane (forward_async_arrays) and, with alignment, the
+    # per-request lane (forward_async).
+    with Blocking(Config()) as service:
         responses = service.translate(model, list(lines[:32]))
+    with Blocking(Config(prefer_bulk=False)) as service:
         aligned = service.translate(model, list(lines[:8]), Options(alignment=True))
     if len(responses) != 32 or not all(r.target.text for r in responses):
         raise RuntimeError("Blocking.translate: malformed responses")
     if len(aligned) != 8 or not all(r.alignments for r in aligned):
         raise RuntimeError("Blocking.translate with alignment: no alignments")
     return segments, hyps, sample
+
+
+LONG_T = 1024
+LONG_ROWS = 4
+
+
+def serve_long(model, lines):
+    """Lines of ~900 tokens through the port's Blocking with a 1024-token
+    wrap (T bucket 912, past the blockwise crossover), then
+    forward_async_arrays at T=1024. Returns the segments of the lines
+    and the arrays' (indices, mask, lengths, tokens, steps)."""
+    vocab = model.vocabulary
+    with Blocking(Config(wrap_length=LONG_T, max_words=4 * LONG_T,
+                         prefer_bulk=False)) as service:
+        responses = service.translate(model, list(lines))
+    if len(responses) != len(lines) or not all(r.target.text for r in responses):
+        raise RuntimeError("Blocking.translate (long lines): malformed responses")
+    segments = [vocab.encode(line, add_eos=True)[0] for line in lines]
+    words = [w for seg in segments for w in seg[:-1]]
+    rows = LONG_ROWS
+    indices = np.zeros((rows, LONG_T), np.int32)
+    mask = np.zeros((rows, LONG_T), np.float32)
+    for i in range(rows):
+        n = LONG_T - 40 * i  # ragged lengths, the first row full
+        indices[i, :n - 1] = words[100 * i:100 * i + n - 1]
+        indices[i, n - 1] = vocab.eos_id
+        mask[i, :n] = 1.0
+    lengths = mask.sum(1).astype(np.int64)
+    tokens, steps, align = model.forward_async_arrays(
+        indices, mask, lengths, rows, need_alignment=False, raw=True)()
+    limit = int(model.limit_factor * LONG_T)
+    if align is not None or tokens.shape[0] != rows or not (
+            (steps >= 1) & (steps <= limit)).all():
+        raise RuntimeError("forward_async_arrays at T=1024: malformed raw result")
+    if not (0 <= tokens).all() or not (tokens < model.vocab_size).all():
+        raise RuntimeError("forward_async_arrays at T=1024: token outside the vocabulary")
+    return segments, (indices, mask, lengths, tokens, steps)
+
+
+def plain_rows(model, tfm, dstep, qmm, indices, mask, lengths):
+    """`model`'s forward_async_arrays rows on the CPU, with the plain
+    logits [B, V] of every step recorded (the declared and fused paths
+    through transformer.output_argmax, fused_step through the whole
+    step's argmax_affine_plain)."""
+    logits = []
+    real_argmax, real_step = tfm.output_argmax, dstep.argmax_affine_plain
+
+    def output_argmax(params, x, provider=None, projection=None, method="packed_int"):
+        logits.append(tfm.output_logits(params, x, projection=projection))
+        return real_argmax(params, x, provider, projection, method)
+
+    def argmax_affine_plain(y, w, b, aq, inv, *rest):
+        logits.append(qmm.affine_plain(y, w, b, aq, inv))
+        return real_step(y, w, b, aq, inv, *rest)
+
+    tfm.output_argmax, dstep.argmax_affine_plain = output_argmax, argmax_affine_plain
+    try:
+        tokens, steps, _ = model.forward_async_arrays(
+            indices, mask, lengths, len(indices), need_alignment=False, raw=True)()
+    finally:
+        tfm.output_argmax, dstep.argmax_affine_plain = real_argmax, real_step
+    return tokens, steps, logits
+
+
+def row_agreement(plain, indices, tokens, steps):
+    """(share of equal tokens, gaps) between forward_async_arrays rows
+    (tokens, steps) and the plain rows `plain` (plain_rows), each row cut
+    to the length the plain run gave it: greedy prefixes do not depend on
+    the step limit. gaps: for each row that differs, the plain logit of
+    the plain choice less that of the other choice at the first step
+    where they part."""
+    want, want_steps, logits = plain
+    same = total = 0
+    gaps = []
+    for i in range(len(indices)):
+        ref = want[i, :want_steps[i]].tolist()
+        got = tokens[i, :min(steps[i], len(ref))].tolist()
+        total += max(len(got), len(ref))
+        same += sum(1 for x, y in zip(got, ref) if x == y)
+        part = next((k for k, (x, y) in enumerate(zip(got, ref)) if x != y), None)
+        if part is not None:
+            row = logits[part][i]
+            gaps.append(float(row[ref[part]] - row[got[part]]))
+    return same / max(total, 1), gaps
 
 
 def check_hypothesis(model, seg, hyp, limit, aligned):
@@ -699,29 +962,66 @@ def forward_rate(torch, model, batch, t):
     return wall, tokens
 
 
+def longctx(torch, tfm, params, name, smi):
+    """The 6-layer tiny11 encoder at a fixed 16,384 tokens a call: B =
+    16384 / T. Plain SDPA against blockwise at every T; at T=256 also
+    the whole-layer kernel and the split layer with the fused SDPA.
+    Median of 5 calls by CUDA events after one warm-up call."""
+    dev = params["emb"]["q"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    for t in (256, 512, 768, 1024, 2048):
+        b = 16384 // t
+        x = torch.randn((b, t, EMB), device=dev, generator=gen)
+        mask = torch.ones((b, t), device=dev)
+        mask[0, t - t // 4:] = 0.0
+        mask_add = tfm.make_additive_mask(mask)
+        variants = {"plain SDPA": {}, "blockwise": {"flash": True}}
+        if t <= 256:
+            variants["whole layer"] = {"fused_layer": True}
+            variants["fused SDPA"] = {"fused_sdpa": True}
+        for label, gates in variants.items():
+            def call():
+                return tfm.encoder_forward(params, x, mask_add, HEADS, "xla_int8", **gates)
+            call()
+            times = []
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                call()
+                stop.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(stop))
+            median = statistics.median(times)
+            log(f"longctx T={t} B={b} {label}: median {median:.3f} ms of "
+                f"{[round(v, 3) for v in times]}, {b * t / median * 1e3:.0f} tokens/s "
+                f"on {name} ({smi})")
+
+
 def main() -> None:
     import torch
 
     name, smi = probe(torch)
 
-    from slimt_tpu.config import ModelConfig
-    from slimt_tpu.io import load_items
-    from slimt_tpu.io.loader import load_weights
-    from slimt_tpu.io.shortlist import build_synthetic_shortlist
-    from slimt_tpu.io.synthetic import synthetic_model_bytes
-    from slimt_tpu.text import spm_proto
-    from slimt_tpu.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
-    from slimt_tpu_torch import Model, Package
+    from slimt_tpu_torch import Model, ModelConfig, Package
+    from slimt_tpu_torch.io import load_items
+    from slimt_tpu_torch.io.loader import load_weights
     from slimt_tpu_torch.io.params import params_from_numpy
+    from slimt_tpu_torch.io.shortlist import build_synthetic_shortlist
+    from slimt_tpu_torch.io.synthetic import synthetic_model_bytes
     from slimt_tpu_torch.models import transformer as tfm
     from slimt_tpu_torch.models.decode import CHECK_EVERY
     from slimt_tpu_torch.ops import _build
+    from slimt_tpu_torch.ops import attention as att
     from slimt_tpu_torch.ops import decode_attn as dattn
     from slimt_tpu_torch.ops import decoder_step as dstep
     from slimt_tpu_torch.ops import encoder_layer as enc
     from slimt_tpu_torch.ops import fused_blocks as fblocks
     from slimt_tpu_torch.ops import logits_argmax as lam
     from slimt_tpu_torch.ops import qmm
+    from slimt_tpu_torch.text import spm_proto
+    from slimt_tpu_torch.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
 
     dev = torch.device("cuda", 0)
     start = time.perf_counter()
@@ -743,17 +1043,22 @@ def main() -> None:
     argmax_err, argmax_ms = check_argmax(torch, lam, tfm, [
         params_from_numpy(load_host(emb, ffn, 1, DEC, vocab=VOCAB), dev)
         for emb, ffn in ((EMB, FFN), (512, 2048))])
+    sdpa_err, sdpa_ms = check_fused_sdpa(torch, att, enc, dev)
+    blockwise_err, blockwise_ms = check_blockwise(torch, att, dev)
     log(f"kernel times above on {name} ({smi})")
 
     config = ModelConfig(encoder_layers=ENC, decoder_layers=DEC, num_heads=HEADS)
     fused_step = dataclasses.replace(config, qmm_provider="fused_step")
     fused = dataclasses.replace(config, qmm_provider="fused", attn_kernel="on")
+    split = dataclasses.replace(config, encoder_layer_kernel="off", encoder_sdpa="on")
     # Per path, the config of each package's model.
     path_configs = {
         "declared": {"full vocab": config, "shortlist": config},
         "fused_step": {"full vocab": fused_step, "shortlist": fused_step},
         "fused": {"full vocab": fused,  # packed_int: the exact argmax under fused
                   "shortlist": dataclasses.replace(fused, argmax_method="packed_fp16")},
+        "split": {"full vocab": split,
+                  "shortlist": dataclasses.replace(split, qmm_provider="fused")},
     }
     model_bytes = synthetic_model_bytes(
         config=config, vocab_size=VOCAB, emb_dim=EMB, ffn_dim=FFN, seed=0)
@@ -764,33 +1069,30 @@ def main() -> None:
                 "shortlist": Package(model_bytes, spm, shortlist)}
     rng = np.random.default_rng(0)
     lines = make_lines(rng, np.array(DEFAULT_WORDS), 96, 8, 120)
+    long_lines = make_lines(rng, np.array(DEFAULT_WORDS), 4, 880, 920)
     counters = {"qmm_affine": qmm.affine_kernel,
                 "encoder_layer": enc.layer_kernel,
                 "whole_decode_step": dstep.whole_step_kernel,
                 "ssru_block": fblocks.ssru_kernel,
                 "ffn_block": fblocks.ffn_kernel,
                 "decode_attention": dattn.decode_attention_kernel,
-                "argmax_affine": lam.argmax_affine_kernel}
+                "argmax_affine": lam.argmax_affine_kernel,
+                "fused_sdpa": att.fused_sdpa_kernel,
+                "blockwise_attention": att.blockwise_kernel}
     path_kernels = {"declared": ("qmm_affine", "encoder_layer"),
                     "fused_step": ("qmm_affine", "encoder_layer", "whole_decode_step"),
                     "fused": ("qmm_affine", "encoder_layer", "ssru_block", "ffn_block",
-                              "decode_attention", "argmax_affine")}
+                              "decode_attention", "argmax_affine"),
+                    "split": ("qmm_affine", "fused_sdpa", "ffn_block"),
+                    "long": ("qmm_affine", "blockwise_attention", "whole_decode_step",
+                             "ssru_block", "ffn_block", "decode_attention",
+                             "argmax_affine")}
 
-    launches = {}
-    paths = {}
-    for path, configs in path_configs.items():
-        models = {label: Model(configs[label], pkg, "cuda")
-                  for label, pkg in packages.items()}
+    def reset():
         for counter in counters.values():
             counter.launches = 0
-        served = {}
-        for label, model in models.items():
-            start = time.perf_counter()
-            segments, hyps, sample = serve(model, lines)
-            torch.cuda.synchronize()
-            served[label] = segments
-            log(f"serve {path} {label}: {len(hyps)} segments in "
-                f"{time.perf_counter() - start:.3f} s; e.g. {sample[0][:60]!r}")
+
+    def read(path):
         counts = {key: counter.launches for key, counter in counters.items()}
         log(f"launches in the {path} serving phase: {counts}")
         missing = [key for key in path_kernels[path] if not counts[key]]
@@ -800,16 +1102,65 @@ def main() -> None:
         for key in path_kernels[path]:
             launches.setdefault(key, counts[key])
 
+    def compare(path, label, config, pkg, segments, limit_factor=1.5):
+        got = Model(config, pkg, "cuda", limit_factor).forward(
+            segments, need_alignment=False)
+        want = Model(config, pkg, "cpu", limit_factor).forward(
+            segments, need_alignment=False)
+        share = agreement(got, want)
+        log(f"tokens CUDA vs plain CPU ({path}, {label}, {len(segments)} segments, "
+            f"T up to {max(len(s) for s in segments)}): {share:.6f}")
+        if share < AGREEMENT_MIN:
+            raise RuntimeError(f"token agreement {share} < {AGREEMENT_MIN}")
+
+    launches = {}
+    paths = {}
+    for path, configs in path_configs.items():
+        models = {label: Model(configs[label], pkg, "cuda")
+                  for label, pkg in packages.items()}
+        reset()
+        served = {}
+        for label, model in models.items():
+            start = time.perf_counter()
+            segments, hyps, sample = serve(model, lines)
+            torch.cuda.synchronize()
+            served[label] = segments
+            log(f"serve {path} {label}: {len(hyps)} segments in "
+                f"{time.perf_counter() - start:.3f} s; e.g. {sample[0][:60]!r}")
+        read(path)
         for label, pkg in packages.items():
-            cpu = Model(configs[label], pkg, "cpu")
-            segments = served[label][:16]
-            got = models[label].forward(segments, need_alignment=False)
-            want = cpu.forward(segments, need_alignment=False)
-            share = agreement(got, want)
-            log(f"tokens CUDA vs plain CPU ({path}, {label}, 16 segments): {share:.6f}")
-            if share < AGREEMENT_MIN:
-                raise RuntimeError(f"token agreement {share} < {AGREEMENT_MIN}")
+            compare(path, label, configs[label], pkg, served[label][:16])
         paths[path] = models["full vocab"]
+
+    # The long path: the default config past the blockwise crossover, on
+    # each decode path, the full vocabulary.
+    long_models = {path: Model(path_configs[path]["full vocab"], packages["full vocab"],
+                               "cuda")
+                   for path in ("declared", "fused_step", "fused")}
+    reset()
+    long_rows = {}
+    for path, model in long_models.items():
+        start = time.perf_counter()
+        long_segments, long_rows[path] = serve_long(model, long_lines)
+        torch.cuda.synchronize()
+        log(f"serve long {path}: {len(long_lines)} lines of "
+            f"{[len(s) for s in long_segments]} tokens and 4 rows at T={LONG_T} in "
+            f"{time.perf_counter() - start:.3f} s")
+    read("long")
+    for path in long_models:
+        compare(f"long, {path}", "full vocab", path_configs[path]["full vocab"],
+                packages["full vocab"], long_segments[:2], limit_factor=0.1)
+        indices, mask, lengths, tokens, steps = long_rows[path]
+        plain = plain_rows(Model(path_configs[path]["full vocab"], packages["full vocab"],
+                                 "cpu", 0.1), tfm, dstep, qmm, indices, mask, lengths)
+        share, gaps = row_agreement(plain, indices, tokens, steps)
+        log(f"tokens CUDA vs plain CPU (long, {path}, forward_async_arrays, "
+            f"{LONG_ROWS} rows at T={LONG_T}, decode capped at 0.1 x T on the CPU): "
+            f"{share:.6f}; plain logit gaps where rows part: {gaps}")
+        if share < AGREEMENT_MIN and not all(0 <= g <= TIE_GAP for g in gaps):
+            raise RuntimeError(f"token agreement {share} < {AGREEMENT_MIN}, and rows "
+                               f"part where the plain logits are not within {TIE_GAP}")
+    del long_models
 
     for path in paths:
         for batch in (64, 512):
@@ -825,39 +1176,45 @@ def main() -> None:
             f"{wall / steps * 1e6:.1f} us/step, {ops / steps:.1f} device ops/step, "
             f"device busy {busy_us / steps:.1f} us/step (profiled) on {name} ({smi})")
 
-    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
-              or m.startswith(JAX_PACKAGE_COMPUTE)]
+    with torch.inference_mode():
+        longctx(torch, tfm, paths["declared"].params, name, smi)
+
+    loaded = [m for m in sys.modules if m.startswith("jax")
+              or m == "slimt_tpu" or m.startswith("slimt_tpu.")]
     if loaded:
-        raise RuntimeError(f"the run imported JAX or the JAX package's models: {loaded}")
+        raise RuntimeError(f"the run imported JAX or the JAX package: {loaded}")
+    e, f, b, t = EMB, FFN, 64, 64
+    rows = [
+        ("qmm_affine", AFFINE_SOURCE, "slimt_tpu/ops/qmm_pallas.py:42", affine_err,
+         affine_ms, affine_bound(512 * 64, EMB, FFN)),
+        ("encoder_layer", LAYER_SOURCE, "slimt_tpu/ops/encoder_layer_pallas.py:87",
+         layer_err, layer_ms, layer_bound(512, 64, e, f)),
+        ("whole_decode_step", STEP_SOURCE, "slimt_tpu/ops/decoder_step_pallas.py:497",
+         step_err, step_ms, step_bound(1, 64, e, f, DEC, VOCAB)),
+        ("ssru_block", BLOCKS_SOURCE, "slimt_tpu/ops/fused_blocks.py:145",
+         block_err["ssru_block"], block_ms["ssru_block"],
+         bound(16 * b * e + 2 * e * e + 12 * e, int8_ops=4 * b * e * e)),
+        ("ffn_block", BLOCKS_SOURCE, "slimt_tpu/ops/fused_blocks.py:62",
+         block_err["ffn_block"], block_ms["ffn_block"],
+         bound(8 * b * e + 2 * e * f + 4 * (f + 3 * e), int8_ops=4 * b * e * f)),
+        ("decode_attention", ATTN_SOURCE, "slimt_tpu/ops/decode_attn_pallas.py:66",
+         attn_err, attn_ms,
+         bound(8 * b * e + 4 * b * t * e + 12 * b * t, f32_ops=4 * b * t * e)),
+        ("argmax_affine", ARGMAX_SOURCE, "slimt_tpu/ops/logits_argmax.py:70",
+         argmax_err, argmax_ms,
+         bound(4 * b * e + e * VOCAB + 4 * VOCAB + 4 * b, int8_ops=2 * b * e * VOCAB)),
+        ("fused_sdpa", ATTENTION_SOURCE, "slimt_tpu/ops/attention.py:121",
+         sdpa_err, sdpa_ms, sdpa_bound(512, 64, e)),
+        ("blockwise_attention", ATTENTION_SOURCE, "slimt_tpu/ops/attention.py:219",
+         blockwise_err, blockwise_ms,
+         bound(16 * 128 * 1024 * 32 + 4 * 16 * 1024, f32_ops=4 * 128 * 1024 * 1024 * 32)),
+    ]
     record = {"kernels": [
-        {"name": "qmm_affine", "route": "cuda", "source": AFFINE_SOURCE,
-         "replaces": "slimt_tpu/ops/qmm_pallas.py:42",
-         "launches": launches["qmm_affine"], "max_abs_err": affine_err,
-         "ms": affine_ms[0], "plain_ms": affine_ms[1]},
-        {"name": "encoder_layer", "route": "cuda", "source": LAYER_SOURCE,
-         "replaces": "slimt_tpu/ops/encoder_layer_pallas.py:87",
-         "launches": launches["encoder_layer"], "max_abs_err": layer_err,
-         "ms": layer_ms[0], "plain_ms": layer_ms[1]},
-        {"name": "whole_decode_step", "route": "cuda", "source": STEP_SOURCE,
-         "replaces": "slimt_tpu/ops/decoder_step_pallas.py:497",
-         "launches": launches["whole_decode_step"], "max_abs_err": step_err,
-         "ms": step_ms[0], "plain_ms": step_ms[1]},
-        {"name": "ssru_block", "route": "cuda", "source": BLOCKS_SOURCE,
-         "replaces": "slimt_tpu/ops/fused_blocks.py:145",
-         "launches": launches["ssru_block"], "max_abs_err": block_err["ssru_block"],
-         "ms": block_ms["ssru_block"][0], "plain_ms": block_ms["ssru_block"][1]},
-        {"name": "ffn_block", "route": "cuda", "source": BLOCKS_SOURCE,
-         "replaces": "slimt_tpu/ops/fused_blocks.py:62",
-         "launches": launches["ffn_block"], "max_abs_err": block_err["ffn_block"],
-         "ms": block_ms["ffn_block"][0], "plain_ms": block_ms["ffn_block"][1]},
-        {"name": "decode_attention", "route": "cuda", "source": ATTN_SOURCE,
-         "replaces": "slimt_tpu/ops/decode_attn_pallas.py:66",
-         "launches": launches["decode_attention"], "max_abs_err": attn_err,
-         "ms": attn_ms[0], "plain_ms": attn_ms[1]},
-        {"name": "argmax_affine", "route": "cuda", "source": ARGMAX_SOURCE,
-         "replaces": "slimt_tpu/ops/logits_argmax.py:70",
-         "launches": launches["argmax_affine"], "max_abs_err": argmax_err,
-         "ms": argmax_ms[0], "plain_ms": argmax_ms[1]},
+        {"name": key, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[key], "max_abs_err": err, "ms": times[0],
+         "plain_ms": times[1], "bound_ms": bound_ms, "bound_by": by,
+         "library_ms": times[2] if len(times) > 2 else None}
+        for key, source, replaces, err, times, (bound_ms, by) in rows
     ]}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

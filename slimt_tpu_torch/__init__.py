@@ -1,14 +1,18 @@
 """slimt_tpu_torch — the PyTorch/CUDA port of slimt_tpu.
 
-Runs the declared serving config of slimt_tpu on one NVIDIA GPU
-(Hopper, sm_90a) with hand-written CUDA kernels for the int8 affine
-and the whole encoder layer, and their plain PyTorch versions on the
+Runs slimt_tpu's serving paths on one NVIDIA GPU (Hopper, sm_90a) with
+hand-written CUDA kernels, and their plain PyTorch versions on the
 CPU. The JAX package stays the reference; this package imports torch
-and never jax (nor `regex`, which only the text processor needs).
+and never jax, nor anything of slimt_tpu: it carries its own copies of
+the config, io, text, html and runtime modules. `regex` is imported
+only by the sentence splitter, on first use.
 
-    from slimt_tpu_torch import Model, Package, ModelConfig
+    from slimt_tpu_torch import Blocking, Config, Model, ModelConfig, Package
     model = Model(ModelConfig(), Package(model=..., vocabulary=...), "cuda")
+    with Blocking(Config()) as service:
+        responses = service.translate(model, ["hello world"])
 """
 
-from slimt_tpu.config import Config, ModelConfig, preset  # noqa: F401
+from slimt_tpu_torch.config import Config, ModelConfig, preset  # noqa: F401
 from slimt_tpu_torch.models.model import Model, Package  # noqa: F401
+from slimt_tpu_torch.runtime.service import Async, Blocking  # noqa: F401

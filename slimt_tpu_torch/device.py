@@ -2,9 +2,10 @@
 
 The port runs where it is told to: "cuda" without a card raises, and
 there is no fallback to the CPU. On CUDA, TF32 is switched off for
-matmuls and cuDNN: the decode attention's float32 batched matmuls
-would otherwise round their operands to 10 mantissa bits and drift
-from the reference numerics.
+matmuls (`torch.backends.cuda.matmul.allow_tf32` False) and cuDNN: the
+float32 `torch.matmul` products of the decode attention and of the split
+encoder's plain SDPA would otherwise round their operands to 10
+mantissa bits and drift from the reference numerics.
 """
 
 from __future__ import annotations

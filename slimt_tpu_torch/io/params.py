@@ -1,6 +1,6 @@
 """Carry the loader's numpy weight pytree over to torch tensors.
 
-`slimt_tpu.io.loader.load_weights` returns per-layer lists of dicts of
+`io.loader.load_weights` returns per-layer lists of dicts of
 numpy arrays (layout in its module docstring). The port keeps that
 layout: arrays become tensors on `device`, and every scale (`aq`,
 `bq`, `emb.scale`, `out.aq`) stays a host-side np.float32, so a CUDA

@@ -176,15 +176,23 @@ def translate_batch(
     kv_dtype: Optional[str] = "int16",
     argmax_method: str = "packed_int",
     attn_kernel: bool = False,
+    flash_attention: bool = False,
+    fused_sdpa: bool = False,
+    fused_layer: bool = False,
 ) -> GreedyResult:
     """embed → encoder → greedy decode for a padded [B, T] batch.
-    `provider` "fused" runs the decoder's SSRU and FFN block kernels,
-    "fused_step" each decode step as one whole-step call; under both the
-    encoder and the K/V projections stay on the whole-layer kernel and
-    the int8 affine, as in the JAX package."""
+    `provider` "fused" runs the decoder's SSRU and FFN block kernels (and
+    the split encoder's FFN), "fused_step" each decode step as one
+    whole-step call. The encoder takes `flash_attention`, `fused_sdpa`
+    and `fused_layer` (transformer.encoder_layer_forward) and the
+    provider, which under "fused_step" is None, as in the JAX package."""
     word_embedding = tfm.transform_embedding(tfm.embed(params, indices))
     mask_add = tfm.make_additive_mask(mask)
-    encoder_out = tfm.encoder_forward(params, word_embedding, mask_add, num_heads)
+    encoder_out = tfm.encoder_forward(
+        params, word_embedding, mask_add, num_heads,
+        None if provider == "fused_step" else provider,
+        flash=flash_attention, fused_sdpa=fused_sdpa, fused_layer=fused_layer,
+    )
     return greedy_decode(
         params, encoder_out, mask_add, eos_id, max_steps, num_heads,
         shortlist, decoder_position_zero, steps_cap, with_alignment,

@@ -9,9 +9,12 @@ as the JAX Model, so the runtime (`runtime/service.py`,
 
 The port implements the declared serving config, the `fused` provider
 (SSRU and FFN block kernels per decoder layer), the decode-attention
-kernel (`attn_kernel`), the argmax methods exact/packed_fp16/packed_bf16
-and the `fused_step` latency provider (whole-step kernel per decode
-step). Any config value it does not implement raises
+kernel (`attn_kernel`), the argmax methods exact/packed_fp16/packed_bf16,
+the `fused_step` latency provider (whole-step kernel per decode step),
+and the encoder's three gates: the whole-layer kernel
+(`encoder_layer_kernel`), the fused SDPA (`encoder_sdpa`) and blockwise
+attention (`flash_attention`), so inputs of any length are served. Any
+config value it does not implement raises
 NotImplementedError naming the ROADMAP item that ports it; nothing is
 substituted silently.
 """
@@ -25,14 +28,11 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from slimt_tpu.config import ModelConfig
-from slimt_tpu.io import load_items
-from slimt_tpu.io.loader import load_weights, model_dims
-from slimt_tpu.io.shortlist import ShortlistGenerator
-from slimt_tpu.runtime.request import Hypothesis
-from slimt_tpu.text.vocabulary import Vocabulary
-from slimt_tpu.utils import ShortlistMeter
+from slimt_tpu_torch.config import ModelConfig
 from slimt_tpu_torch.device import resolve_device
+from slimt_tpu_torch.io import load_items
+from slimt_tpu_torch.io.loader import load_weights, model_dims
+from slimt_tpu_torch.io.shortlist import ShortlistGenerator
 from slimt_tpu_torch.io.params import params_from_numpy
 from slimt_tpu_torch.models.decode import (
     compact_result,
@@ -40,13 +40,29 @@ from slimt_tpu_torch.models.decode import (
     unpack_compact,
 )
 from slimt_tpu_torch.ops.encoder_layer import MAX_T
+from slimt_tpu_torch.runtime.request import Hypothesis
+from slimt_tpu_torch.text.vocabulary import Vocabulary
+from slimt_tpu_torch.utils import ShortlistMeter
 
-# Package, the bucket helpers and their constants are declared in
-# slimt_tpu/models/model.py, which imports the text processor and
-# through it `regex`; the port must import without `regex`, so it
-# declares these few lines itself. Keep them identical.
+# The bucket helpers and their constants are those of the JAX package's
+# models/model.py (the bulk lane imports them from here). Keep them
+# identical.
 SHORTLIST_BUCKET = 1024
 SEQ_BUCKET = 16
+
+# flash_attention="auto" runs the blockwise kernel past this T bucket and
+# the plain SDPA up to it. A copy of the JAX package's value, not yet
+# measured on the card: tokens do not depend on it, since both sides are
+# exact-class.
+FLASH_AUTO_CROSSOVER_T = 768
+
+
+def resolve_flash(flash, t_pad: int) -> bool:
+    """ModelConfig.flash_attention ("auto"/True/False) for a T bucket:
+    "auto" = blockwise only past the crossover."""
+    if flash == "auto":
+        return t_pad > FLASH_AUTO_CROSSOVER_T
+    return bool(flash)
 
 _model_ids = itertools.count()
 
@@ -110,17 +126,12 @@ def _check_config(config: ModelConfig) -> None:
         unsupported.append(
             f"encoder_dtype={config.encoder_dtype!r} (ROADMAP Queue 1, item 12)"
         )
-    if config.encoder_layer_kernel not in ("on", "auto"):
-        # The XLA-style encoder of the JAX package (split-head attention,
-        # and under "fused" the FFN block at encoder shapes).
-        unsupported.append(
-            f"encoder_layer_kernel={config.encoder_layer_kernel!r} "
-            "(ROADMAP Queue 1, item 16)"
-        )
-    if config.encoder_sdpa == "on":
-        unsupported.append("encoder_sdpa='on' (ROADMAP Queue 2, item 8)")
-    if config.flash_attention is True:
-        unsupported.append("flash_attention=True (ROADMAP Queue 1, item 10)")
+    for name, modes in (("encoder_layer_kernel", ("on", "auto", "off")),
+                        ("encoder_sdpa", ("on", "auto", "off")),
+                        ("flash_attention", (True, False, "auto"))):
+        value = getattr(config, name)
+        if value not in modes:
+            unsupported.append(f"{name}={value!r} (not a mode)")
     if unsupported:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(unsupported)
@@ -146,7 +157,7 @@ class Model:
         self.limit_factor = tgt_length_limit_factor
 
         model_bytes = Package._bytes(package.model)
-        from slimt_tpu.io import checkpoint
+        from slimt_tpu_torch.io import checkpoint
 
         if checkpoint.is_native(model_bytes):
             raise NotImplementedError(
@@ -174,7 +185,7 @@ class Model:
         """The TextProcessor, built on first access: it imports the
         sentence splitter and with it `regex`."""
         if self._processor is None:
-            from slimt_tpu.text.processor import TextProcessor
+            from slimt_tpu_torch.text.processor import TextProcessor
 
             self._processor = TextProcessor(
                 self.config.split_mode,
@@ -238,11 +249,6 @@ class Model:
         shortlist_words, raw: bool = False,
     ):
         t_pad = indices.shape[1]
-        if t_pad > MAX_T:
-            raise NotImplementedError(
-                f"T={t_pad} > {MAX_T}: the long-context encoder is not "
-                "ported yet (ROADMAP Queue 1, item 10)"
-            )
         shortlist = None
         if self.shortlist_generator is not None:
             words = shortlist_words
@@ -279,6 +285,9 @@ class Model:
                 provider=self.config.qmm_provider,
                 argmax_method=self.config.argmax_method,
                 attn_kernel=self._attn_kernel(),
+                flash_attention=resolve_flash(self.config.flash_attention, t_pad),
+                fused_sdpa=self._on_card(self.config.encoder_sdpa, t_pad),
+                fused_layer=self._on_card(self.config.encoder_layer_kernel, t_pad),
             )
             packed = compact_result(result).packed if compact else None
 
@@ -305,6 +314,14 @@ class Model:
             return histories
 
         return finish
+
+    def _on_card(self, mode: str, t_pad: int) -> bool:
+        """encoder_sdpa and encoder_layer_kernel: "on", or "auto" on the
+        port's accelerator (CUDA) in the wrap regime (T bucket <= 256), as
+        the JAX package turns them on for its accelerator backend."""
+        return mode == "on" or (
+            mode == "auto" and self.device.type == "cuda" and t_pad <= MAX_T
+        )
 
     def _attn_kernel(self) -> bool:
         """attn_kernel "on", or "auto" on the port's accelerator (CUDA),

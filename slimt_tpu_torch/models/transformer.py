@@ -3,7 +3,10 @@ slimt_tpu/models/transformer.py.
 
 Plain functions over the params dict from io/params.py (loader layout,
 per-layer lists). What the ported configs reach is here: the exact-f32
-encoder through the whole-layer kernel, the int16 per-row
+encoder, through the whole-layer kernel (ops/encoder_layer) or the split
+layer (int8 affines, self-attention by the plain SDPA, the fused SDPA
+kernel or the blockwise kernel of ops/attention, then the FFN), the
+int16 per-row
 cross-attention cache, the SSRU decoder and the greedy argmax over the
 (optionally shortlisted) tied projection (`packed_int`, or the argmax
 kernel's exact/packed_fp16/packed_bf16, ops/logits_argmax). Under the
@@ -28,7 +31,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from slimt_tpu_torch.ops import decode_attn, fused_blocks, logits_argmax, qmm
+from slimt_tpu_torch.ops import attention, decode_attn, fused_blocks, logits_argmax, qmm
 from slimt_tpu_torch.ops import encoder_layer as enc
 from slimt_tpu_torch.ops.logits_argmax import first_max, packed_argmax_16  # noqa: F401
 from slimt_tpu_torch.ops.qmm import _f32
@@ -84,17 +87,6 @@ def make_additive_mask(mask: torch.Tensor) -> torch.Tensor:
 
 def _affine(p: dict, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
     return qmm.affine(x, p["q"], p["b"], p["aq"], p["inv"], relu=relu)
-
-
-def encoder_forward(
-    params: dict, word_embedding: torch.Tensor, mask_add: torch.Tensor,
-    num_heads: int,
-) -> torch.Tensor:
-    """[B,T,E] → [B,T,E] through every encoder layer."""
-    x = word_embedding
-    for layer in params["encoder"]:
-        x = enc.encoder_layer_fused(x, layer, mask_add, num_heads)
-    return x
 
 
 def ssru_forward(
@@ -174,16 +166,61 @@ def _decode_attention_joined(
     return out[:, None, :], attn[:, :, None, :]
 
 
+def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, T, E] → [B, H, T, D]."""
+    b, t, e = x.shape
+    return x.reshape(b, t, num_heads, e // num_heads).transpose(1, 2)
+
+
+def _join_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, T, D] → [B, T, E]."""
+    b, h, t, d = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * d)
+
+
 def attention_forward(
     att: dict, q_in: torch.Tensor, mask_add: torch.Tensor, num_heads: int,
-    kv_cache: dict, attn_kernel: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Decode-step cross-attention block incl. residual + post-LN.
-    Returns (out, attn_weights)."""
-    yq = _affine(att["q"], q_in)
-    attn_out, attn = _decode_attention_joined(
-        yq, kv_cache, mask_add, num_heads, attn_kernel)
-    out = _affine(att["o"], attn_out)
+    kv_cache: Optional[dict] = None, attn_kernel: bool = False,
+    flash: bool = False, fused_sdpa: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Attention block incl. residual + post-LN. Returns (out,
+    attn_weights).
+
+    With `kv_cache` (the int16 joined cache of precompute_cross_kv) it is
+    the decode step's cross-attention; `attn_kernel` runs it through the
+    decode-attention kernel. Without, it is the encoder's self-attention
+    over q_in, in the JAX package's order of precedence: the fused SDPA
+    kernel on joined operands where `fused_sdpa` is on at 1 < T <= 256
+    and E % 128 == 0 (weights not returned), else the blockwise kernel
+    where `flash` is on (weights not returned), else the plain SDPA
+    (`encoder_layer.sdpa_heads`: torch.matmul products, as the JAX
+    einsum branch, the scale on QK^T and then the mask)."""
+    if kv_cache is not None:
+        yq = _affine(att["q"], q_in)
+        attn_out, attn = _decode_attention_joined(
+            yq, kv_cache, mask_add, num_heads, attn_kernel)
+        out = _affine(att["o"], attn_out)
+        return layer_norm(q_in + out, att["ln"]), attn
+    t, e = q_in.shape[-2], q_in.shape[-1]
+    if (
+        fused_sdpa
+        and 1 < t <= enc.MAX_T
+        and q_in.dtype == torch.float32
+        and e % 128 == 0
+        and e % num_heads == 0
+    ):
+        yq, yk, yv = (_affine(att[n], q_in) for n in ("q", "k", "v"))
+        attn_out = attention.fused_sdpa_joined(yq, yk, yv, mask_add, num_heads)
+        out = _affine(att["o"], attn_out)
+        return layer_norm(q_in + out, att["ln"]), None
+    yq, yk, yv = (_split_heads(_affine(att[n], q_in), num_heads)
+                  for n in ("q", "k", "v"))
+    if flash:
+        attn_out = attention.blockwise_attention(yq, yk, yv, mask_add)
+        attn = None
+    else:
+        attn_out, attn = enc.sdpa_heads(yq, yk, yv, mask_add)
+    out = _affine(att["o"], _join_heads(attn_out))
     return layer_norm(q_in + out, att["ln"]), attn
 
 
@@ -197,6 +234,53 @@ def _ffn_block(
     h = _affine(layer["ffn"]["w1"], x, relu=True)
     y = _affine(layer["ffn"]["w2"], h)
     return layer_norm(y + x, layer["ffn"]["ln"])
+
+
+# The int8 providers the whole-layer kernel serves. The port has no
+# process-wide default provider: None (the encoder's under fused_step)
+# runs as "xla_int8".
+LAYER_KERNEL_PROVIDERS = ("xla_int8", "pallas", "fused")
+
+
+def encoder_layer_forward(
+    layer: dict, x: torch.Tensor, mask_add: torch.Tensor, num_heads: int,
+    provider: Optional[str] = None, flash: bool = False,
+    fused_sdpa: bool = False, fused_layer: bool = False,
+) -> torch.Tensor:
+    """One post-LN encoder layer. The whole-layer kernel where
+    `fused_layer` is on, `flash` off, the provider an int8 one, 1 < T <=
+    256, E % 128 == 0 and E % heads == 0 (the JAX gate); else the split
+    layer: self-attention (attention_forward) then the FFN, under
+    "fused" the FFN-block kernel at M = B·T."""
+    resolved = provider if provider is not None else "xla_int8"
+    t, e = x.shape[-2], x.shape[-1]
+    if (
+        fused_layer
+        and not flash
+        and resolved in LAYER_KERNEL_PROVIDERS
+        and 1 < t <= enc.MAX_T
+        and e % 128 == 0
+        and e % num_heads == 0
+    ):
+        return enc.encoder_layer_fused(x, layer, mask_add, num_heads)
+    out, _ = attention_forward(
+        layer["att"], x, mask_add, num_heads, flash=flash, fused_sdpa=fused_sdpa)
+    return _ffn_block(layer, out, provider)
+
+
+def encoder_forward(
+    params: dict, word_embedding: torch.Tensor, mask_add: torch.Tensor,
+    num_heads: int, provider: Optional[str] = None, flash: bool = False,
+    fused_sdpa: bool = False, fused_layer: bool = False,
+) -> torch.Tensor:
+    """[B,T,E] → [B,T,E] through every encoder layer
+    (encoder_layer_forward, gates as in the JAX package)."""
+    x = word_embedding
+    for layer in params["encoder"]:
+        x = encoder_layer_forward(
+            layer, x, mask_add, num_heads, provider, flash=flash,
+            fused_sdpa=fused_sdpa, fused_layer=fused_layer)
+    return x
 
 
 def decoder_layer_forward(

@@ -49,6 +49,8 @@ _SIGNATURES = {
         _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _I,
         _P, _P, _P, _P, _P, _P, _P,
     ),
+    # rows, e, f, heads, t: the rows a block of the step takes (0: none)
+    "slimt_whole_step_rows": (_I, _I, _I, _I, _I),
     # y, w, bias, choice, scratch, b, e, s, w_stride_k, w_stride_n, aq,
     # inv, mode, stream
     "slimt_argmax_affine": (
@@ -68,6 +70,10 @@ _SIGNATURES = {
     "slimt_decode_attention": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P
     ),
+    # q, k, v, mask, out, b, t, e, heads, scale, stream
+    "slimt_fused_sdpa": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # q, k, v, mask, out, bh, heads, t, d, scale, stream
+    "slimt_blockwise_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 
 

@@ -39,6 +39,12 @@
 // over 125 blocks; the layers run on one SM per row tile, so at small B
 // their time is one SM's L2 read rate and its __dp4a rate, and one
 // persistent multi-block launch is the later design.
+//
+// T is bounded by shared memory alone: a row holds its heads' scores over
+// T (layers_smem_bytes). The entry takes 1 row a block where the rows
+// asked for do not fit in what a block may opt into (at E = 256,
+// F = 1536, 8 heads and 4 rows: T > 1448), and refuses T past the 1-row
+// bound (T > 6896 there); slimt_whole_step_rows tells the caller which.
 
 #include <cmath>
 #include <cstdint>
@@ -70,6 +76,21 @@ size_t layers_smem_bytes(int rows, int e, int f, int heads, int t) {
                         (4 * static_cast<size_t>(e) + f +
                          static_cast<size_t>(heads) * t);
   return sizeof(float) * floats + static_cast<size_t>(rows) * (e > f ? e : f);
+}
+
+// Rows a block takes: `rows`, or 1 where that many rows do not fit in the
+// shared memory a block of the current device may opt into; 0 where one
+// row does not fit.
+int step_rows(int rows, int e, int f, int heads, int t) {
+  int device = 0;
+  int limit = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return 0;
+  const size_t cap = static_cast<size_t>(limit);
+  if (layers_smem_bytes(rows, e, f, heads, t) <= cap) return rows;
+  return layers_smem_bytes(1, e, f, heads, t) <= cap ? 1 : 0;
 }
 
 // Every decoder layer for one tile of p.rows rows. x: [b, e]; c_in,
@@ -145,6 +166,11 @@ layers_kernel(const __grid_constant__ StepParams p, const float* __restrict__ x,
 }  // namespace
 }  // namespace slimt
 
+extern "C" int slimt_whole_step_rows(int rows, int e, int f, int heads, int t) {
+  return slimt::step_rows(rows, e, f, heads, t);
+}
+
+// rows: the rows a block should take (see slimt_whole_step_rows).
 // ptrs:   layers * 21 per-layer pointers (order of StepParams), then
 //         W_out, b_out and the [b, t] mask (device pointers);
 // scales: aq and inv of wf, w, wq, wo, w1, w2 per layer, then aq_out and
@@ -161,6 +187,8 @@ extern "C" int slimt_whole_decode_step(
       b < 1 || t < 1 || e % 256 || f % 16 || heads < 1 || e % heads ||
       (e / heads) % 8 || e / heads > 256)
     return static_cast<int>(cudaErrorInvalidValue);
+  rows = step_rows(rows, e, f, heads, t);
+  if (rows == 0) return static_cast<int>(cudaErrorInvalidValue);
   const void* const* ptrs = static_cast<const void* const*>(ptrs_);
   const float* scales = static_cast<const float*>(scales_);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);

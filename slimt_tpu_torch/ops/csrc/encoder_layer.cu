@@ -10,7 +10,9 @@
 //
 // Design. The six int8 products run through the affine kernel
 // (qmm_affine.cu), each with its own activation scale. The SDPA kernel
-// runs one block per (row, head): that head's K and V slices sit in
+// (slimt_device.cuh, shared with the split encoder's fused SDPA in
+// attention.cu) runs one block per (row, head): that head's K and V
+// slices sit in
 // shared memory (at T = 256, D = 64: 128 KB) and the scores never reach
 // device memory, which is what the TPU kernel keeps out of HBM. The
 // residual add and LayerNorm are one kernel, one warp per row, with a
@@ -29,94 +31,13 @@
 
 #include <cmath>
 
+#include "slimt_device.cuh"
 #include "slimt_kernels.cuh"
 
 namespace slimt {
 namespace {
 
-constexpr int kSdpaWarps = 4;
 constexpr int kLnWarps = 8;
-constexpr float kLnEps = 1e-6f;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int offset = 16; offset > 0; offset /= 2)
-    v += __shfl_xor_sync(0xffffffffu, v, offset);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int offset = 16; offset > 0; offset /= 2)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, offset));
-  return v;
-}
-
-// Shared memory: K and V [t, d + 1] (padded against bank conflicts), the
-// row's mask [t], and per warp a query [d] and probabilities [t].
-size_t sdpa_smem_bytes(int t, int d) {
-  return sizeof(float) *
-         (2 * static_cast<size_t>(t) * (d + 1) + t + kSdpaWarps * (d + t));
-}
-
-// grid (heads, batch); q, k, v, out are row-major [batch * t, e].
-__global__ void __launch_bounds__(kSdpaWarps * 32)
-sdpa_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ mask,
-            float* __restrict__ out, int t, int e, int d, float scale) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int ld = d + 1;
-  float* k_s = smem;
-  float* v_s = k_s + t * ld;
-  float* m_s = v_s + t * ld;
-  float* q_s = m_s + t + warp * d;
-  float* p_s = m_s + t + kSdpaWarps * d + warp * t;
-  const long long base = static_cast<long long>(b) * t * e + h * d;
-
-  for (int i = threadIdx.x; i < t * d; i += blockDim.x) {
-    const int r = i / d;
-    const int c = i % d;
-    k_s[r * ld + c] = k[base + static_cast<long long>(r) * e + c];
-    v_s[r * ld + c] = v[base + static_cast<long long>(r) * e + c];
-  }
-  for (int j = threadIdx.x; j < t; j += blockDim.x) m_s[j] = mask[b * t + j];
-  __syncthreads();
-
-  for (int qi = warp; qi < t; qi += kSdpaWarps) {
-    const float* q_row = q + base + static_cast<long long>(qi) * e;
-    for (int c = lane; c < d; c += 32) q_s[c] = q_row[c];
-    __syncwarp();
-    float row_max = -INFINITY;
-    for (int j = lane; j < t; j += 32) {
-      float dot = 0.0f;
-      for (int c = 0; c < d; ++c) dot = fmaf(q_s[c], k_s[j * ld + c], dot);
-      const float s = __fadd_rn(__fmul_rn(dot, scale), m_s[j]);
-      p_s[j] = s;
-      row_max = fmaxf(row_max, s);
-    }
-    row_max = warp_max(row_max);
-    float row_sum = 0.0f;
-    for (int j = lane; j < t; j += 32) {
-      const float p = expf(p_s[j] - row_max);
-      p_s[j] = p;
-      row_sum += p;
-    }
-    row_sum = warp_sum(row_sum);
-    for (int j = lane; j < t; j += 32) p_s[j] = p_s[j] / row_sum;
-    __syncwarp();
-    float* o_row = out + base + static_cast<long long>(qi) * e;
-    for (int c = lane; c < d; c += 32) {
-      float o = 0.0f;
-      for (int j = 0; j < t; ++j) o = fmaf(p_s[j], v_s[j * ld + c], o);
-      o_row[c] = o;
-    }
-    __syncwarp();
-  }
-}
 
 // out[r] = LN(a[r] + b[r]) * gamma + beta, one warp per row of e.
 __global__ void __launch_bounds__(kLnWarps * 32)
@@ -145,22 +66,6 @@ add_layer_norm_kernel(const float* __restrict__ a, const float* __restrict__ b,
     out[off + i] =
         __fadd_rn(__fmul_rn(__fmul_rn(c, inv), gamma[i]), beta[i]);
   }
-}
-
-int launch_sdpa(const float* q, const float* k, const float* v,
-                const float* mask, float* out, int batch, int t, int e,
-                int heads, float scale, cudaStream_t stream) {
-  const int d = e / heads;
-  const size_t smem = sdpa_smem_bytes(t, d);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sdpa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  sdpa_kernel<<<dim3(heads, batch), kSdpaWarps * 32, smem, stream>>>(
-      q, k, v, mask, out, t, e, d, scale);
-  return static_cast<int>(cudaGetLastError());
 }
 
 int launch_add_layer_norm(const float* a, const float* b, const float* gamma,

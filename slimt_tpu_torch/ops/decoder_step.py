@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from slimt_tpu_torch.ops import _build, decode_attn, fused_blocks, qmm
-from slimt_tpu_torch.ops.encoder_layer import MAX_T, layer_norm
+from slimt_tpu_torch.ops.encoder_layer import layer_norm
 from slimt_tpu_torch.ops.fused_blocks import EMB_DIMS, FFN_DIMS
 # The projection stage alone: the exact mode of the argmax kernel.
 from slimt_tpu_torch.ops.logits_argmax import (  # noqa: F401
@@ -89,15 +89,17 @@ def whole_step_plain(
 
 
 def check_shapes(e: int, f: int, t: int, num_heads: int, layers: int) -> None:
-    """Raise ValueError on a shape the kernel does not take."""
+    """Raise ValueError on a shape the kernel does not take. T is bounded
+    only by the shared memory of one row, which the C entry knows
+    (`step_rows`; at tiny widths T <= 6896)."""
     d = e // num_heads if num_heads > 0 else 0
     problems = []
     if e not in EMB_DIMS:
         problems.append(f"E={e} not in {EMB_DIMS}")
     if f not in FFN_DIMS:
         problems.append(f"F={f} not in {FFN_DIMS}")
-    if not 0 < t <= MAX_T:
-        problems.append(f"T={t} outside 1..{MAX_T}")
+    if t < 1:
+        problems.append(f"T={t} < 1")
     if num_heads <= 0 or e % num_heads or num_heads & (num_heads - 1):
         problems.append(f"heads={num_heads} must be a power of two dividing E")
     elif not 8 <= d <= 256:
@@ -115,6 +117,20 @@ def _check_projection(w, b, e: int, device) -> None:
         raise ValueError("projection bias must be a contiguous float32 [S] tensor")
     if w.device != device or b.device != device:
         raise ValueError("projection must be on the step's CUDA device")
+
+
+def step_rows(b: int, e: int, f: int, heads: int, t: int) -> int:
+    """Rows a block of the layers kernel takes on the current device:
+    those of the blocks (fused_blocks.rows_per_block), or 1 where their
+    scores over T do not fit in shared memory (at tiny widths, 4 rows fit
+    up to T=1448). The C entry decides; ValueError where one row does not
+    fit."""
+    rows = _build.library().slimt_whole_step_rows(
+        fused_blocks.rows_per_block(b), e, f, heads, t)
+    if rows == 0:
+        raise ValueError(f"whole decode step: T={t}: the scores of one row do "
+                         "not fit in shared memory")
+    return rows
 
 
 class StepPlan:
@@ -172,7 +188,7 @@ class StepPlan:
         )
         self.device = dev
         self.shape = (len(layers), b, t, e)
-        self.rows = fused_blocks.rows_per_block(b)
+        self.rows = step_rows(b, e, f, num_heads, t)
         tiles = -(-w.shape[1] // TILE_S)
         self.scratch = torch.empty(b * e + 2 * b * tiles, dtype=torch.float32, device=dev)
         self.args = (

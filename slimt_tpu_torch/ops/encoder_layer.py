@@ -21,7 +21,7 @@ from slimt_tpu_torch.ops import _build, qmm
 
 LN_EPS = 1e-6
 MAX_T = 256  # the gate of the TPU kernel (transformer.py:500-509)
-_SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
 _SDPA_WARPS = 4
 
 
@@ -40,6 +40,21 @@ def softmax(scores) -> torch.Tensor:
     return unnormalized / unnormalized.sum(-1, keepdim=True)
 
 
+def sdpa_smem_bytes(t: int, d: int) -> int:
+    """Shared memory of the SDPA kernel (csrc/slimt_device.cuh)."""
+    return 4 * (2 * t * (d + 1) + t + _SDPA_WARPS * (d + t))
+
+
+def sdpa_heads(q, k, v, mask_add):
+    """SDPA on split heads: [B,H,Tq,D] x [B,H,Tk,D], additive mask
+    [B,1,1,Tk] -> (out [B,H,Tq,D], attn [B,H,Tq,Tk]), with the scale on
+    the QK^T product and the mask added after it."""
+    scale = qmm._f32(1.0 / math.sqrt(q.shape[-1]))
+    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+    attn = softmax(scores + mask_add)
+    return torch.matmul(attn, v), attn
+
+
 def sdpa_plain(q, k, v, mask_add, num_heads) -> torch.Tensor:
     """Multi-head SDPA on joined [B, T, E] operands; mask [B,1,1,T]."""
     b, t, e = q.shape
@@ -48,10 +63,7 @@ def sdpa_plain(q, k, v, mask_add, num_heads) -> torch.Tensor:
     def split(a):
         return a.reshape(b, t, num_heads, d).transpose(1, 2)
 
-    scale = qmm._f32(1.0 / math.sqrt(d))
-    scores = torch.matmul(split(q), split(k).transpose(-1, -2)) * scale
-    attn = softmax(scores + mask_add)
-    out = torch.matmul(attn, split(v))
+    out = sdpa_heads(split(q), split(k), split(v), mask_add)[0]
     return out.transpose(1, 2).reshape(b, t, e)
 
 
@@ -82,8 +94,8 @@ def layer_kernel(x, layer, mask_add, num_heads) -> torch.Tensor:
     att, ffn = layer["att"], layer["ffn"]
     f = ffn["w1"]["q"].shape[1]
     d = e // num_heads
-    smem = 4 * (2 * t * (d + 1) + t + _SDPA_WARPS * (d + t))
-    if smem > _SMEM_LIMIT:
+    smem = sdpa_smem_bytes(t, d)
+    if smem > SMEM_LIMIT:
         raise ValueError(f"T={t}, head dim {d}: SDPA needs {smem} B of shared memory")
     if not x.is_cuda:
         raise ValueError(f"the kernel takes CUDA tensors, got {x.device}")

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card. Each test skips where torch.cuda.is_available() is False; there
-is no interpret mode for a CUDA kernel. This file imports no JAX, so it
-runs on a machine with only PyTorch:
+is no interpret mode for a CUDA kernel. This file imports no JAX and
+nothing of the JAX package, so it runs on a machine with only PyTorch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
@@ -11,13 +11,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from slimt_tpu.config import ModelConfig  # noqa: E402
-from slimt_tpu.io import load_items  # noqa: E402
-from slimt_tpu.io.loader import load_weights  # noqa: E402
-from slimt_tpu.io.synthetic import synthetic_model_bytes  # noqa: E402
+from slimt_tpu_torch.config import ModelConfig  # noqa: E402
+from slimt_tpu_torch.device import resolve_device  # noqa: E402
+from slimt_tpu_torch.io import load_items  # noqa: E402
+from slimt_tpu_torch.io.loader import load_weights  # noqa: E402
+from slimt_tpu_torch.io.synthetic import synthetic_model_bytes  # noqa: E402
 from slimt_tpu_torch.io.params import params_from_numpy  # noqa: E402
 from slimt_tpu_torch.models import transformer as tfm  # noqa: E402
-from slimt_tpu_torch.ops import decode_attn  # noqa: E402
+from slimt_tpu_torch.ops import attention, decode_attn  # noqa: E402
 from slimt_tpu_torch.ops import decoder_step as dstep  # noqa: E402
 from slimt_tpu_torch.ops import encoder_layer as enc  # noqa: E402
 from slimt_tpu_torch.ops import fused_blocks, logits_argmax, qmm  # noqa: E402
@@ -257,3 +258,96 @@ def test_argmax_kernel_methods_bit_equal_with_tie(card, method, with_shortlist):
     want = logits_argmax.argmax_affine_plain(y, w, b, 20.0, 1e-3, method)
     assert torch.equal(got, want)
     assert got[:2].tolist() == [first, first]
+
+
+def test_resolve_device_keeps_tf32_off(card):
+    """The split encoder's plain SDPA multiplies in float32 with
+    torch.matmul: TF32 would round its operands to 10 mantissa bits."""
+    resolve_device("cuda")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+PAD_TOL = 1e-4
+
+
+def _padded_mask(card, b, t):
+    """(additive [b, 1, 1, t] mask, rows with a real key): row 0 padded
+    over its last third, row 1 a padding row where b > 2. A padding
+    row's scores are -99999999 + s, rounded to the float32 grid of 8 at
+    1e8, so its softmax is the rounding of s and differs between two
+    sum orders (by up to 5.2e-5 seen at T=2048); nothing reads that row.
+    It is held to PAD_TOL, the real rows to the kernel's tolerance."""
+    mask = torch.ones((b, t), device=card)
+    mask[0, t - t // 3:] = 0
+    if b > 2:
+        mask[1] = 0
+    return ((1.0 - mask) * -99999999.0)[:, None, None, :], mask.any(-1)
+
+
+@pytest.mark.parametrize("b,t,e", [(3, 16, 256), (33, 64, 256), (33, 256, 512)])
+def test_fused_sdpa_kernel_matches_plain(card, b, t, e):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(b + t + e)
+    q, k, v = (torch.randn((b, t, e), device=card, generator=gen) for _ in range(3))
+    mask_add, real = _padded_mask(card, b, t)
+    before = attention.fused_sdpa_kernel.launches
+    got = attention.fused_sdpa_joined(q, k, v, mask_add, 8)
+    assert attention.fused_sdpa_kernel.launches == before + 1
+    want = enc.sdpa_plain(q, k, v, mask_add, 8)
+    torch.cuda.synchronize()
+    assert float((got[real] - want[real]).abs().max()) <= 2e-5
+    assert float((got - want).abs().max()) <= PAD_TOL  # also catches NaN
+
+
+@pytest.mark.parametrize("b,t,d", [(2, 272, 32), (3, 1024, 32), (1, 130, 64), (2, 77, 16)])
+def test_blockwise_kernel_matches_plain(card, b, t, d):
+    """Ragged query tiles and padded rows: within 2e-5 abs + 1e-5 rel at
+    every position of the real rows, PAD_TOL on the padding row."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(b * t + d)
+    q, k, v = (torch.randn((b, 8, t, d), device=card, generator=gen) for _ in range(3))
+    mask_add, real = _padded_mask(card, b, t)
+    before = attention.blockwise_kernel.launches
+    got = attention.blockwise_attention(q, k, v, mask_add)
+    assert attention.blockwise_kernel.launches == before + 1
+    want = attention.blockwise_plain(q, k, v, mask_add)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= PAD_TOL  # also catches NaN
+    got, want = got[real], want[real]
+    assert bool(((got - want).abs() <= 2e-5 + 1e-5 * want.abs()).all())
+
+
+def test_whole_step_rows(card):
+    """The C entry picks the layers kernel's rows a block from the card's
+    shared memory: 4 rows fit up to T=1448 at tiny widths, 1 row up to
+    T=6896; past that the step raises."""
+    e, f, heads = 256, 1536, 8
+    assert dstep.step_rows(130, e, f, heads, 1448) == 4
+    assert dstep.step_rows(130, e, f, heads, 1449) == 1
+    assert dstep.step_rows(8, e, f, heads, 1024) == 1
+    assert dstep.step_rows(130, e, f, heads, 6896) == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        dstep.step_rows(1, e, f, heads, 6897)
+
+
+@pytest.mark.parametrize("b", [1, 8, 130])
+def test_whole_step_kernel_long_t(card, b):
+    """T=1024 (B=130 takes 4 rows a block, which fit up to T=1448 at
+    these widths) and T=2048 (1 row a block): the kernel's own bound, not
+    the encoder's. As in chip_smoke.py, every row within 0.25 on states
+    and head-0 attention (an int8 rounding flip in layer 1 moves a row by
+    up to ~0.06) and >= 99% of the rows with a real key within 2e-5."""
+    for t in (1024, 2048):
+        params, args = _step_case(card, b, t, False, seed=b + t)
+        plan = dstep.StepPlan(args[0], args[4], args[3], 8, *args[6:])
+        assert plan.rows == (4 if b > 64 and t <= 1448 else 1)
+        choice, states, attn0 = dstep.whole_decode_step(*args, plan=plan)
+        want_choice, want_states, want_attn0 = dstep.whole_step_plain(*args)
+        torch.cuda.synchronize()
+        row_err = (attn0 - want_attn0).abs().amax(-1)
+        for got, want in zip(states, want_states):
+            row_err = torch.maximum(row_err, (got - want).abs().amax((1, 2)))
+        assert float(row_err.max()) <= 0.25  # also catches NaN
+        row_err = row_err[(args[3][:, 0, 0, :] == 0).any(-1)]
+        assert float((row_err <= 2e-5).float().mean()) >= 0.99

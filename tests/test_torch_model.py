@@ -1,8 +1,10 @@
 """The port's Model (slimt_tpu_torch/models/model.py) against the JAX
 Model on tests/helpers.make_package packages: forward, forward_async
 (raw), forward_async_arrays and the runtime's Blocking service give
-the same tokens. Also: "cuda" without a card raises, unported config
-values raise, and importing the port loads neither jax nor regex.
+the same tokens, for inputs past 256 tokens too. Also: "cuda" without a
+card raises, unported config values raise, and importing the port and
+serving through its own Blocking loads neither jax nor anything of the
+JAX package (nor regex on import).
 """
 
 import dataclasses
@@ -109,9 +111,9 @@ def test_cuda_without_card_raises():
         {"qmm_provider": "f32"},
         {"encoder_dtype": "float16"},
         {"kv_cache_dtype": "float16"},
-        {"encoder_sdpa": "on"},
-        {"flash_attention": True},
-        {"encoder_layer_kernel": "off"},
+        {"kv_cache_dtype": "bfloat16"},
+        {"encoder_dtype": "bfloat16"},
+        {"kv_cache_dtype": "k8v16"},
     ],
 )
 def test_unported_config_raises(change):
@@ -121,11 +123,29 @@ def test_unported_config_raises(change):
         Model(config, Package(pkg.model, pkg.vocabulary), "cpu")
 
 
-def test_long_input_raises():
+@pytest.mark.parametrize(
+    "change",
+    [{"encoder_layer_kernel": "off"}, {"encoder_sdpa": "on"},
+     {"encoder_sdpa": "auto"}, {"flash_attention": True},
+     {"flash_attention": False}, {"flash_attention": "auto"}],
+)
+def test_encoder_config_values_pass(change):
+    config = dataclasses.replace(TINY_TEST_CONFIG, **change)
     pkg = make_package()
-    port = Model(TINY_TEST_CONFIG, Package(pkg.model, pkg.vocabulary), "cpu")
-    with pytest.raises(NotImplementedError, match="T=272"):
-        port.forward([[5] * 260 + [0]])
+    Model(config, Package(pkg.model, pkg.vocabulary), "cpu")
+
+
+def test_long_input_raises():
+    """A 260-token segment (the T=272 bucket) once raised in the port; it
+    now serves, past the wrap regime, with the JAX Model's tokens."""
+    pkg = make_package()
+    cap = dict(tgt_length_limit_factor=0.1)  # 27 decode steps at T=272
+    port = Model(TINY_TEST_CONFIG, Package(pkg.model, pkg.vocabulary), "cpu", **cap)
+    segments = [[5 + i % 40 for i in range(260)] + [0], [7, 3, 0]]
+    want = JaxModel(TINY_TEST_CONFIG, pkg, **cap).forward(segments, need_alignment=False)
+    got = port.forward(segments, need_alignment=False)
+    assert [h.target for h in got] == [h.target for h in want]
+    assert all(h.target for h in got)
 
 
 def test_plain_transport_and_warmup_match_compact():
@@ -151,24 +171,53 @@ def test_native_checkpoint_raises():
 
 
 def test_import_loads_neither_jax_nor_regex():
+    """Importing the port loads no jax, regex or slimt_tpu module; then a
+    CPU Model built from the port's own synthetic package serves through
+    the port's own Blocking, on both lanes, still with no jax or
+    slimt_tpu module loaded."""
     code = textwrap.dedent(
         """
         import sys
 
         class Block:
+            names = ("jax", "jaxlib", "regex", "slimt_tpu")
+
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib", "regex"):
+                if name.split(".")[0] in self.names:
                     raise ImportError("blocked: " + name)
                 return None
 
-        sys.meta_path.insert(0, Block())
+        def loaded(names):
+            return [m for m in sys.modules if m.split(".")[0] in names]
+
+        block = Block()
+        sys.meta_path.insert(0, block)
         import slimt_tpu_torch
         from slimt_tpu_torch.models import decode, transformer
-        from slimt_tpu_torch.ops import (decode_attn, decoder_step, encoder_layer,
-                                         fused_blocks, logits_argmax, qmm)
-        loaded = [m for m in sys.modules
-                  if m.split(".")[0] in ("jax", "jaxlib", "regex")]
-        assert not loaded, loaded
+        from slimt_tpu_torch.ops import (attention, decode_attn, decoder_step,
+                                         encoder_layer, fused_blocks,
+                                         logits_argmax, qmm)
+        assert not loaded(block.names), loaded(block.names)
+
+        # Serving splits sentences, and the splitter needs regex.
+        block.names = ("jax", "jaxlib", "slimt_tpu")
+        from slimt_tpu_torch import Blocking, Config, Model, ModelConfig, Package
+        from slimt_tpu_torch.io.synthetic import synthetic_model_bytes
+        from slimt_tpu_torch.text import spm_proto
+        from slimt_tpu_torch.text.synthetic_vocab import (DEFAULT_WORDS,
+                                                          build_spm_model)
+
+        config = ModelConfig(encoder_layers=1, decoder_layers=1, num_heads=4)
+        spm = build_spm_model(DEFAULT_WORDS, target_size=64)
+        model = Model(config, Package(
+            synthetic_model_bytes(config=config, vocab_size=len(spm.pieces),
+                                  emb_dim=32, ffn_dim=64, seed=0),
+            spm_proto.serialize_model(spm)), "cpu")
+        for prefer_bulk in (False, True):
+            with Blocking(Config(prefer_bulk=prefer_bulk)) as service:
+                responses = service.translate(model, ["hello world", "a b c"])
+            assert len(responses) == 2 and all(r.target.text for r in responses)
+        assert not loaded(block.names), loaded(block.names)
         print("ok")
         """
     )
