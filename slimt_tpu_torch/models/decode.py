@@ -12,14 +12,18 @@ semantics are the reference's, as in the JAX package:
   - with alignment, each step records head 0 of the last decoder
     layer's cross-attention.
 
-Under provider "fused" each decoder layer runs the SSRU-block and
-FFN-block kernels; `attn_kernel` runs the decode-attention kernel on
-alignment-free requests (never under "fused_step", as in the JAX
-package); `argmax_method` picks the greedy argmax
-(transformer.output_argmax). Under provider "fused_step" each step is
-one call of the whole-step kernel (ops/decoder_step), whose argument
-block is built once per batch; the argmax is then the exact first
-maximum.
+`kv_dtype` picks the cross-attention cache (transformer.
+precompute_cross_kv), with the JAX package's coercions (cache_dtype):
+"float32" is the exact split cache, except under "fused_step", whose
+kernel reads the int16, bfloat16 and float32 joined caches and takes
+int16 for any other. Under provider "fused" each decoder layer runs the
+SSRU-block and FFN-block kernels; `attn_kernel` runs the
+decode-attention kernel on alignment-free int16 requests (never under
+"fused_step", as in the JAX package); `argmax_method` picks the greedy
+argmax (transformer.output_argmax). Under provider "fused_step" each
+step is one call of the whole-step kernel (ops/decoder_step), whose
+argument block is built once per batch; the argmax is then the exact
+first maximum.
 
 The loop asks the device whether every row is complete once every
 `check_every` steps (one `.item()`, which waits for the device). Rows
@@ -46,25 +50,31 @@ CHECK_EVERY = 8
 # "fused_step" is the latency path.
 DECLARED_PROVIDERS = (None, "xla_int8", "pallas")
 PROVIDERS = DECLARED_PROVIDERS + ("fused", "fused_step")
-# Cache dtypes the JAX package coerces to the int16 per-row cache under
-# fused_step (slimt_tpu/models/decode.py:98-106).
-FUSED_STEP_COERCED = (None, "int8", "k8v16", "k16v8", "float16")
+# The joined caches the whole-step kernel reads; under fused_step every
+# other kv_dtype becomes int16 (slimt_tpu/models/decode.py:98-106).
+FUSED_STEP_CACHES = ("bfloat16", "float32", "int16")
 
 
 def check_options(provider: Optional[str], kv_dtype: Optional[str]) -> None:
-    """The loop always runs the int16 per-row cache. Under fused_step the
-    JAX package's coercions to it apply; any other provider or cache
-    raises NotImplementedError naming its ROADMAP item."""
+    """Raise NotImplementedError, naming its ROADMAP item, on a provider
+    the port does not implement, and ValueError on a kv_dtype that is not
+    a cache dtype (transformer.KV_DTYPES)."""
     if provider not in PROVIDERS:
         raise NotImplementedError(
             f"provider={provider!r} (ROADMAP Queue 1, item 12)"
         )
-    coerced = provider == "fused_step" and kv_dtype in FUSED_STEP_COERCED
-    if kv_dtype != "int16" and not coerced:
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r} with provider={provider!r} "
-            "(ROADMAP Queue 1, item 12)"
-        )
+    if kv_dtype not in tfm.KV_DTYPES:
+        raise ValueError(f"kv_dtype={kv_dtype!r} not in {tfm.KV_DTYPES}")
+
+
+def cache_dtype(provider: Optional[str], kv_dtype: Optional[str]) -> Optional[str]:
+    """The cache the loop builds for `kv_dtype`, with the JAX package's
+    coercions: under fused_step any cache but bfloat16, float32 and int16
+    becomes int16; elsewhere "float32" means the exact split f32 cache
+    (None)."""
+    if provider == "fused_step":
+        return kv_dtype if kv_dtype in FUSED_STEP_CACHES else "int16"
+    return None if kv_dtype == "float32" else kv_dtype
 
 
 class GreedyResult(NamedTuple):
@@ -97,7 +107,8 @@ def greedy_decode(
         kv_dtype == "int16") and provider != "fused_step"
     batch, t_src, emb_dim = encoder_out.shape
     device = encoder_out.device
-    kv_caches = tfm.precompute_cross_kv(params, encoder_out, num_heads)
+    kv_caches = tfm.precompute_cross_kv(
+        params, encoder_out, num_heads, cache_dtype(provider, kv_dtype))
     projection = tfm.prepare_output_projection(params, shortlist)
     plan = None
     if provider == "fused_step" and device.type == "cuda":

@@ -11,11 +11,14 @@ The port implements the declared serving config, the `fused` provider
 (SSRU and FFN block kernels per decoder layer), the decode-attention
 kernel (`attn_kernel`), the argmax methods exact/packed_fp16/packed_bf16,
 the `fused_step` latency provider (whole-step kernel per decode step),
-and the encoder's three gates: the whole-layer kernel
+every `kv_cache_dtype` (float32: the exact split cache; bfloat16,
+float16, int8, k8v16, k16v8 and int16 joined caches; under fused_step
+bfloat16 and int16 run as they are and the others as int16, as in the
+JAX Model), and the encoder's three gates: the whole-layer kernel
 (`encoder_layer_kernel`), the fused SDPA (`encoder_sdpa`) and blockwise
-attention (`flash_attention`), so inputs of any length are served. Any
-config value it does not implement raises
-NotImplementedError naming the ROADMAP item that ports it; nothing is
+attention (`flash_attention`), so inputs of any length are served.
+`qmm_provider="f32"`, `encoder_dtype` and native checkpoints raise
+NotImplementedError naming the ROADMAP item that ports them; nothing is
 substituted silently.
 """
 
@@ -39,6 +42,7 @@ from slimt_tpu_torch.models.decode import (
     translate_batch,
     unpack_compact,
 )
+from slimt_tpu_torch.models.transformer import KV_DTYPES
 from slimt_tpu_torch.ops.encoder_layer import MAX_T
 from slimt_tpu_torch.runtime.request import Hypothesis
 from slimt_tpu_torch.text.vocabulary import Vocabulary
@@ -98,22 +102,14 @@ class Package:
 
 
 ARGMAX_METHODS = ("packed_int", "exact", "packed_fp16", "packed_bf16")
+KV_CACHE_DTYPES = tuple(d for d in KV_DTYPES if d is not None)
 
 
 def _check_config(config: ModelConfig) -> None:
     """Raise on every config value this port does not implement."""
     unsupported = []
-    fused_step = config.qmm_provider == "fused_step"
-    if fused_step and config.kv_cache_dtype == "bfloat16":
-        # The bf16 joined cache and the kernel's float-cache branch.
-        unsupported.append(
-            "kv_cache_dtype='bfloat16' with qmm_provider='fused_step' "
-            "(ROADMAP Queue 1, item 12)"
-        )
-    elif config.kv_cache_dtype != "int16" and not fused_step:
-        unsupported.append(
-            f"kv_cache_dtype={config.kv_cache_dtype!r} (ROADMAP Queue 1, item 12)"
-        )
+    if config.kv_cache_dtype not in KV_CACHE_DTYPES:
+        unsupported.append(f"kv_cache_dtype={config.kv_cache_dtype!r} (not a cache dtype)")
     # Under fused_step the kernel's argmax is exact, and argmax_method is
     # ignored, as in the JAX package.
     if config.argmax_method not in ARGMAX_METHODS:
@@ -143,13 +139,13 @@ class Model:
         self,
         config: ModelConfig,
         package: Package,
-        device,
+        device="cuda",
         tgt_length_limit_factor: float = 1.5,
     ):
-        """Load `package` onto `device` ("cpu" or "cuda"; "cuda"
-        without a card raises). On CUDA every int8 product and encoder
-        layer runs the hand-written kernels of ops/; on the CPU their
-        plain versions."""
+        """Load `package` onto `device`: the card unless the caller asks
+        for "cpu" ("cuda" without a card raises). On CUDA every int8
+        product and encoder layer runs the hand-written kernels of ops/; on
+        the CPU their plain versions."""
         _check_config(config)
         self.device = resolve_device(device)
         self.id = next(_model_ids)
@@ -281,8 +277,11 @@ class Model:
                 decoder_position_zero=self.config.decoder_position_zero,
                 steps_cap=steps_cap,
                 with_alignment=bool(need_alignment),
-                # _check_config leaves only caches that run as int16.
                 provider=self.config.qmm_provider,
+                # "float32" is the exact split cache, as in the JAX Model
+                # (under fused_step the loop then takes int16).
+                kv_dtype=(None if self.config.kv_cache_dtype == "float32"
+                          else self.config.kv_cache_dtype),
                 argmax_method=self.config.argmax_method,
                 attn_kernel=self._attn_kernel(),
                 flash_attention=resolve_flash(self.config.flash_attention, t_pad),

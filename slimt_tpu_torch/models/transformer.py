@@ -5,18 +5,20 @@ Plain functions over the params dict from io/params.py (loader layout,
 per-layer lists). What the ported configs reach is here: the exact-f32
 encoder, through the whole-layer kernel (ops/encoder_layer) or the split
 layer (int8 affines, self-attention by the plain SDPA, the fused SDPA
-kernel or the blockwise kernel of ops/attention, then the FFN), the
-int16 per-row
-cross-attention cache, the SSRU decoder and the greedy argmax over the
-(optionally shortlisted) tied projection (`packed_int`, or the argmax
-kernel's exact/packed_fp16/packed_bf16, ops/logits_argmax). Under the
-`fused` provider each decoder layer runs the SSRU-block and FFN-block
-kernels (ops/fused_blocks); `attn_kernel` routes the int16 cache
-through the decode-attention kernel (ops/decode_attn); the
-`fused_step` latency provider makes the decode step one call of
-ops/decoder_step (exact first-max argmax). Every other int8 product
-goes through ops/qmm. Masks are additive: 0 for real tokens, -99999999
-for padding.
+kernel or the blockwise kernel of ops/attention, then the FFN), every
+cross-attention cache of the JAX package (the exact split f32 pair; the
+int8, int16, k8v16 and k16v8 per-row caches; the float32, bfloat16 and
+float16 joined caches) with each branch of its decode attention, the
+SSRU decoder and the greedy argmax over the (optionally shortlisted)
+tied projection (`packed_int`, or the argmax kernel's
+exact/packed_fp16/packed_bf16, ops/logits_argmax). Under the `fused`
+provider each decoder layer runs the SSRU-block and FFN-block kernels
+(ops/fused_blocks); `attn_kernel` routes the int16 cache through the
+decode-attention kernel (ops/decode_attn); the `fused_step` latency
+provider makes the decode step one call of ops/decoder_step (exact
+first-max argmax) over the int16 or a float joined cache. Every other
+int8 product goes through ops/qmm. Masks are additive: 0 for real
+tokens, -99999999 for padding.
 
 Scalars that enter float32 arithmetic are float32 0-dim tensors
 (`_f32`): `python_float / tensor` in torch multiplies by a reciprocal,
@@ -104,30 +106,56 @@ def ssru_forward(
     return h, c_t
 
 
+# Cache dtypes of precompute_cross_kv: None is the exact split f32 cache,
+# the rest joined [B, T, E] caches.
+FLOAT_CACHES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}
+KV_DTYPES = (None, "int8", "k8v16", "k16v8", "int16", *FLOAT_CACHES)
+
+
+# Per-row caches: whether K, then V, is int16 (else int8).
+ROW_CACHES = {"int8": (False, False), "k8v16": (False, True),
+              "k16v8": (True, False), "int16": (True, True)}
+
+
+def _per_row(a: torch.Tensor, wide: bool):
+    """a [B, T, E] quantized per row (b, t) against its absmax, half to
+    even, to int16 (wide) or int8; and the inverse scales [B, T]."""
+    top, dtype = (INT16_MAX, torch.int16) if wide else (127.0, torch.int8)
+    s = _f32(top) / torch.maximum(a.abs().amax(-1), _f32(1e-6))
+    return torch.clamp(torch.round(a * s[..., None]), -top, top).to(dtype), _f32(1.0) / s
+
+
 def precompute_cross_kv(
-    params: dict, encoder_out: torch.Tensor, num_heads: int
-) -> Tuple[dict, ...]:
-    """Per decoder layer, the joined [B, T, E] int16 cross-attention
-    cache with per-row (b, t) scales: {"k", "v", "kqi", "vqi"}."""
+    params: dict, encoder_out: torch.Tensor, num_heads: int,
+    dtype: Optional[str] = "int16",
+) -> Tuple:
+    """Per decoder layer, the cross-attention cache of encoder_out, as the
+    JAX function builds it for `dtype`:
+      None: the exact (K, V) pair of split [B, H, T, D] f32 tensors;
+      "int8", "int16": the joined [B, T, E] cache quantized per row (b, t)
+        against its absmax, {"k", "v", "kqi", "vqi"} with the inverse scales
+        [B, T];
+      "k8v16", "k16v8": int8 K with int16 V, or the reverse, so scaled;
+      "float32", "bfloat16", "float16": the joined cache cast to that type,
+        with scalar kqi = vqi = 1."""
+    if dtype not in KV_DTYPES:
+        raise ValueError(f"kv cache dtype {dtype!r} not in {KV_DTYPES}")
     one = _f32(1.0)
-    int16_max = _f32(INT16_MAX)
-    floor = _f32(1e-6)
-
-    def q16(a, s):
-        return torch.clamp(
-            torch.round(a * s[..., None]), -INT16_MAX, INT16_MAX
-        ).to(torch.int16)
-
     caches = []
     for layer in params["decoder"]:
         att = layer["att"]
-        k = _affine(att["k"], encoder_out)
+        k = _affine(att["k"], encoder_out)  # [B, T, E]
         v = _affine(att["v"], encoder_out)
-        kq = int16_max / torch.maximum(k.abs().amax(-1), floor)
-        vq = int16_max / torch.maximum(v.abs().amax(-1), floor)
-        caches.append(
-            {"k": q16(k, kq), "v": q16(v, vq), "kqi": one / kq, "vqi": one / vq}
-        )
+        if dtype is None:
+            caches.append((_split_heads(k, num_heads), _split_heads(v, num_heads)))
+        elif dtype in FLOAT_CACHES:
+            caches.append({"k": k.to(FLOAT_CACHES[dtype]), "v": v.to(FLOAT_CACHES[dtype]),
+                           "kqi": one, "vqi": one})
+        else:
+            wide_k, wide_v = ROW_CACHES[dtype]
+            (kq, kqi), (vq, vqi) = _per_row(k, wide_k), _per_row(v, wide_v)
+            caches.append({"k": kq, "v": vq, "kqi": kqi, "vqi": vqi})
     return tuple(caches)
 
 
@@ -141,27 +169,66 @@ def _decode_attention_joined(
     yq: torch.Tensor, kv: dict, mask_add: torch.Tensor, num_heads: int,
     attn_kernel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """T_q == 1 cross-attention over the int16 joined cache (the int16
-    branch of the JAX function). Returns (out [B,1,E], attn [B,H,1,T]).
-    `attn_kernel` runs ops/decode_attn instead (alignment-free path:
-    the weights come back as zeros)."""
+    """T_q == 1 cross-attention over a joined [B, T, E] cache, each branch
+    of the JAX function. Returns (out [B,1,E], attn [B,H,1,T]).
+
+      k8v16: int8 scores, then f32 p * vqi against the int16 V;
+      int8: q quantized per tensor over the whole batch, int8 scores, then
+        p * vqi re-quantized per (b, h) against the int8 V;
+      int16 (and k16v8, whose int8 V rides this branch): f32 q and p, the
+        per-row dequants folded in; `attn_kernel` runs ops/decode_attn
+        instead (alignment-free path: the weights come back as zeros);
+      float: q and p rounded through the cache's type for bfloat16 only.
+
+    The int8 products are exact, as the TPU's int32 sums: the scores stay
+    within E * 127^2 < 2^24, so float32 holds them; the attn . V mix
+    reaches 127 * T * 127, past 2^24 at T ~ 1040, so it sums in float64."""
     q = yq[:, 0, :]
     k, v = kv["k"], kv["v"]
-    if attn_kernel:
+    b, t, e = k.shape
+    d = e // num_heads
+    scale = _f32(1.0 / math.sqrt(d))
+    if k.dtype == torch.int8:
+        aq = _f32(127.0) / torch.maximum(q.abs().amax(), _f32(1e-6))
+        q_q = torch.clamp(torch.round(q * aq), -127.0, 127.0)
+        q2 = q_q[:, :, None] * _head_selector(e, num_heads, q.device)[None]  # [B, E, H]
+        scores = torch.bmm(q2.transpose(1, 2), k.to(torch.float32).transpose(1, 2))
+        scores = scores * (scale / aq) * kv["kqi"][:, None, :]
+        attn = enc.softmax(scores + mask_add[:, :, 0, :])  # [B, H, T]
+        attn_v = attn * kv["vqi"][:, None, :]
+        vh = v.reshape(b, t, num_heads, d)
+        if v.dtype == torch.int16:  # k8v16
+            res = torch.einsum("bht,bthd->bhd", attn_v, vh.to(torch.float32))
+        else:
+            s_a = _f32(127.0) / torch.maximum(attn_v.amax(-1, keepdim=True), _f32(1e-9))
+            attn_q = torch.round(attn_v * s_a)  # in [0, 127]
+            res = torch.einsum("bht,bthd->bhd", attn_q.to(torch.float64),
+                               vh.to(torch.float64)).to(torch.float32) / s_a
+        return res.reshape(b, 1, e), attn[:, :, None, :]
+    if attn_kernel and k.dtype == torch.int16:
         out = decode_attn.decode_attention_int16(
             q, k, v, kv["kqi"], kv["vqi"], mask_add[:, 0, 0, :], num_heads)
-        attn = q.new_zeros((q.shape[0], num_heads, 1, k.shape[1]))
+        attn = q.new_zeros((q.shape[0], num_heads, 1, t))
         return out[:, None, :], attn
-    e = k.shape[-1]
-    scale = _f32(1.0 / math.sqrt(e // num_heads))
     sel = _head_selector(e, num_heads, q.device)
-    q2 = q[:, :, None] * sel[None]  # [B, E, H]
-    # einsum("bte,beh->bht") as one batched matmul
-    scores = torch.bmm(q2.transpose(1, 2), k.to(torch.float32).transpose(1, 2))
-    scores = scores * scale * kv["kqi"][:, None, :]
-    attn = enc.softmax(scores + mask_add[:, :, 0, :])  # [B, H, T]
-    attn_v = attn * kv["vqi"][:, None, :]
-    res = torch.bmm(attn_v, v.to(torch.float32))  # [B, H, E]
+    if k.dtype == torch.int16:
+        q2 = q[:, :, None] * sel[None]  # [B, E, H]
+        # einsum("bte,beh->bht") as one batched matmul
+        scores = torch.bmm(q2.transpose(1, 2), k.to(torch.float32).transpose(1, 2))
+        scores = scores * scale * kv["kqi"][:, None, :]
+        attn = enc.softmax(scores + mask_add[:, :, 0, :])  # [B, H, T]
+        attn_v = attn * kv["vqi"][:, None, :]
+        res = torch.bmm(attn_v, v.to(torch.float32))  # [B, H, E]
+    else:
+        native = k.dtype == torch.bfloat16
+
+        def op(a):
+            return (a.to(k.dtype) if native else a).to(torch.float32)
+
+        q2 = op(q[:, :, None] * sel[None])  # [B, E, H]
+        scores = torch.bmm(q2.transpose(1, 2), op(k).transpose(1, 2)) * scale
+        attn = enc.softmax(scores + mask_add[:, :, 0, :])  # [B, H, T]
+        res = torch.bmm(op(attn), op(v))  # [B, H, E]
     out = (res * sel.T[None]).sum(1)  # diagonal-block extract
     return out[:, None, :], attn[:, :, None, :]
 
@@ -180,22 +247,24 @@ def _join_heads(x: torch.Tensor) -> torch.Tensor:
 
 def attention_forward(
     att: dict, q_in: torch.Tensor, mask_add: torch.Tensor, num_heads: int,
-    kv_cache: Optional[dict] = None, attn_kernel: bool = False,
+    kv_cache=None, attn_kernel: bool = False,
     flash: bool = False, fused_sdpa: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Attention block incl. residual + post-LN. Returns (out,
     attn_weights).
 
-    With `kv_cache` (the int16 joined cache of precompute_cross_kv) it is
-    the decode step's cross-attention; `attn_kernel` runs it through the
-    decode-attention kernel. Without, it is the encoder's self-attention
-    over q_in, in the JAX package's order of precedence: the fused SDPA
-    kernel on joined operands where `fused_sdpa` is on at 1 < T <= 256
-    and E % 128 == 0 (weights not returned), else the blockwise kernel
-    where `flash` is on (weights not returned), else the plain SDPA
-    (`encoder_layer.sdpa_heads`: torch.matmul products, as the JAX
-    einsum branch, the scale on QK^T and then the mask)."""
-    if kv_cache is not None:
+    With `kv_cache` it is the decode step's cross-attention: a joined
+    cache dict of precompute_cross_kv goes to _decode_attention_joined
+    (`attn_kernel`: the decode-attention kernel on the int16 cache), the
+    exact (K, V) pair of split f32 tensors to the plain SDPA. Without, it
+    is the encoder's self-attention over q_in, in the JAX package's order
+    of precedence: the fused SDPA kernel on joined operands where
+    `fused_sdpa` is on at 1 < T <= 256 and E % 128 == 0 (weights not
+    returned), else the blockwise kernel where `flash` is on (weights not
+    returned), else the plain SDPA (`encoder_layer.sdpa_heads`:
+    torch.matmul products, as the JAX einsum branch, the scale on QK^T and
+    then the mask)."""
+    if isinstance(kv_cache, dict):
         yq = _affine(att["q"], q_in)
         attn_out, attn = _decode_attention_joined(
             yq, kv_cache, mask_add, num_heads, attn_kernel)
@@ -204,6 +273,7 @@ def attention_forward(
     t, e = q_in.shape[-2], q_in.shape[-1]
     if (
         fused_sdpa
+        and kv_cache is None
         and 1 < t <= enc.MAX_T
         and q_in.dtype == torch.float32
         and e % 128 == 0
@@ -213,8 +283,11 @@ def attention_forward(
         attn_out = attention.fused_sdpa_joined(yq, yk, yv, mask_add, num_heads)
         out = _affine(att["o"], attn_out)
         return layer_norm(q_in + out, att["ln"]), None
-    yq, yk, yv = (_split_heads(_affine(att[n], q_in), num_heads)
-                  for n in ("q", "k", "v"))
+    yq = _split_heads(_affine(att["q"], q_in), num_heads)
+    if kv_cache is None:
+        yk, yv = (_split_heads(_affine(att[n], q_in), num_heads) for n in ("k", "v"))
+    else:
+        yk, yv = kv_cache
     if flash:
         attn_out = attention.blockwise_attention(yq, yk, yv, mask_add)
         attn = None
@@ -285,10 +358,11 @@ def encoder_forward(
 
 def decoder_layer_forward(
     layer: dict, state: torch.Tensor, x: torch.Tensor,
-    mask_add: torch.Tensor, kv_cache: dict, num_heads: int,
+    mask_add: torch.Tensor, kv_cache, num_heads: int,
     provider: Optional[str] = None, attn_kernel: bool = False,
 ):
-    """SSRU → cross-attention → FFN. Returns (out, new_state, attn)."""
+    """SSRU → cross-attention over any cache of precompute_cross_kv → FFN.
+    Returns (out, new_state, attn)."""
     decoder_out, new_state = ssru_forward(layer["rnn"], state, x, provider)
     out, attn = attention_forward(
         layer["att"], decoder_out, mask_add, num_heads, kv_cache, attn_kernel
@@ -309,7 +383,7 @@ def decoder_step(
     states: Sequence[torch.Tensor],
     prev_embed: torch.Tensor,
     mask_add: torch.Tensor,
-    kv_caches: Sequence[dict],
+    kv_caches: Sequence,
     num_heads: int,
     shortlist: Optional[torch.Tensor] = None,
     projection: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,

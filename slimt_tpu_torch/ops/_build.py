@@ -44,10 +44,15 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P
     ),
     # ptrs, scales, layers, b, t, e, f, heads, s, w_stride_k, w_stride_n,
-    # rows, x, c_in, c_out, attn0, choice, scratch, stream
+    # rows, cache, x, c_in, c_out, attn0, choice, scratch, stream
     "slimt_whole_decode_step": (
-        _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _I,
+        _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I,
         _P, _P, _P, _P, _P, _P, _P,
+    ),
+    # ptrs, scales, b, t, e, f, heads, rows, cache, x, c_in, c_out, attn0,
+    # y, stream
+    "slimt_decoder_layer_step": (
+        _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
     ),
     # rows, e, f, heads, t: the rows a block of the step takes (0: none)
     "slimt_whole_step_rows": (_I, _I, _I, _I, _I),

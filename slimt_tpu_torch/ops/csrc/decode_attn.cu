@@ -51,8 +51,8 @@ decode_attention_kernel(const float* __restrict__ q,
   const long long base = static_cast<long long>(row) * e;
   for (int i = threadIdx.x; i < e; i += kThreads) qs[i] = q[base + i];
   __syncthreads();
-  attention(qs, k, v, kqi, vqi, mask, row, 1, t, e, heads, scale, sc, os,
-            nullptr);
+  const JoinedInt16 cache = {k, v, kqi, vqi, t, e, e / heads};
+  attention(qs, cache, mask, row, 1, heads, scale, sc, os, nullptr);
   for (int i = threadIdx.x; i < e; i += kThreads) out[base + i] = os[i];
 }
 

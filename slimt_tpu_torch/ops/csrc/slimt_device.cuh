@@ -1,7 +1,8 @@
-// Device functions shared by the kernels: the whole decode step
-// (decoder_step.cu), the SSRU and FFN blocks (fused_blocks.cu), the int16
-// decode attention (decode_attn.cu), and the encoder SDPA of the
-// whole-layer kernel (encoder_layer.cu) and of the split encoder
+// Device functions shared by the kernels: the whole decode step and the
+// per-layer step (decoder_step.cu), the SSRU and FFN blocks
+// (fused_blocks.cu), the decode attention over the int16, float and split
+// caches (decode_attn.cu and the steps), and the encoder SDPA of
+// the whole-layer kernel (encoder_layer.cu) and of the split encoder
 // (attention.cu).
 //
 // Every block runs kThreads threads. The int8 products are __dp4a over
@@ -11,8 +12,12 @@
 // anonymous namespace), so no relocatable device code is needed.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace slimt {
 namespace {
@@ -177,53 +182,161 @@ __device__ void add_layer_norm(const float* a, const float* b,
   __syncthreads();
 }
 
-// Cross-attention of rows row0..row0+rows-1 at T_q = 1 over the joined
-// int16 cache [b, t, e]: score = ((K . q)_head * scale) * kqi + mask,
-// softmax over t, out = sum_t (p * vqi) V. q, out: [rows, e] in shared
-// memory; sc: [rows, heads, t]. attn0, if not null, receives the head-0
-// probabilities [b, t]. e % 256 == 0; the head dim d = e / heads is a
+// The decode attention's K/V cache (attention below), in one of three
+// layouts:
+//   kJoinedScaled  [b, t, e] int16 with per-row (b, t) inverse scales kqi
+//                  and vqi: score = ((K . q)_head * scale) * kqi + mask,
+//                  p * vqi weighs V;
+//   kJoinedFloat   [b, t, e] float, bf16 or fp16 (kqi and vqi unused): q
+//                  and p are rounded to the cache's type first, as the TPU
+//                  kernel's float branch does (_layer_math_bte);
+//   kSplitFloat    [b, heads, t, d] float, bf16 or fp16 (decoder_layer_step's
+//                  layout): nothing is rounded, score = (K . q)_head * scale
+//                  + mask.
+enum CacheLayout { kJoinedScaled, kJoinedFloat, kSplitFloat };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(int16_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+
+// x rounded to nearest even in T and back (f32: unchanged).
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else if constexpr (std::is_same<T, __half>::value) {
+    return __half2float(__float2half_rn(x));
+  } else {
+    return x;
+  }
+}
+
+// Eight consecutive elements at `src` (aligned to their size times 8) as
+// floats: one 16-byte load, two for float.
+__device__ __forceinline__ void load8(const int16_t* src, float* out) {
+  const int4 packed = __ldg(reinterpret_cast<const int4*>(src));
+  const int words[4] = {packed.x, packed.y, packed.z, packed.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = static_cast<float>(static_cast<int16_t>(words[i] & 0xffff));
+    out[2 * i + 1] = static_cast<float>(static_cast<int16_t>(words[i] >> 16));
+  }
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* out) {
+  const int4 packed = __ldg(reinterpret_cast<const int4*>(src));
+  const unsigned words[4] = {static_cast<unsigned>(packed.x), static_cast<unsigned>(packed.y),
+                             static_cast<unsigned>(packed.z), static_cast<unsigned>(packed.w)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(words[i] << 16);
+    out[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void load8(const __half* src, float* out) {
+  const int4 packed = __ldg(reinterpret_cast<const int4*>(src));
+  const __half2* pairs = reinterpret_cast<const __half2*>(&packed);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(pairs[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const float* src, float* out) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(src));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(src + 4));
+  out[0] = lo.x; out[1] = lo.y; out[2] = lo.z; out[3] = lo.w;
+  out[4] = hi.x; out[5] = hi.y; out[6] = hi.z; out[7] = hi.w;
+}
+
+template <typename T, CacheLayout L>
+struct Cache {
+  using Elem = T;
+  const T* k;
+  const T* v;
+  const float* kqi;  // [b, t]; kJoinedScaled only
+  const float* vqi;
+  int t, e, d;
+
+  // Offset of element (batch row b, position j, column c); the same
+  // column of position j + 1 is step() elements on.
+  __device__ long long at(int b, int j, int c) const {
+    if constexpr (L == kSplitFloat) {
+      const int h = c / d;
+      return ((static_cast<long long>(b) * (e / d) + h) * t + j) * d + (c - h * d);
+    } else {
+      return (static_cast<long long>(b) * t + j) * e + c;
+    }
+  }
+  __device__ int step() const { return L == kSplitFloat ? d : e; }
+  __device__ float query(float q) const {
+    if constexpr (L == kJoinedFloat) return round_to<T>(q);
+    return q;
+  }
+  // The score before the mask; pos = b * t + j.
+  __device__ float score(float s, float scale, long long pos) const {
+    s = __fmul_rn(s, scale);
+    if constexpr (L == kJoinedScaled) s = __fmul_rn(s, kqi[pos]);
+    return s;
+  }
+  // The weight of V at pos for probability p.
+  __device__ float weight(float p, long long pos) const {
+    if constexpr (L == kJoinedScaled) return __fmul_rn(p, vqi[pos]);
+    if constexpr (L == kJoinedFloat) return round_to<T>(p);
+    return p;
+  }
+};
+
+using JoinedInt16 = Cache<int16_t, kJoinedScaled>;
+template <typename T>
+using JoinedFloat = Cache<T, kJoinedFloat>;
+template <typename T>
+using SplitFloat = Cache<T, kSplitFloat>;
+
+// Cross-attention of rows row0..row0+rows-1 at T_q = 1 over `cache` (see
+// CacheLayout): per head, s = the cache's score of (K . q) + mask, softmax
+// over t, out = sum_t weight(p) V. q, out: [rows, e] in shared memory; sc:
+// [rows, heads, t]. attn0, if not null, receives the head-0 probabilities
+// [b, t] (unrounded). e % 256 == 0; the head dim d = e / heads is a
 // multiple of 8 with d / 8 a power of two <= 32.
-__device__ void attention(const float* q, const int16_t* __restrict__ k,
-                          const int16_t* __restrict__ v,
-                          const float* __restrict__ kqi,
-                          const float* __restrict__ vqi,
+template <typename C>
+__device__ void attention(const float* q, const C& cache,
                           const float* __restrict__ mask, int row0, int rows,
-                          int t, int e, int heads, float scale, float* sc,
-                          float* out, float* __restrict__ attn0) {
+                          int heads, float scale, float* sc, float* out,
+                          float* __restrict__ attn0) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int d = e / heads;
+  const int t = cache.t;
+  const int e = cache.e;
+  const int d = cache.d;
   const int lanes_per_head = d / 8;  // a lane holds 8 elements of a head
-  // Scores: a warp per (row, position) reads that K row, 16 bytes a lane.
+  // Scores: a warp per (row, position) reads that K row, 8 elements a lane.
   for (int item = warp; item < rows * t; item += kWarps) {
     const int r = item / t;
     const int j = item % t;
     const long long pos = static_cast<long long>(row0 + r) * t + j;
-    const int16_t* k_row = k + pos * e;
     const float* q_row = q + r * e;
     for (int c0 = 0; c0 < e; c0 += 256) {
       const int base = c0 + 8 * lane;
-      const int4 packed = __ldg(reinterpret_cast<const int4*>(k_row + base));
-      const int words[4] = {packed.x, packed.y, packed.z, packed.w};
+      float kv[8];
+      load8(cache.k + cache.at(row0 + r, j, base), kv);
       float s = 0.0f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float lo = static_cast<float>(static_cast<int16_t>(words[i] & 0xffff));
-        const float hi = static_cast<float>(static_cast<int16_t>(words[i] >> 16));
-        s = __fadd_rn(s, __fmul_rn(lo, q_row[base + 2 * i]));
-        s = __fadd_rn(s, __fmul_rn(hi, q_row[base + 2 * i + 1]));
-      }
+      for (int i = 0; i < 8; ++i)
+        s = __fadd_rn(s, __fmul_rn(kv[i], cache.query(q_row[base + i])));
       for (int offset = lanes_per_head / 2; offset > 0; offset /= 2)
         s += __shfl_xor_sync(0xffffffffu, s, offset);
-      if (lane % lanes_per_head == 0) {
-        float score = __fmul_rn(__fmul_rn(s, scale), kqi[pos]);
-        score = __fadd_rn(score, mask[pos]);
-        sc[(r * heads + base / d) * t + j] = score;
-      }
+      if (lane % lanes_per_head == 0)
+        sc[(r * heads + base / d) * t + j] =
+            __fadd_rn(cache.score(s, scale, pos), mask[pos]);
     }
   }
   __syncthreads();
-  // Softmax over t: a warp per (row, head); then p * vqi in place.
+  // Softmax over t: a warp per (row, head); then the weights in place.
   for (int item = warp; item < rows * heads; item += kWarps) {
     float* s = sc + item * t;
     const int r = item / heads;
@@ -242,19 +355,20 @@ __device__ void attention(const float* q, const int16_t* __restrict__ k,
     for (int j = lane; j < t; j += 32) {
       const float p = s[j] / sum;
       if (head0) attn0[row_t + j] = p;
-      s[j] = __fmul_rn(p, vqi[row_t + j]);
+      s[j] = cache.weight(p, row_t + j);
     }
   }
   __syncthreads();
-  // out[r, c] = sum_t p[r, head(c), t] * V[row, t, c].
+  // out[r, c] = sum_t w[r, head(c), t] * V[row, t, c].
+  const int step = cache.step();
   for (int item = threadIdx.x; item < rows * e; item += kThreads) {
     const int r = item / e;
     const int c = item % e;
-    const int16_t* v_col = v + static_cast<long long>(row0 + r) * t * e + c;
+    const auto* v_col = cache.v + cache.at(row0 + r, 0, c);
     const float* p = sc + (r * heads + c / d) * t;
     float acc = 0.0f;
     for (int j = 0; j < t; ++j) {
-      const float vv = static_cast<float>(v_col[static_cast<long long>(j) * e]);
+      const float vv = to_float(v_col[static_cast<long long>(j) * step]);
       acc = __fadd_rn(acc, __fmul_rn(vv, p[j]));
     }
     out[item] = acc;

@@ -9,7 +9,8 @@ counterpart of slimt_tpu/ops/decode_attn_pallas.py
 On a CUDA tensor `decode_attention_int16` launches csrc/decode_attn.cu
 or raises; on a CPU tensor it runs `attention_plain`, the elementwise
 formulation (the TPU kernel's kq = K * q, reduced per head), which also
-serves the whole decode step's plain version. Attention weights are not
+serves the whole decode step's plain version over the int16 and the
+float joined caches. Attention weights are not
 returned: the kernel serves the alignment-free path only.
 """
 
@@ -26,17 +27,25 @@ from slimt_tpu_torch.ops.encoder_layer import softmax
 
 
 def attention_plain(q, k, v, kqi, vqi, mask, num_heads):
-    """q [B, E]; k, v [B, T, E] int16; kqi, vqi, mask [B, T]. Returns
-    (out [B, E], p [B, T, H])."""
+    """q [B, E]; k, v [B, T, E]: the int16 cache with its per-row scales
+    kqi, vqi [B, T], or a float32, bfloat16 or float16 cache (kqi, vqi
+    unused), through whose type q and p are rounded first, as in the TPU
+    whole step's float branch; mask [B, T]. Returns (out [B, E], p [B, T,
+    H])."""
     b, e = q.shape
     t = k.shape[1]
     d = e // num_heads
+    scaled = not k.dtype.is_floating_point
+    if not scaled:
+        q = q.to(k.dtype).to(torch.float32)
     prod = k.to(torch.float32) * q[:, None, :]  # [B, T, E]
     scores = prod.reshape(b, t, num_heads, d).sum(-1) * qmm._f32(1.0 / math.sqrt(d))
-    scores = scores * kqi[:, :, None] + mask[:, :, None]
+    if scaled:
+        scores = scores * kqi[:, :, None]
+    scores = scores + mask[:, :, None]
     p = softmax(scores.transpose(1, 2)).transpose(1, 2)  # over T
-    p_full = (p * vqi[:, :, None]).repeat_interleave(d, dim=2)
-    return (v.to(torch.float32) * p_full).sum(1), p
+    weight = p * vqi[:, :, None] if scaled else p.to(k.dtype).to(torch.float32)
+    return (v.to(torch.float32) * weight.repeat_interleave(d, dim=2)).sum(1), p
 
 
 def check_shapes(b: int, t: int, e: int, num_heads: int) -> None:

@@ -208,13 +208,22 @@ def test_fused_step_coerces_reduced_kv(weights):
      ("f32", "int16")],
 )
 def test_unported_decode_options_raise(weights, provider, kv_dtype):
-    _, tp = weights
+    """Provider "f32" raises, naming its ROADMAP item; the float caches
+    under fused_step and the int8 cache, which once raised too, give the
+    JAX package's tokens."""
+    jp, tp = weights
     indices, mask = _batch(seed=7, b=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode.translate_batch(
-            tp, torch.from_numpy(indices), torch.from_numpy(mask), eos_id=2,
-            max_steps=4, num_heads=HEADS, provider=provider, kv_dtype=kv_dtype,
-        )
+    args = dict(eos_id=2, max_steps=4, num_heads=HEADS, provider=provider,
+                kv_dtype=kv_dtype)
+    if provider == "f32":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            decode.translate_batch(
+                tp, torch.from_numpy(indices), torch.from_numpy(mask), **args)
+        return
+    got = decode.translate_batch(tp, torch.from_numpy(indices), torch.from_numpy(mask), **args)
+    want = jdecode.translate_batch(jp, jnp.asarray(indices), jnp.asarray(mask), **args)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
 
 
 FUSED = dataclasses.replace(TINY_TEST_CONFIG, qmm_provider="fused_step")
@@ -288,10 +297,17 @@ def test_model_fused_step_options_match_jax(change):
 
 
 def test_fused_step_bfloat16_cache_raises():
+    """fused_step over the bfloat16 joined cache once raised; it now
+    serves the whole step's float branch with the JAX Model's tokens."""
     config = dataclasses.replace(FUSED, kv_cache_dtype="bfloat16")
-    pkg = make_package()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(config, Package(pkg.model, pkg.vocabulary), "cpu")
+    pkg = make_package(config=config)
+    port = Model(config, Package(pkg.model, pkg.vocabulary), "cpu")
+    want = JaxModel(config, pkg).forward(SEGMENTS, need_alignment=True)
+    got = port.forward(SEGMENTS, need_alignment=True)
+    assert [h.target for h in got] == [h.target for h in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g.alignment), np.asarray(w.alignment),
+                                   atol=ALIGN_TOL, rtol=0)
 
 
 @pytest.mark.parametrize(

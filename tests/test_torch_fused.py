@@ -141,10 +141,13 @@ def test_translate_batch_fused_matches_jax(weights, method, with_shortlist, with
 
 
 def test_fused_needs_the_int16_cache(weights):
-    _, tp = weights
+    """The `fused` provider once needed the int16 cache; over the int8
+    cache it now gives the JAX package's tokens."""
+    jp, tp = weights
     indices, mask = _batch(seed=7, b=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode.translate_batch(
-            tp, torch.from_numpy(indices), torch.from_numpy(mask), eos_id=2,
-            max_steps=4, num_heads=HEADS, provider="fused", kv_dtype="int8",
-        )
+    args = dict(eos_id=2, max_steps=4, num_heads=HEADS, provider="fused",
+                kv_dtype="int8")
+    got = decode.translate_batch(tp, torch.from_numpy(indices), torch.from_numpy(mask), **args)
+    want = jdecode.translate_batch(jp, jnp.asarray(indices), jnp.asarray(mask), **args)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))

@@ -351,3 +351,79 @@ def test_whole_step_kernel_long_t(card, b):
         assert float(row_err.max()) <= 0.25  # also catches NaN
         row_err = row_err[(args[3][:, 0, 0, :] == 0).any(-1)]
         assert float((row_err <= 2e-5).float().mean()) >= 0.99
+
+
+FLOAT_CACHES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}
+
+
+def _row_rule(label, row_err, attn_err, real):
+    """The rule of the whole step's check (chip_smoke.py): every row within
+    0.25 on states and head-0 attention (an int8 rounding flip moves a row
+    by up to ~0.06), and >= 99% of the rows within 2e-5 on the states and,
+    on a row with a real key, 1e-6 on the attention (PAD_TOL on a padding
+    row)."""
+    worst = float(torch.maximum(row_err, attn_err).max())
+    assert worst <= 0.25, f"{label}: max |diff| {worst}"  # also catches NaN
+    within = (row_err <= 2e-5) & torch.where(real, attn_err <= 1e-6, attn_err <= PAD_TOL)
+    assert float(within.float().mean()) >= 0.99, f"{label}: {within.tolist()}"
+
+
+@pytest.mark.parametrize("b,t", [(1, 16), (8, 64), (65, 64), (130, 1024)])
+@pytest.mark.parametrize("dtype", list(FLOAT_CACHES))
+@pytest.mark.parametrize("split", [True, False], ids=["split", "joined"])
+def test_layer_step_kernels_match_plain(card, split, dtype, b, t):
+    """#10 (split [B, H, T, D] cache) and #11 (joined [B, T, E]) against
+    their plain versions; B=130 takes 4 rows a block, at T=1024 too."""
+    layer = _decoder_layer(card, 256, 1536, seed=b + t)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(b * t)
+    x = torch.randn((b, 1, 256), device=card, generator=gen) * 2.0
+    c = torch.randn((b, 1, 256), device=card, generator=gen)
+    shape = (b, 8, t, 32) if split else (b, t, 256)
+    kv = tuple((torch.randn(shape, device=card, generator=gen) * 0.5).to(FLOAT_CACHES[dtype])
+               for _ in range(2))
+    mask_add, real = _padded_mask(card, b, t)
+    if split:
+        kernel, entry, plain = (dstep.decoder_layer_step_kernel, dstep.decoder_layer_step,
+                                dstep.decoder_layer_step_plain)
+    else:
+        kernel, entry, plain = (dstep.decoder_layer_step_bte_kernel,
+                                dstep.decoder_layer_step_bte,
+                                dstep.decoder_layer_step_bte_plain)
+    before = kernel.launches
+    y, c_t, attn0 = entry(layer, c, x, mask_add, kv, 8)
+    assert kernel.launches == before + 1
+    want_y, want_c, want_attn0 = plain(layer, c, x, mask_add, kv, 8)
+    torch.cuda.synchronize()
+    row_err = torch.maximum((y - want_y).abs().amax((1, 2)), (c_t - want_c).abs().amax((1, 2)))
+    _row_rule(f"{'split' if split else 'joined'} {dtype} B={b} T={t}", row_err,
+              (attn0 - want_attn0).abs().amax(-1), real)
+
+
+@pytest.mark.parametrize("b,t", [(1, 64), (33, 128), (130, 1024)])
+@pytest.mark.parametrize("dtype", list(FLOAT_CACHES))
+def test_whole_step_float_cache_kernel_matches_plain(card, dtype, b, t):
+    """The whole step's float-cache branch (q and p rounded through the
+    cache's type, no kqi/vqi) against its plain version."""
+    params, args = _step_case(card, b, t, False, seed=3 * b + t)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(b + t)
+    caches = tuple(
+        {"k": (torch.randn((b, t, 256), device=card, generator=gen) * 0.5).to(FLOAT_CACHES[dtype]),
+         "v": (torch.randn((b, t, 256), device=card, generator=gen) * 0.5).to(FLOAT_CACHES[dtype]),
+         "kqi": torch.ones((), device=card), "vqi": torch.ones((), device=card)}
+        for _ in range(2))
+    args = args[:4] + (caches,) + args[5:]
+    before = dstep.whole_step_kernel.launches
+    choice, states, attn0 = dstep.whole_decode_step(*args)
+    assert dstep.whole_step_kernel.launches == before + 1
+    want_choice, want_states, want_attn0 = dstep.whole_step_plain(*args)
+    torch.cuda.synchronize()
+    row_err = torch.zeros((b,), device=card)
+    for got, want in zip(states, want_states):
+        row_err = torch.maximum(row_err, (got - want).abs().amax((1, 2)))
+    real = (args[3][:, 0, 0, :] == 0).any(-1)
+    _row_rule(f"whole step {dtype} B={b} T={t}", row_err,
+              (attn0 - want_attn0).abs().amax(-1), real)
+    assert float((choice == want_choice).float().mean()) >= 0.99

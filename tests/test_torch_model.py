@@ -1,8 +1,9 @@
 """The port's Model (slimt_tpu_torch/models/model.py) against the JAX
 Model on tests/helpers.make_package packages: forward, forward_async
 (raw), forward_async_arrays and the runtime's Blocking service give
-the same tokens, for inputs past 256 tokens too. Also: "cuda" without a
-card raises, unported config values raise, and importing the port and
+the same tokens, for inputs past 256 tokens too. Also: the default device
+is the card, and "cuda" without one raises; unported config values raise
+and every kv_cache_dtype serves; and importing the port and
 serving through its own Blocking loads neither jax nor anything of the
 JAX package (nor regex on import).
 """
@@ -103,6 +104,19 @@ def test_cuda_without_card_raises():
         Model(TINY_TEST_CONFIG, Package(pkg.model, pkg.vocabulary), "cuda")
 
 
+def test_default_device_is_the_card():
+    """Model(config, package) runs on the card; without one it raises as
+    "cuda" does, and the CPU stays an explicit choice."""
+    pkg = make_package()
+    package = Package(pkg.model, pkg.vocabulary)
+    if torch.cuda.is_available():
+        assert Model(TINY_TEST_CONFIG, package).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        Model(TINY_TEST_CONFIG, package)
+    assert Model(TINY_TEST_CONFIG, package, "cpu").device.type == "cpu"
+
+
 @pytest.mark.parametrize(
     "change",
     [
@@ -117,10 +131,19 @@ def test_cuda_without_card_raises():
     ],
 )
 def test_unported_config_raises(change):
+    """qmm_provider="f32" and encoder_dtype raise, naming their ROADMAP
+    item; every kv_cache_dtype, which once raised too, now serves with the
+    JAX Model's tokens."""
     config = dataclasses.replace(TINY_TEST_CONFIG, **change)
     pkg = make_package()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(config, Package(pkg.model, pkg.vocabulary), "cpu")
+    if "encoder_dtype" in change or change.get("qmm_provider") == "f32":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Model(config, Package(pkg.model, pkg.vocabulary), "cpu")
+        return
+    port = Model(config, Package(pkg.model, pkg.vocabulary), "cpu")
+    want = JaxModel(config, pkg).forward(SEGMENTS, need_alignment=False)
+    assert [h.target for h in port.forward(SEGMENTS, need_alignment=False)] == [
+        h.target for h in want]
 
 
 @pytest.mark.parametrize(
