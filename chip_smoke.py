@@ -12,7 +12,11 @@ without printing a result:
              source, in parallel);
 3. kernels — each kernel against its plain PyTorch version on the card
              at the serving paths' shapes: the int8 affine bit-equal in
-             every mode, the encoder layer within 2e-5 (the bound the
+             every mode (and at its tilings' edges: M 1-4096 across the
+             split-K, 64- and 128-row tiles, ragged and gathered K and
+             N), timed at the encoder's and the decode steps' shapes
+             (also replayed from a CUDA graph, which drops the host's
+             launch cost) beside each bound, the encoder layer within 2e-5 (the bound the
              JAX package holds its TPU kernel to) on >= 99% of
              positions, the whole decode step within 2e-5 on states and
              head-0 attention on >= 99% of rows (every position and row
@@ -25,8 +29,8 @@ without printing a result:
              bit-equal in its three methods (exact, packed_fp16,
              packed_bf16; a tie across vocab tiles included), at tiny
              and base widths; the split encoder's fused SDPA within
-             2e-5 at B in (1, 33, 512), T in (16, 64, 256), E in (256,
-             512), and its blockwise attention within 2e-5 abs + 1e-5
+             2e-5 at B in (1, 33, 512), T in (16, 17, 64, 100, 256), E in
+             (256, 512), and its blockwise attention within 2e-5 abs + 1e-5
              rel at T in (272, 1000, 1024, 2048) (ragged pads), padding
              rows within 1e-4; the whole step also at T=1024 (B 1, 8,
              130) and T=2048 (B=130); the per-layer decoder steps over a
@@ -71,7 +75,12 @@ without printing a result:
              2 segments of ~900 tokens and the 4 forward_async_arrays
              rows at T=1024, the CPU's decode capped at 0.1 x T;
              forward wall time and tokens/s at B=64 and B=512 (T=64)
-             on each short-input path, and at B=512 the declared
+             on each short-input path; the time forward_async takes to
+             return at B=512 T=64 against its batch's wall (it must
+             return before half of it) and, in turns on one card, the
+             forward walls through the Model's dispatch worker against
+             an inline dispatch (fused_step and declared at B=1 T=32,
+             declared at B=512 T=64); at B=512 the declared
              float32 (exact) cache against int16; at B=1, T=32 the
              fused_step and fused forwards against the declared one, and
              fused_step over bfloat16 against int16 (median of 5 runs,
@@ -84,8 +93,9 @@ without printing a result:
 
 The second-to-last line is the kernels' JSON record (eleven kernels;
 launches from the serving paths, but for #10 and #11, which no serving
-path reaches: theirs are the kernels phase's), the last line {"ok": true,
-"device": {...}}.
+path reaches: theirs are the kernels phase's; qmm_affine also lists its
+times at the six timed shapes under "shapes"), the last line {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -166,8 +176,10 @@ def bound(nbytes, f32_ops=0.0, int8_ops=0.0):
     return max(memory, compute) * 1e3, "bytes" if memory >= compute else "operations"
 
 
-def affine_bound(m, k, n):
-    return bound(4 * m * k + k * n + 4 * n + 4 * m * n, int8_ops=2 * m * k * n)
+def affine_bound(m, k, n, mode=0):
+    """x and W read, the bias read but in the raw s32 mode, y written."""
+    bias = 0 if mode == 2 else 4 * n
+    return bound(4 * m * k + k * n + bias + 4 * m * n, int8_ops=2 * m * k * n)
 
 
 def layer_bound(b, t, e, f):
@@ -238,6 +250,16 @@ def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(torch, fn, calls=20):
+    """Device ms per call of `fn` (already warm): `calls` calls captured as
+    one CUDA graph and replayed, so the host's launch cost drops out."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(torch, graph.replay, 5) / calls
+
+
 def check_affine(torch, qmm, dev):
     """Kernel vs plain at the serving path's shapes, every mode."""
     rng = np.random.default_rng(1)
@@ -258,6 +280,11 @@ def check_affine(torch, qmm, dev):
                      (512, 2048), (2048, 512)):
             if m * max(k, n) <= 2048 * 128 * 1536:
                 cases.append(("encoder", m, (k, n)))
+    # The kernel's tiling edges: split K up to M=64, 64- and 128-row tensor
+    # core tiles above; ragged N and K, and the byte-gathered layouts.
+    for m in (1, 15, 16, 17, 63, 64, 65, 129, 4096):
+        for k, n in ((256, 256), (256, 1536), (1536, 256), (100, 72), (1000, 40)):
+            cases.append(("edge", m, (k, n)))
     worst = 0.0
     for label, m, w in cases:
         if isinstance(w, tuple):
@@ -303,12 +330,16 @@ def check_affine(torch, qmm, dev):
         x = torch.randn((m, k), device=dev)
         b = torch.randn((n,), device=dev)
         kernel = cuda_ms(torch, lambda: qmm.affine_kernel(x, w, b, 20.0, 1e-4, mode))
+        graph = graph_ms(torch, lambda: qmm.affine_kernel(x, w, b, 20.0, 1e-4, mode))
         plain = cuda_ms(torch, lambda: qmm.affine_plain(x, w, b, 20.0, 1e-4, mode))
-        tops = 2.0 * m * k * n / (kernel * 1e-3) / 1e12
-        log(f"time affine {label} (M={m} K={k} N={n}): kernel {kernel:.4f} ms "
-            f"({tops:.2f} TOP/s), plain {plain:.4f} ms")
-        timings.append((kernel, plain))
-    return worst, timings[0]
+        tops = 2.0 * m * k * n / (graph * 1e-3) / 1e12
+        bound_ms, by = affine_bound(m, k, n, mode)
+        log(f"time affine {label} (M={m} K={k} N={n}): kernel {kernel:.4f} ms, "
+            f"{graph:.4f} ms a call in a CUDA graph ({tops:.2f} TOP/s), plain "
+            f"{plain:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+        timings.append({"shape": label, "ms": kernel, "graph_ms": graph, "plain_ms": plain,
+                        "bound_ms": bound_ms, "bound_by": by})
+    return worst, timings
 
 
 def check_layer(torch, enc, dev, load_host, params_from_numpy):
@@ -855,16 +886,17 @@ def library_sdpa(torch, q, k, v, mask_add):
 
 def check_fused_sdpa(torch, att, enc, dev):
     """Fused SDPA vs plain within SDPA_TOL at every position of the real
-    rows (PAD_TOL on the padding rows), B in (1, 33, 512), T in (16, 64,
-    256), E in (256, 512), 8 heads; times at B=512 T=64 E=256 beside the
-    plain version and the library call."""
+    rows (PAD_TOL on the padding rows), B in (1, 33, 512), T in (16, 17,
+    64, 100, 256) (ragged key tiles), E in (256, 512), 8 heads; times at
+    B=512 T=64 E=256 beside the plain version and the library call, and
+    at head dim 64 (E=512, T=64 and 256) beside the library call."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
     worst = worst_pad = 0.0
     cases = 0
     for e in (EMB, 512):
         for b in (1, 33, 512):
-            for t in (16, 64, 256):
+            for t in (16, 17, 64, 100, 256):
                 q, k, v = (torch.randn((b, t, e), device=dev, generator=gen) for _ in range(3))
                 mask_add, real = padded_mask(torch, dev, b, t)
                 got = att.fused_sdpa_kernel(q, k, v, mask_add, HEADS)
@@ -895,6 +927,22 @@ def check_fused_sdpa(torch, att, enc, dev):
     log(f"time fused SDPA B={b} T={t} E={e}: kernel {times[0]:.4f} ms, plain "
         f"{times[1]:.4f} ms, scaled_dot_product_attention {times[2]:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({by})")
+    # Base widths (head dim 64), against the library call only.
+    for t64 in (64, 256):
+        e64, b64 = 512, 512 * 64 // t64
+        q64, k64, v64 = (torch.randn((b64, t64, e64), device=dev, generator=gen)
+                         for _ in range(3))
+        mask64 = padded_mask(torch, dev, b64, t64)[0]
+
+        def heads64(a):
+            return a.view(b64, t64, HEADS, e64 // HEADS).transpose(1, 2)
+
+        kernel64 = cuda_ms(torch, lambda: att.fused_sdpa_kernel(q64, k64, v64, mask64, HEADS))
+        library64 = cuda_ms(torch, lambda: library_sdpa(
+            torch, heads64(q64), heads64(k64), heads64(v64), mask64))
+        log(f"time fused SDPA B={b64} T={t64} E={e64}: kernel {kernel64:.4f} ms, "
+            f"scaled_dot_product_attention {library64:.4f} ms, bound "
+            f"{sdpa_bound(b64, t64, e64)[0]:.4f} ms")
     return worst, times
 
 
@@ -1223,6 +1271,65 @@ def forward_rate(torch, model, batch, t):
     return wall, tokens
 
 
+def async_return(torch, model, batch, t):
+    """(ms until forward_async returned, ms until its finish() did) for
+    one B x T batch after a warm-up forward: the batch runs on the
+    model's dispatch worker."""
+    eos = model.vocabulary.eos_id
+    segments = [[3 + (i + j) % 1000 for j in range(t - 1)] + [eos]
+                for i in range(batch)]
+    model.forward(segments, need_alignment=False)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    finish = model.forward_async(segments, need_alignment=False)
+    returned = time.perf_counter() - start
+    finish()
+    torch.cuda.synchronize()
+    return returned * 1e3, (time.perf_counter() - start) * 1e3
+
+
+class InlineDispatch:
+    """A dispatch worker stand-in that runs each batch on the caller's
+    thread and stream: the yardstick for the worker's host cost."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def submit(self, fn):
+        from concurrent.futures import Future
+
+        future = Future()
+        with self.torch.inference_mode():
+            future.set_result(fn())
+        return future
+
+
+def dispatch_turns(torch, model, batch, t, turns=8):
+    """Forward walls (ms) through the model's dispatch worker and inline,
+    in turns (worker, inline, inline, worker, ...), one warm-up each."""
+    eos = model.vocabulary.eos_id
+    segments = [[3 + (i + j) % 1000 for j in range(t - 1)] + [eos]
+                for i in range(batch)]
+    walls = {"worker": [], "inline": []}
+    inline = InlineDispatch(torch)
+    try:
+        for turn in range(turns):
+            label = ("worker", "inline", "inline", "worker")[turn % 4]
+            if label == "inline":
+                model._dispatch_worker = lambda: inline
+            else:
+                model.__dict__.pop("_dispatch_worker", None)
+            model.forward(segments, need_alignment=False)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            model.forward(segments, need_alignment=False)
+            torch.cuda.synchronize()
+            walls[label].append((time.perf_counter() - start) * 1e3)
+    finally:
+        model.__dict__.pop("_dispatch_worker", None)
+    return walls
+
+
 def longctx(torch, tfm, params, name, smi):
     """The 6-layer tiny11 encoder at a fixed 16,384 tokens a call: B =
     16384 / T. Plain SDPA against blockwise at every T; at T=256 also
@@ -1295,7 +1402,7 @@ def main() -> None:
             config=config, vocab_size=vocab, emb_dim=emb, ffn_dim=ffn, seed=0)),
             config)
 
-    affine_err, affine_ms = check_affine(torch, qmm, dev)
+    affine_err, affine_times = check_affine(torch, qmm, dev)
     layer_err, layer_ms = check_layer(torch, enc, dev, load_host, params_from_numpy)
     step_err, step_ms = check_step(torch, dstep, lam, tfm, qmm, dev, load_host,
                                    params_from_numpy)
@@ -1373,9 +1480,9 @@ def main() -> None:
         """CUDA tokens against the plain CPU path (check_agreement): a near
         tie is allowed on the kv configs of TIE_CACHES only."""
         start = time.perf_counter()
-        got = Model(config, pkg, "cuda", limit_factor).forward(
+        got = Model(config, pkg, limit_factor, device="cuda").forward(
             segments, need_alignment=False)
-        plain = Model(config, pkg, "cpu", limit_factor)
+        plain = Model(config, pkg, limit_factor, device="cpu")
         with recording_logits(tfm, dstep, qmm) as logits:
             want = plain.forward(segments, need_alignment=False)
         share = agreement(got, want)
@@ -1389,7 +1496,7 @@ def main() -> None:
     launches = {}
     paths = {}
     for path, configs in path_configs.items():
-        models = {label: Model(configs[label], pkg, "cuda")
+        models = {label: Model(configs[label], pkg, device="cuda")
                   for label, pkg in packages.items()}
         reset()
         served = {}
@@ -1408,7 +1515,7 @@ def main() -> None:
     # The long path: the default config past the blockwise crossover, on
     # each decode path, the full vocabulary.
     long_models = {path: Model(path_configs[path]["full vocab"], packages["full vocab"],
-                               "cuda")
+                               device="cuda")
                    for path in ("declared", "fused_step", "fused")}
     reset()
     long_rows = {}
@@ -1425,7 +1532,7 @@ def main() -> None:
                 packages["full vocab"], long_segments[:2], limit_factor=0.1)
         indices, mask, lengths, tokens, steps = long_rows[path]
         plain = plain_rows(Model(path_configs[path]["full vocab"], packages["full vocab"],
-                                 "cpu", 0.1), tfm, dstep, qmm, indices, mask, lengths)
+                                 0.1, device="cpu"), tfm, dstep, qmm, indices, mask, lengths)
         share, gaps = row_agreement(plain, indices, tokens, steps)
         log(f"tokens CUDA vs plain CPU (long, {path}, forward_async_arrays, "
             f"{LONG_ROWS} rows at T={LONG_T}, decode capped at 0.1 x T on the CPU): "
@@ -1471,6 +1578,19 @@ def main() -> None:
             log(f"forward {path} B={batch} T=64 full vocab: {wall * 1e3:.1f} ms, "
                 f"{tokens} tokens, {tokens / wall:.0f} tok/s on {name} ({smi})")
 
+    returned, wall = async_return(torch, paths["declared"], 512, 64)
+    log(f"forward_async declared B=512 T=64 full vocab: returned after {returned:.3f} ms "
+        f"of the batch's {wall:.1f} ms wall on {name} ({smi})")
+    if not returned < wall / 2:
+        raise RuntimeError("forward_async did not return before its batch was done")
+    for path, batch, t in (("fused_step", 1, 32), ("declared", 1, 32), ("declared", 512, 64)):
+        walls = dispatch_turns(torch, paths[path], batch, t)
+        log(f"dispatch {path} B={batch} T={t} full vocab, in turns: worker median "
+            f"{statistics.median(walls['worker']):.3f} ms of "
+            f"{[round(w, 3) for w in walls['worker']]}, inline median "
+            f"{statistics.median(walls['inline']):.3f} ms of "
+            f"{[round(w, 3) for w in walls['inline']]} on {name} ({smi})")
+
     for path in ("declared", "fused_step", "fused", "fused", "fused_step", "declared"):
         wall, walls, steps, ops, busy_us = latency(
             torch, paths[path], CHECK_EVERY, dstep.whole_step_kernel)
@@ -1507,7 +1627,8 @@ def main() -> None:
     e, f, b, t = EMB, FFN, 64, 64
     rows = [
         ("qmm_affine", AFFINE_SOURCE, "slimt_tpu/ops/qmm_pallas.py:42", affine_err,
-         affine_ms, affine_bound(512 * 64, EMB, FFN)),
+         (affine_times[0]["ms"], affine_times[0]["plain_ms"]),
+         affine_bound(512 * 64, EMB, FFN)),
         ("encoder_layer", LAYER_SOURCE, "slimt_tpu/ops/encoder_layer_pallas.py:87",
          layer_err, layer_ms, layer_bound(512, 64, e, f)),
         ("whole_decode_step", STEP_SOURCE, "slimt_tpu/ops/decoder_step_pallas.py:497",
@@ -1546,7 +1667,8 @@ def main() -> None:
          "launches_from": "kernels" if key in layer_step_launches else "serve",
          "max_abs_err": err, "ms": times[0],
          "plain_ms": times[1], "bound_ms": bound_ms, "bound_by": by,
-         "library_ms": times[2] if len(times) > 2 else None}
+         "library_ms": times[2] if len(times) > 2 else None,
+         **({"shapes": affine_times} if key == "qmm_affine" else {})}
         for key, source, replaces, err, times, (bound_ms, by) in rows
     ]}
     log(json.dumps(record))

@@ -8,7 +8,7 @@ the config, io, text, html and runtime modules. `regex` is imported
 only by the sentence splitter, on first use.
 
     from slimt_tpu_torch import Blocking, Config, Model, ModelConfig, Package
-    model = Model(ModelConfig(), Package(model=..., vocabulary=...), "cuda")
+    model = Model(ModelConfig(), Package(model=..., vocabulary=...), device="cuda")
     with Blocking(Config()) as service:
         responses = service.translate(model, ["hello world"])
 """

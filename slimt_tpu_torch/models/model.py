@@ -5,7 +5,9 @@ device and turns batches of token segments into Hypotheses with the
 same bucketing, shortlist padding, step limits and compact transport
 as the JAX Model, so the runtime (`runtime/service.py`,
 `runtime/bulk.py`) drives it unchanged through `forward_async` and
-`forward_async_arrays`.
+`forward_async_arrays`. Those return once the batch is queued on the
+Model's dispatch worker (one thread, and on CUDA one side stream), which
+runs the batches in submission order, as the JAX device queue does.
 
 The port implements the declared serving config, the `fused` provider
 (SSRU and FFN block kernels per decoder layer), the decode-attention
@@ -24,8 +26,13 @@ substituted silently.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
+import queue
+import threading
+import weakref
+from concurrent.futures import Future
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
@@ -134,18 +141,80 @@ def _check_config(config: ModelConfig) -> None:
         )
 
 
+def _run_job(stream, fn, ready, future: Future) -> None:
+    """Run one queued batch under inference mode (thread-local) and, on
+    CUDA, on `stream` after the caller's `ready` event; its result or
+    error goes to `future`."""
+    try:
+        on_stream = contextlib.nullcontext()
+        if stream is not None:
+            on_stream = torch.cuda.stream(stream)
+            stream.wait_event(ready)
+        with torch.inference_mode(), on_stream:
+            result = fn()
+    except BaseException as exc:  # noqa: BLE001 -- surfaces from finish()
+        future.set_exception(exc)
+    else:
+        future.set_result(result)
+
+
+def _serve(jobs: queue.SimpleQueue, stream) -> None:
+    """The dispatch worker's loop: jobs in order until None. It keeps no
+    reference to a finished job, so the Model can be collected."""
+    while True:
+        job = jobs.get()
+        if job is None:
+            return
+        _run_job(stream, *job)
+        del job
+
+
+class _DispatchWorker:
+    """One daemon thread (and on CUDA one side stream) that runs a Model's
+    batches in the order they were submitted, as the JAX device queue
+    does; it ends when its Model is collected."""
+
+    def __init__(self, owner, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self._jobs = queue.SimpleQueue()
+        threading.Thread(
+            target=_serve, args=(self._jobs, self.stream),
+            name=f"slimt-dispatch-{owner.id}", daemon=True,
+        ).start()
+        weakref.finalize(owner, self._jobs.put, None)
+
+    def submit(self, fn) -> Future:
+        """Queue `fn`; on CUDA it runs after the work the caller's stream
+        holds now (the inputs' copies included)."""
+        ready = None
+        if self.stream is not None:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        future = Future()
+        self._jobs.put((fn, ready, future))
+        return future
+
+
 class Model:
     def __init__(
         self,
         config: ModelConfig,
         package: Package,
-        device="cuda",
         tgt_length_limit_factor: float = 1.5,
+        *,
+        device="cuda",
     ):
-        """Load `package` onto `device`: the card unless the caller asks
-        for "cpu" ("cuda" without a card raises). On CUDA every int8
-        product and encoder layer runs the hand-written kernels of ops/; on
-        the CPU their plain versions."""
+        """Load `package` onto `device` (keyword-only): the card unless the
+        caller asks for "cpu" ("cuda" without a card raises). The first
+        three parameters mean what they mean in the JAX Model. On CUDA
+        every int8 product and encoder layer runs the hand-written kernels
+        of ops/; on the CPU their plain versions."""
+        if isinstance(tgt_length_limit_factor, (str, torch.device)):
+            raise TypeError(
+                "Model's third parameter is tgt_length_limit_factor, as in "
+                f"the JAX Model; pass device={tgt_length_limit_factor!r} by keyword"
+            )
         _check_config(config)
         self.device = resolve_device(device)
         self.id = next(_model_ids)
@@ -175,6 +244,14 @@ class Model:
                 shortlist_bytes, vocab_size=self.vocab_size
             )
         self.shortlist_meter = ShortlistMeter()
+        self._worker: Optional[_DispatchWorker] = None
+        self._worker_lock = threading.Lock()
+
+    def _dispatch_worker(self) -> _DispatchWorker:
+        with self._worker_lock:
+            if self._worker is None:
+                self._worker = _DispatchWorker(self, self.device)
+            return self._worker
 
     @property
     def processor(self):
@@ -204,9 +281,13 @@ class Model:
         need_alignment: bool = True,
         raw: bool = False,
     ):
-        """Run the batch and return a zero-arg callable producing the
-        Hypotheses (or, with raw=True, the columnar arrays: tokens
-        [B, steps], per-row step counts, alignment or None)."""
+        """Queue the batch on this Model's dispatch worker and return a
+        zero-arg callable producing the Hypotheses (or, with raw=True, the
+        columnar arrays: tokens [B, steps], per-row step counts, alignment
+        or None). It returns once the batch is queued, so callers can
+        launch several batches back-to-back and fetch results later; the
+        batches run in submission order, and an error in one surfaces from
+        its callable."""
         batch = len(segments)
         lengths = [len(s) for s in segments]
         b_pad = _bucket_batch(batch)
@@ -234,7 +315,7 @@ class Model:
         raw: bool = False,
     ):
         """Columnar forward on padded [B, T] arrays packed by the
-        caller (the bulk lane)."""
+        caller (the bulk lane); queued as forward_async is."""
         return self._dispatch(
             indices, mask, lengths, batch, need_alignment,
             shortlist_words, raw=raw,
@@ -244,8 +325,15 @@ class Model:
         self, indices, mask, lengths, batch, need_alignment,
         shortlist_words, raw: bool = False,
     ):
+        """Prepare the batch on the caller's thread (padding, shortlist
+        ids, the shortlist meter: errors raise here), then queue the
+        decode, the compaction and the device-to-host copy on the
+        dispatch worker. finish() waits for them and builds the result."""
+        # Copies: the caller may reuse its buffers once this returns.
+        indices = np.array(indices, np.int32)
+        mask = np.array(mask, np.float32)
         t_pad = indices.shape[1]
-        shortlist = None
+        shortlist_ids = None
         if self.shortlist_generator is not None:
             words = shortlist_words
             if words is None:
@@ -253,11 +341,10 @@ class Model:
             elif isinstance(words, np.ndarray):
                 words = words.tolist()
             raw_width = len(self.shortlist_generator.generate(words))
-            ids = self.shortlist_generator.generate_padded(
+            shortlist_ids = self.shortlist_generator.generate_padded(
                 words, SHORTLIST_BUCKET
             ).astype(np.int32)
-            self.shortlist_meter.record_widths(raw_width, len(ids))
-            shortlist = torch.from_numpy(ids).to(self.device)
+            self.shortlist_meter.record_widths(raw_width, len(shortlist_ids))
 
         # Static bound (sizes the outputs, from the bucketed T) vs the
         # reference's limit_factor x the batch's actual longest source.
@@ -265,11 +352,16 @@ class Model:
         actual_max = max((int(n) for n in lengths), default=t_pad)
         steps_cap = max(1, int(self.limit_factor * actual_max))
         compact = self.config.compact_transfer and self.vocab_size <= 65535
-        with torch.inference_mode():
+        device = self.device
+
+        def run():
+            shortlist = None
+            if shortlist_ids is not None:
+                shortlist = torch.from_numpy(shortlist_ids).to(device)
             result = translate_batch(
                 self.params,
-                torch.from_numpy(np.asarray(indices, np.int32)).to(self.device),
-                torch.from_numpy(np.asarray(mask, np.float32)).to(self.device),
+                torch.from_numpy(indices).to(device),
+                torch.from_numpy(mask).to(device),
                 eos_id=self.vocabulary.eos_id,
                 max_steps=max_steps,
                 num_heads=self.config.num_heads,
@@ -288,15 +380,15 @@ class Model:
                 fused_sdpa=self._on_card(self.config.encoder_sdpa, t_pad),
                 fused_layer=self._on_card(self.config.encoder_layer_kernel, t_pad),
             )
-            packed = compact_result(result).packed if compact else None
+            align = result.alignment.cpu().numpy() if need_alignment else None
+            if compact:
+                return unpack_compact(compact_result(result).packed, max_steps), align
+            return (result.tokens.cpu().numpy(), result.valid.cpu().numpy()), align
+
+        future = self._dispatch_worker().submit(run)
 
         def finish():
-            if compact:
-                tokens, valid = unpack_compact(packed, max_steps)
-            else:
-                tokens = result.tokens.cpu().numpy()
-                valid = result.valid.cpu().numpy()
-            align = result.alignment.cpu().numpy() if need_alignment else None
+            (tokens, valid), align = future.result()
             if raw:
                 steps = valid[:batch].sum(axis=1).astype(np.int32)
                 return tokens, steps, align

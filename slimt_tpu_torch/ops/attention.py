@@ -23,14 +23,11 @@ import torch
 
 from slimt_tpu_torch.ops import _build
 from slimt_tpu_torch.ops.encoder_layer import (
-    SMEM_LIMIT,
+    HEAD_DIMS,
+    MAX_T,
     sdpa_heads,
     sdpa_plain,
-    sdpa_smem_bytes,
 )
-
-BLOCKWISE_HEAD_DIMS = (8, 16, 32, 64)  # the kernel's template instances
-MAX_GRID_Y = 65535  # the fused kernel's grid is (heads, batch)
 
 
 def blockwise_plain(q, k, v, mask_add) -> torch.Tensor:
@@ -63,11 +60,10 @@ def fused_sdpa_kernel(q, k, v, mask_add, num_heads) -> torch.Tensor:
         raise ValueError(f"q, k, v must be [B, T, E] with E % heads == 0, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     d = e // num_heads
-    smem = sdpa_smem_bytes(t, d)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"T={t}, head dim {d}: SDPA needs {smem} B of shared memory")
-    if b > MAX_GRID_Y:
-        raise ValueError(f"B={b} > {MAX_GRID_Y}")
+    if t > MAX_T:
+        raise ValueError(f"T={t} > {MAX_T}: the fused SDPA serves the wrap regime")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     mask = mask_add.reshape(b, t).to(q.device, torch.float32).contiguous()
     _check((q, k, v))
     out = torch.empty_like(q)
@@ -92,8 +88,8 @@ def blockwise_kernel(q, k, v, mask_add) -> torch.Tensor:
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be one [B, H, T, D] shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if d not in BLOCKWISE_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {BLOCKWISE_HEAD_DIMS}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     mask = mask_add.reshape(b, t).to(q.device, torch.float32).contiguous()
     _check((q, k, v))
     out = torch.empty_like(q)

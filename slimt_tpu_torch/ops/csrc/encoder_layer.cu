@@ -9,20 +9,23 @@
 //   out     = LN(x1 + affine(relu(affine(x1, W1)), W2))
 //
 // Design. The six int8 products run through the affine kernel
-// (qmm_affine.cu), each with its own activation scale. The SDPA kernel
-// (slimt_device.cuh, shared with the split encoder's fused SDPA in
-// attention.cu) runs one block per (row, head): that head's K and V
-// slices sit in
-// shared memory (at T = 256, D = 64: 128 KB) and the scores never reach
-// device memory, which is what the TPU kernel keeps out of HBM. The
-// residual add and LayerNorm are one kernel, one warp per row, with a
-// two-pass mean and variance and 1 / sqrtf like the reference formula.
+// (qmm_affine.cu: int8 tensor cores, x quantized on its way into shared
+// memory), each with its own activation scale. The attention kernel
+// (slimt_device.cuh, shared with the split encoder's fused SDPA and
+// blockwise attention in attention.cu) runs one block per (batch row,
+// head): each thread holds a query row in registers and streams that
+// head's K and V through shared memory in tiles, with an online softmax,
+// so the scores never reach device memory, which is what the TPU kernel
+// keeps out of HBM. The residual add and LayerNorm are one kernel, one
+// warp per row, with a two-pass mean and variance and 1 / sqrtf like the
+// reference formula.
 //
-// Bounds on the H100: the affines are __dp4a-issue bound (see
-// qmm_affine.cu); the SDPA and LayerNorm kernels are bound by device
-// memory traffic of the [B*T, E] activations, which still round-trip
-// between launches, and the [B*T, F] FFN activation is written and read
-// once. Fusing the layer into one launch is later work.
+// Bounds on the H100: every launch is bound by device memory. The affines
+// write their f32 outputs (the [B*T, F] FFN activation is written and
+// read once), the attention and LayerNorm kernels move the [B*T, E]
+// activations, which round-trip between the nine launches; the int8 and
+// f32 arithmetic is far below its peak. Fusing the layer into fewer
+// launches is later work.
 //
 // Numerics: exact-class against the XLA encoder. Scores, softmax and LN
 // use the same float32 formulas; only the summation order differs.

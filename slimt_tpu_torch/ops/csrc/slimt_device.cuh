@@ -1,11 +1,11 @@
 // Device functions shared by the kernels: the whole decode step and the
 // per-layer step (decoder_step.cu), the SSRU and FFN blocks
 // (fused_blocks.cu), the decode attention over the int16, float and split
-// caches (decode_attn.cu and the steps), and the encoder SDPA of
-// the whole-layer kernel (encoder_layer.cu) and of the split encoder
-// (attention.cu).
+// caches (decode_attn.cu and the steps), and the encoder's attention
+// kernel: the SDPA of the whole-layer kernel (encoder_layer.cu) and the
+// split encoder's fused SDPA and blockwise attention (attention.cu).
 //
-// Every block runs kThreads threads. The int8 products are __dp4a over
+// Every block but the attention kernel's runs kThreads threads. The int8 products are __dp4a over
 // int32 accumulators (exact); the epilogues round the multiply and the
 // add separately (__fmul_rn, __fadd_rn), and q8 is rintf (half to even)
 // clipped to +-127, as in qmm_affine.cu. Each TU gets its own copy (an
@@ -389,92 +389,241 @@ cudaError_t ensure_smem(Kernel kernel, size_t bytes, size_t* cap) {
   return err;
 }
 
-// Multi-head SDPA on joined [batch * t, e] operands, per head h of
-// d = e / heads columns: out_h = softmax((q_h . k_h) * scale + mask) v_h.
-// The whole-encoder-layer kernel (encoder_layer.cu) and the split
-// encoder's fused SDPA (attention.cu) launch it.
-constexpr int kSdpaWarps = 4;
+// Attention of one head over a whole key sequence, in float32 on the CUDA
+// cores, for the encoder's fused SDPA (joined [B*T, E] operands, #8, and
+// inside the whole-layer kernel, #2) and blockwise attention (split [B, H,
+// T, D] operands, #9):
+//
+//   out[b, h, i] = softmax_j((q_i . k_j) * scale + mask[b, j]) v      (rows i < t)
+//
+// Design. A block takes one (batch row, head) and kRows * R query rows; a
+// thread owns R of them, each q row and its output accumulator in
+// registers (read and written with 16-byte accesses). K, V and the mask
+// stream through shared memory in tiles of kTile keys, double-buffered
+// with cp.async (16 bytes a copy, zero-filled past t), so the next tile's
+// loads overlap this tile's arithmetic. Every thread reads the same K or V
+// row at once: a float4 broadcast from shared memory feeds 4 * R
+// multiply-adds, where a load per multiply-add bounded the kernel this
+// replaces. The softmax is online: a running max and sum per row, the
+// accumulator rescaled when the max rises, so the [t, t] scores never leave
+// registers. Scores are (q . k) * scale + mask in that order (no FMA
+// contraction of the scale and the mask) and expf, as in the plain
+// version; a padding row (every key at -99999999) stays finite, and keys
+// past t are excluded.
+//
+// Occupancy on the H100 at D = 32 (32 threads a block, R = 2, 16-key
+// tiles, 8.3 KB of shared memory): 235 registers a thread (ptxas), so 8
+// blocks, 8 warps, an SM; each warp has 8 multiply-adds per broadcast
+// to issue. At B = 512, T = 64 the grid is 4096 blocks, 3.9 waves of 132
+// SMs x 8. At D = 64 (64 threads, R = 1): 217 registers, 4 blocks, 8
+// warps.
 
-// Shared memory: K and V [t, d + 1] (padded against bank conflicts), the
-// row's mask [t], and per warp a query [d] and probabilities [t].
-size_t sdpa_smem_bytes(int t, int d) {
-  return sizeof(float) *
-         (2 * static_cast<size_t>(t) * (d + 1) + t + kSdpaWarps * (d + t));
+// Float offsets of the operands: row i of head h of batch row b starts at
+// b * batch + h * head + i * row.
+struct HeadLayout {
+  long long batch, head, row;
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool copy) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(copy ? 16 : 0));
 }
 
-// grid (heads, batch); q, k, v, out are row-major [batch * t, e].
-__global__ void __launch_bounds__(kSdpaWarps * 32)
-sdpa_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ mask,
-            float* __restrict__ out, int t, int e, int d, float scale) {
-  extern __shared__ float sdpa_buf[];  // named apart from the other kernels' buffers
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int ld = d + 1;
-  float* k_s = sdpa_buf;
-  float* v_s = k_s + t * ld;
-  float* m_s = v_s + t * ld;
-  float* q_s = m_s + t + warp * d;
-  float* p_s = m_s + t + kSdpaWarps * d + warp * t;
-  const long long base = static_cast<long long>(b) * t * e + h * d;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  for (int i = threadIdx.x; i < t * d; i += blockDim.x) {
-    const int r = i / d;
-    const int c = i % d;
-    k_s[r * ld + c] = k[base + static_cast<long long>(r) * e + c];
-    v_s[r * ld + c] = v[base + static_cast<long long>(r) * e + c];
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Keys j0 .. j0 + kTile - 1 of one head into shared memory (zeros past t),
+// as one cp.async group.
+template <int D, int kRows, int kTile>
+__device__ __forceinline__ void attention_stage(const float* k, const float* v,
+                                                const float* mask_row, long long base,
+                                                long long row, int t, int j0, float* k_s,
+                                                float* v_s, float* m_s) {
+  for (int i = threadIdx.x; i < kTile * D / 4; i += kRows) {
+    const int key = i / (D / 4);
+    const bool in = j0 + key < t;
+    const long long off = base + (in ? j0 + key : 0) * row + 4 * (i % (D / 4));
+    cp_async16(k_s + 4 * i, k + off, in);
+    cp_async16(v_s + 4 * i, v + off, in);
   }
-  for (int j = threadIdx.x; j < t; j += blockDim.x) m_s[j] = mask[b * t + j];
-  __syncthreads();
+  for (int j = threadIdx.x; j < kTile; j += kRows)
+    m_s[j] = j0 + j < t ? mask_row[j0 + j] : 0.0f;
+  cp_async_commit();
+}
 
-  for (int qi = warp; qi < t; qi += kSdpaWarps) {
-    const float* q_row = q + base + static_cast<long long>(qi) * e;
-    for (int c = lane; c < d; c += 32) q_s[c] = q_row[c];
-    __syncwarp();
-    float row_max = -INFINITY;
-    for (int j = lane; j < t; j += 32) {
-      float dot = 0.0f;
-      for (int c = 0; c < d; ++c) dot = fmaf(q_s[c], k_s[j * ld + c], dot);
-      const float s = __fadd_rn(__fmul_rn(dot, scale), m_s[j]);
-      p_s[j] = s;
-      row_max = fmaxf(row_max, s);
+// grid (batch * heads, ceil(t / (kRows * R))); mask [batch, t]; q, k, v,
+// out 16-byte aligned with every row start a multiple of 4 floats.
+template <int D, int R, int kRows, int kTile>
+__global__ void __launch_bounds__(kRows)
+attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ mask,
+                 float* __restrict__ out, int t, int heads, HeadLayout lay,
+                 float scale) {
+  static_assert(D % 4 == 0, "rows are read as float4");
+  __shared__ __align__(16) float k_s[2][kTile * D];
+  __shared__ __align__(16) float v_s[2][kTile * D];
+  __shared__ float m_s[2][kTile];
+  const int b = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  const long long base = b * lay.batch + h * lay.head;
+  const float* mask_row = mask + static_cast<long long>(b) * t;
+
+  int rows[R];
+  float qr[R][D];
+  float acc[R][D];
+  float run_max[R];
+  float run_sum[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    rows[r] = blockIdx.y * (kRows * R) + r * kRows + threadIdx.x;
+    const float4* src = reinterpret_cast<const float4*>(q + base + rows[r] * lay.row);
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) {
+      const float4 x = rows[r] < t ? __ldg(src + c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      qr[r][4 * c] = x.x;
+      qr[r][4 * c + 1] = x.y;
+      qr[r][4 * c + 2] = x.z;
+      qr[r][4 * c + 3] = x.w;
     }
-    row_max = warp_max(row_max);
-    float row_sum = 0.0f;
-    for (int j = lane; j < t; j += 32) {
-      const float p = expf(p_s[j] - row_max);
-      p_s[j] = p;
-      row_sum += p;
+#pragma unroll
+    for (int c = 0; c < D; ++c) acc[r][c] = 0.0f;
+    run_max[r] = -INFINITY;
+    run_sum[r] = 0.0f;
+  }
+
+  attention_stage<D, kRows, kTile>(k, v, mask_row, base, lay.row, t, 0, k_s[0], v_s[0], m_s[0]);
+  for (int j0 = 0, tile = 0; j0 < t; j0 += kTile, ++tile) {
+    const int buf = tile & 1;
+    if (j0 + kTile < t) {
+      attention_stage<D, kRows, kTile>(k, v, mask_row, base, lay.row, t, j0 + kTile,
+                                       k_s[buf ^ 1], v_s[buf ^ 1], m_s[buf ^ 1]);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    row_sum = warp_sum(row_sum);
-    for (int j = lane; j < t; j += 32) p_s[j] = p_s[j] / row_sum;
-    __syncwarp();
-    float* o_row = out + base + static_cast<long long>(qi) * e;
-    for (int c = lane; c < d; c += 32) {
-      float o = 0.0f;
-      for (int j = 0; j < t; ++j) o = fmaf(p_s[j], v_s[j * ld + c], o);
-      o_row[c] = o;
+    __syncthreads();
+    const int keys = min(kTile, t - j0);
+    const float4* kt = reinterpret_cast<const float4*>(k_s[buf]);
+    const float4* vt = reinterpret_cast<const float4*>(v_s[buf]);
+    float s[R][kTile];
+    float tile_max[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) tile_max[r] = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) {
+      float dot[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) dot[r] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < D / 4; ++c) {
+        const float4 x = kt[j * (D / 4) + c];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          dot[r] = fmaf(qr[r][4 * c], x.x, dot[r]);
+          dot[r] = fmaf(qr[r][4 * c + 1], x.y, dot[r]);
+          dot[r] = fmaf(qr[r][4 * c + 2], x.z, dot[r]);
+          dot[r] = fmaf(qr[r][4 * c + 3], x.w, dot[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        s[r][j] = j < keys ? __fadd_rn(__fmul_rn(dot[r], scale), m_s[buf][j]) : -INFINITY;
+        tile_max[r] = fmaxf(tile_max[r], s[r][j]);
+      }
     }
-    __syncwarp();
+    // tile_max is finite: a tile holds at least one key.
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float new_max = fmaxf(run_max[r], tile_max[r]);
+      const float alpha = expf(run_max[r] - new_max);  // 0 on the first tile
+      run_sum[r] *= alpha;
+#pragma unroll
+      for (int c = 0; c < D; ++c) acc[r][c] *= alpha;
+      run_max[r] = new_max;
+    }
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) {
+      float p[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        p[r] = expf(s[r][j] - run_max[r]);  // 0 past t
+        run_sum[r] += p[r];
+      }
+#pragma unroll
+      for (int c = 0; c < D / 4; ++c) {
+        const float4 x = vt[j * (D / 4) + c];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          acc[r][4 * c] = fmaf(p[r], x.x, acc[r][4 * c]);
+          acc[r][4 * c + 1] = fmaf(p[r], x.y, acc[r][4 * c + 1]);
+          acc[r][4 * c + 2] = fmaf(p[r], x.z, acc[r][4 * c + 2]);
+          acc[r][4 * c + 3] = fmaf(p[r], x.w, acc[r][4 * c + 3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (rows[r] >= t) continue;
+    float4* dst = reinterpret_cast<float4*>(out + base + rows[r] * lay.row);
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c)
+      dst[c] = make_float4(acc[r][4 * c] / run_sum[r], acc[r][4 * c + 1] / run_sum[r],
+                           acc[r][4 * c + 2] / run_sum[r], acc[r][4 * c + 3] / run_sum[r]);
   }
 }
 
+template <int D, int R, int kRows, int kTile>
+int launch_attention_config(const float* q, const float* k, const float* v,
+                            const float* mask, float* out, int batch, int heads,
+                            int t, HeadLayout lay, float scale,
+                            cudaStream_t stream) {
+  const dim3 grid(batch * heads, (t + kRows * R - 1) / (kRows * R));
+  attention_kernel<D, R, kRows, kTile><<<grid, kRows, 0, stream>>>(
+      q, k, v, mask, out, t, heads, lay, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// attention_kernel for head dim d in {8, 16, 32, 64}. Up to D = 32, 32
+// threads a block with two query rows each and 16-key tiles; at D = 64,
+// where two rows would spill, 64 threads with one row each (the fastest
+// of the configurations timed on the H100 at T 16-256 and at T = 1024).
+// This and launch_sdpa are templates so that only the sources that launch
+// attention compile its kernels.
+template <int = 0>
+int launch_attention(const float* q, const float* k, const float* v,
+                     const float* mask, float* out, int batch, int heads, int t,
+                     int d, HeadLayout lay, float scale, cudaStream_t stream) {
+  switch (d) {
+    case 8: return launch_attention_config<8, 2, 32, 16>(q, k, v, mask, out, batch, heads, t, lay, scale, stream);
+    case 16: return launch_attention_config<16, 2, 32, 16>(q, k, v, mask, out, batch, heads, t, lay, scale, stream);
+    case 32: return launch_attention_config<32, 2, 32, 16>(q, k, v, mask, out, batch, heads, t, lay, scale, stream);
+    case 64: return launch_attention_config<64, 1, 64, 16>(q, k, v, mask, out, batch, heads, t, lay, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Multi-head SDPA on joined [batch * t, e] operands, per head h of d = e /
+// heads columns: out_h = softmax((q_h . k_h) * scale + mask) v_h. The
+// whole-encoder-layer kernel (encoder_layer.cu) and the split encoder's
+// fused SDPA (attention.cu) launch it.
+template <int = 0>
 int launch_sdpa(const float* q, const float* k, const float* v,
                 const float* mask, float* out, int batch, int t, int e,
                 int heads, float scale, cudaStream_t stream) {
   const int d = e / heads;
-  const size_t smem = sdpa_smem_bytes(t, d);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sdpa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  sdpa_kernel<<<dim3(heads, batch), kSdpaWarps * 32, smem, stream>>>(
-      q, k, v, mask, out, t, e, d, scale);
-  return static_cast<int>(cudaGetLastError());
+  const HeadLayout joined{static_cast<long long>(t) * e, d, e};
+  return launch_attention(q, k, v, mask, out, batch, heads, t, d, joined, scale,
+                          stream);
 }
 
 }  // namespace

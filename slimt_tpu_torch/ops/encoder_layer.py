@@ -21,8 +21,9 @@ from slimt_tpu_torch.ops import _build, qmm
 
 LN_EPS = 1e-6
 MAX_T = 256  # the gate of the TPU kernel (transformer.py:500-509)
-SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
-_SDPA_WARPS = 4
+# Head dims of the attention kernel (csrc/slimt_device.cuh) that the SDPA
+# of the layer kernel and the split encoder's kernels launch.
+HEAD_DIMS = (8, 16, 32, 64)
 
 
 def layer_norm(x, scale, bias) -> torch.Tensor:
@@ -38,11 +39,6 @@ def softmax(scores) -> torch.Tensor:
     """jax.nn.softmax's formula: exp(x - max) / sum."""
     unnormalized = torch.exp(scores - scores.amax(-1, keepdim=True))
     return unnormalized / unnormalized.sum(-1, keepdim=True)
-
-
-def sdpa_smem_bytes(t: int, d: int) -> int:
-    """Shared memory of the SDPA kernel (csrc/slimt_device.cuh)."""
-    return 4 * (2 * t * (d + 1) + t + _SDPA_WARPS * (d + t))
 
 
 def sdpa_heads(q, k, v, mask_add):
@@ -94,9 +90,8 @@ def layer_kernel(x, layer, mask_add, num_heads) -> torch.Tensor:
     att, ffn = layer["att"], layer["ffn"]
     f = ffn["w1"]["q"].shape[1]
     d = e // num_heads
-    smem = sdpa_smem_bytes(t, d)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"T={t}, head dim {d}: SDPA needs {smem} B of shared memory")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if not x.is_cuda:
         raise ValueError(f"the kernel takes CUDA tensors, got {x.device}")
     if x.dtype != torch.float32 or not x.is_contiguous():

@@ -233,7 +233,7 @@ FUSED = dataclasses.replace(TINY_TEST_CONFIG, qmm_provider="fused_step")
 def fused_models(request):
     pkg = make_package(config=FUSED, with_shortlist=request.param)
     port_pkg = Package(pkg.model, pkg.vocabulary, pkg.shortlist, pkg.ssplit)
-    return JaxModel(FUSED, pkg), Model(FUSED, port_pkg, "cpu")
+    return JaxModel(FUSED, pkg), Model(FUSED, port_pkg, device="cpu")
 
 
 def test_model_forward_fused_step_matches_jax(fused_models):
@@ -290,7 +290,7 @@ def test_model_fused_step_options_match_jax(change):
     ignores argmax_method; the port does the same."""
     config = dataclasses.replace(FUSED, **change)
     pkg = make_package(config=config)
-    port = Model(config, Package(pkg.model, pkg.vocabulary), "cpu")
+    port = Model(config, Package(pkg.model, pkg.vocabulary), device="cpu")
     want = JaxModel(config, pkg).forward(SEGMENTS, need_alignment=False)
     got = port.forward(SEGMENTS, need_alignment=False)
     assert [h.target for h in got] == [h.target for h in want]
@@ -301,7 +301,7 @@ def test_fused_step_bfloat16_cache_raises():
     serves the whole step's float branch with the JAX Model's tokens."""
     config = dataclasses.replace(FUSED, kv_cache_dtype="bfloat16")
     pkg = make_package(config=config)
-    port = Model(config, Package(pkg.model, pkg.vocabulary), "cpu")
+    port = Model(config, Package(pkg.model, pkg.vocabulary), device="cpu")
     want = JaxModel(config, pkg).forward(SEGMENTS, need_alignment=True)
     got = port.forward(SEGMENTS, need_alignment=True)
     assert [h.target for h in got] == [h.target for h in want]

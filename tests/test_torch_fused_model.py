@@ -31,7 +31,7 @@ FUSED = dataclasses.replace(TINY_TEST_CONFIG, qmm_provider="fused", attn_kernel=
 def fused_models(request):
     pkg = make_package(config=FUSED, with_shortlist=request.param)
     port_pkg = Package(pkg.model, pkg.vocabulary, pkg.shortlist, pkg.ssplit)
-    return JaxModel(FUSED, pkg), Model(FUSED, port_pkg, "cpu")
+    return JaxModel(FUSED, pkg), Model(FUSED, port_pkg, device="cpu")
 
 
 def test_model_forward_fused_matches_jax(fused_models):
@@ -89,7 +89,7 @@ def test_model_argmax_methods_match_jax(method, with_shortlist):
     config = dataclasses.replace(TINY_TEST_CONFIG, argmax_method=method)
     pkg = make_package(config=config, with_shortlist=with_shortlist)
     jax_model = JaxModel(config, pkg)
-    port = Model(config, Package(pkg.model, pkg.vocabulary, pkg.shortlist), "cpu")
+    port = Model(config, Package(pkg.model, pkg.vocabulary, pkg.shortlist), device="cpu")
     want = jax_model.forward(SEGMENTS, need_alignment=False)
     got = port.forward(SEGMENTS, need_alignment=False)
     assert [h.target for h in got] == [h.target for h in want]
@@ -105,4 +105,4 @@ def test_attn_kernel_resolution_on_the_cpu(mode, want):
     """"auto" means on for the port's accelerator (CUDA) only."""
     config = dataclasses.replace(TINY_TEST_CONFIG, attn_kernel=mode)
     pkg = make_package()
-    assert Model(config, Package(pkg.model, pkg.vocabulary), "cpu")._attn_kernel() is want
+    assert Model(config, Package(pkg.model, pkg.vocabulary), device="cpu")._attn_kernel() is want

@@ -427,3 +427,88 @@ def test_whole_step_float_cache_kernel_matches_plain(card, dtype, b, t):
     _row_rule(f"whole step {dtype} B={b} T={t}", row_err,
               (attn0 - want_attn0).abs().amax(-1), real)
     assert float((choice == want_choice).float().mean()) >= 0.99
+
+
+# The affine's tilings (csrc/qmm_affine.cu): split K at M <= 64, 64 x 64
+# and 128 x 128 tensor-core tiles above, ragged M, N and K, and the
+# gathered layouts (K, N not multiples of 16).
+AFFINE_EDGE_M = (1, 15, 16, 17, 63, 64, 65, 129, 4096)
+AFFINE_EDGE_KN = ((256, 256), (256, 1536), (1536, 256), (100, 72), (1000, 40))
+
+
+@pytest.mark.parametrize("k,n", AFFINE_EDGE_KN)
+@pytest.mark.parametrize("m", AFFINE_EDGE_M)
+def test_affine_kernel_tilings_bit_equal(card, m, k, n):
+    rng = np.random.default_rng(m * 7919 + k * 31 + n)
+    x = torch.from_numpy((rng.standard_normal((m, k)) * 2).astype(np.float32)).to(card)
+    w = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(card)
+    b = torch.from_numpy((rng.standard_normal(n) * 0.05).astype(np.float32)).to(card)
+    aq, inv = np.float32(20.0), np.float32(1) / np.float32(20.0 * 93.0)
+    for mode in (qmm.AFFINE, qmm.AFFINE_RELU, qmm.ACCUMULATOR):
+        got = qmm.affine_kernel(x, w, b, aq, inv, mode)
+        assert torch.equal(got, qmm.affine_plain(x, w, b, aq, inv, mode)), mode
+
+
+@pytest.mark.parametrize("m", [1, 64, 512])
+def test_affine_kernel_projection_tilings_bit_equal(card, m):
+    """The tied projection at V=32000: W is the [V, E] embedding's
+    transpose (K-contiguous), read without a copy."""
+    rng = np.random.default_rng(m)
+    emb = torch.from_numpy(rng.integers(-127, 128, (32000, 256)).astype(np.int8)).to(card)
+    x = torch.from_numpy((rng.standard_normal((m, 256)) * 2).astype(np.float32)).to(card)
+    got = qmm.affine_kernel(x, emb.T, None, 20.0, 1.0, qmm.ACCUMULATOR)
+    assert torch.equal(got, qmm.affine_plain(x, emb.T, None, 20.0, 1.0, qmm.ACCUMULATOR))
+
+
+@pytest.mark.parametrize("b", [1, 33])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("t", [1, 17, 64, 100, 256])
+def test_fused_sdpa_kernel_edges(card, t, d, b):
+    """Ragged key tiles and query blocks, both head dims, a padding row
+    at B=33: within 2e-5 on the real rows, PAD_TOL on all."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(t * 100 + d + b)
+    e = 8 * d
+    q, k, v = (torch.randn((b, t, e), device=card, generator=gen) for _ in range(3))
+    mask_add, real = _padded_mask(card, b, t)
+    got = attention.fused_sdpa_kernel(q, k, v, mask_add, 8)
+    want = enc.sdpa_plain(q, k, v, mask_add, 8)
+    torch.cuda.synchronize()
+    assert float((got[real] - want[real]).abs().max()) <= 2e-5
+    assert float((got - want).abs().max()) <= PAD_TOL  # also catches NaN
+
+
+def test_forward_async_returns_before_the_batch_completes(card, monkeypatch):
+    """At B=512 T=64 forward_async returns before the event the dispatch
+    worker sets once the batch's decode has completed on the card, and
+    the tokens equal a blocking forward's."""
+    import threading
+
+    from slimt_tpu_torch import Model, Package
+    from slimt_tpu_torch.models import model as model_module
+    from slimt_tpu_torch.text import spm_proto
+    from slimt_tpu_torch.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
+
+    config = ModelConfig(encoder_layers=2, decoder_layers=2, num_heads=8)
+    spm = build_spm_model(DEFAULT_WORDS, target_size=512)
+    model = Model(config, Package(
+        synthetic_model_bytes(config=config, vocab_size=len(spm.pieces), emb_dim=256,
+                              ffn_dim=1536, seed=0),
+        spm_proto.serialize_model(spm)))
+    segments = [[3 + (i + j) % 400 for j in range(63)] + [model.vocabulary.eos_id]
+                for i in range(512)]
+    want = [h.target for h in model.forward(segments, need_alignment=False)]
+    done = threading.Event()
+    real = model_module.translate_batch
+
+    def marking(*args, **kwargs):
+        result = real(*args, **kwargs)
+        torch.cuda.current_stream().synchronize()
+        done.set()
+        return result
+
+    monkeypatch.setattr(model_module, "translate_batch", marking)
+    finish = model.forward_async(segments, need_alignment=False)
+    assert not done.is_set()
+    assert [h.target for h in finish()] == want
+    assert done.is_set()

@@ -252,7 +252,7 @@ def kv_models(request):
         config = dataclasses.replace(config, qmm_provider=provider)
     pkg = make_package(config=config, with_shortlist=True)
     port_pkg = Package(pkg.model, pkg.vocabulary, pkg.shortlist, pkg.ssplit)
-    return JaxModel(config, pkg), Model(config, port_pkg, "cpu")
+    return JaxModel(config, pkg), Model(config, port_pkg, device="cpu")
 
 
 def test_model_kv_cache_matches_jax(kv_models):

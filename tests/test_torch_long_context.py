@@ -100,7 +100,7 @@ def test_model_short_input_fused_sdpa_matches_jax():
     config = dataclasses.replace(
         TINY_TEST_CONFIG, encoder_layer_kernel="off", encoder_sdpa="on")
     pkg = make_package(config=config, emb_dim=128, ffn_dim=256)
-    port = Model(config, Package(pkg.model, pkg.vocabulary), "cpu")
+    port = Model(config, Package(pkg.model, pkg.vocabulary), device="cpu")
     segments = [[5, 9, 4, 0], [3, 8, 6, 2, 11, 12, 0]]
     want = JaxModel(config, pkg).forward(segments, need_alignment=False)
     got = port.forward(segments, need_alignment=False)
@@ -112,7 +112,7 @@ def test_blocking_serves_long_lines(prefer_bulk):
     """The port's own Blocking with a 512-token wrap: lines of some 300
     tokens serve on both lanes with the JAX service's text."""
     pkg = make_package()
-    port = Model(TINY_TEST_CONFIG, Package(pkg.model, pkg.vocabulary), "cpu", **CAP)
+    port = Model(TINY_TEST_CONFIG, Package(pkg.model, pkg.vocabulary), device="cpu", **CAP)
     rng = np.random.default_rng(prefer_bulk)
     lines = [" ".join(rng.choice(DEFAULT_WORDS, n)) for n in (300, 12)]
     with JaxBlocking(Config(wrap_length=512, max_words=1024,

@@ -32,7 +32,7 @@ def _pair(with_shortlist):
     config = dataclasses.replace(TINY_TEST_CONFIG)
     pkg = make_package(config=config, with_shortlist=with_shortlist)
     port_pkg = Package(pkg.model, pkg.vocabulary, pkg.shortlist, pkg.ssplit)
-    return JaxModel(config, pkg), Model(config, port_pkg, "cpu")
+    return JaxModel(config, pkg), Model(config, port_pkg, device="cpu")
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["full", "shortlist"])
@@ -101,7 +101,7 @@ def test_cuda_without_card_raises():
         pytest.skip("a card is present")
     pkg = make_package()
     with pytest.raises(RuntimeError, match="cuda"):
-        Model(TINY_TEST_CONFIG, Package(pkg.model, pkg.vocabulary), "cuda")
+        Model(TINY_TEST_CONFIG, Package(pkg.model, pkg.vocabulary), device="cuda")
 
 
 def test_default_device_is_the_card():
@@ -114,7 +114,7 @@ def test_default_device_is_the_card():
         return
     with pytest.raises(RuntimeError, match="cuda"):
         Model(TINY_TEST_CONFIG, package)
-    assert Model(TINY_TEST_CONFIG, package, "cpu").device.type == "cpu"
+    assert Model(TINY_TEST_CONFIG, package, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize(
@@ -138,9 +138,9 @@ def test_unported_config_raises(change):
     pkg = make_package()
     if "encoder_dtype" in change or change.get("qmm_provider") == "f32":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(config, Package(pkg.model, pkg.vocabulary), "cpu")
+            Model(config, Package(pkg.model, pkg.vocabulary), device="cpu")
         return
-    port = Model(config, Package(pkg.model, pkg.vocabulary), "cpu")
+    port = Model(config, Package(pkg.model, pkg.vocabulary), device="cpu")
     want = JaxModel(config, pkg).forward(SEGMENTS, need_alignment=False)
     assert [h.target for h in port.forward(SEGMENTS, need_alignment=False)] == [
         h.target for h in want]
@@ -155,7 +155,7 @@ def test_unported_config_raises(change):
 def test_encoder_config_values_pass(change):
     config = dataclasses.replace(TINY_TEST_CONFIG, **change)
     pkg = make_package()
-    Model(config, Package(pkg.model, pkg.vocabulary), "cpu")
+    Model(config, Package(pkg.model, pkg.vocabulary), device="cpu")
 
 
 def test_long_input_raises():
@@ -163,7 +163,7 @@ def test_long_input_raises():
     now serves, past the wrap regime, with the JAX Model's tokens."""
     pkg = make_package()
     cap = dict(tgt_length_limit_factor=0.1)  # 27 decode steps at T=272
-    port = Model(TINY_TEST_CONFIG, Package(pkg.model, pkg.vocabulary), "cpu", **cap)
+    port = Model(TINY_TEST_CONFIG, Package(pkg.model, pkg.vocabulary), device="cpu", **cap)
     segments = [[5 + i % 40 for i in range(260)] + [0], [7, 3, 0]]
     want = JaxModel(TINY_TEST_CONFIG, pkg, **cap).forward(segments, need_alignment=False)
     got = port.forward(segments, need_alignment=False)
@@ -175,9 +175,9 @@ def test_plain_transport_and_warmup_match_compact():
     pkg = make_package()
     plain = Model(
         dataclasses.replace(TINY_TEST_CONFIG, compact_transfer=False),
-        Package(pkg.model, pkg.vocabulary), "cpu",
+        Package(pkg.model, pkg.vocabulary), device="cpu",
     )
-    compact = Model(TINY_TEST_CONFIG, Package(pkg.model, pkg.vocabulary), "cpu")
+    compact = Model(TINY_TEST_CONFIG, Package(pkg.model, pkg.vocabulary), device="cpu")
     assert [h.target for h in plain.forward(SEGMENTS)] == [
         h.target for h in compact.forward(SEGMENTS)
     ]
@@ -190,7 +190,7 @@ def test_native_checkpoint_raises():
     pkg = make_package()
     blob = convert_marian(pkg.model, TINY_TEST_CONFIG)
     with pytest.raises(NotImplementedError, match="checkpoint"):
-        Model(TINY_TEST_CONFIG, Package(blob, pkg.vocabulary), "cpu")
+        Model(TINY_TEST_CONFIG, Package(blob, pkg.vocabulary), device="cpu")
 
 
 def test_import_loads_neither_jax_nor_regex():
@@ -235,7 +235,7 @@ def test_import_loads_neither_jax_nor_regex():
         model = Model(config, Package(
             synthetic_model_bytes(config=config, vocab_size=len(spm.pieces),
                                   emb_dim=32, ffn_dim=64, seed=0),
-            spm_proto.serialize_model(spm)), "cpu")
+            spm_proto.serialize_model(spm)), device="cpu")
         for prefer_bulk in (False, True):
             with Blocking(Config(prefer_bulk=prefer_bulk)) as service:
                 responses = service.translate(model, ["hello world", "a b c"])
