@@ -40,9 +40,14 @@ without printing a result:
              1024), tiny and base widths: >= 99% of rows within 2e-5 on
              the states and 1e-6 on the head-0 attention of a real row
              (padding rows 1e-4), every row within 0.25, the whole step's
-             choices equal on >= 99.9% of rows; times beside the plain
-             versions' (and, for the two attention kernels, one
-             scaled_dot_product_attention call's), each with its bound;
+             choices equal on >= 99.9% of rows; the whole step, #10,
+             #11 and the FFN block on the chooser's thread-block cluster
+             layout and on one block a row tile (cs=1), each against the
+             plain version and the first bit-equal to the second; times
+             beside the plain versions' (and, for the two attention
+             kernels, one scaled_dot_product_attention call's), each with
+             its bound and a device time from a CUDA graph replay, the
+             two layouts timed in turns (new, one, one, new);
 4. serve   — a tiny11-width model (32k vocab, emb 256, ffn 1536, 6+2
              layers, 8 heads; random weights from seed 0) answers
              request batches of text through Model.forward_async,
@@ -93,9 +98,20 @@ without printing a result:
 
 The second-to-last line is the kernels' JSON record (eleven kernels;
 launches from the serving paths, but for #10 and #11, which no serving
-path reaches: theirs are the kernels phase's; qmm_affine also lists its
+path reaches: theirs are the kernels phase's; graph_ms, the device ms a
+call from a CUDA graph; cs1_ms and cs1_graph_ms, the times on one block
+a row tile, for the kernels on a cluster; qmm_affine also lists its
 times at the six timed shapes under "shapes"), the last line {"ok":
 true, "device": {...}}.
+
+`python3 chip_smoke.py --layouts OUT` runs no check: it times #7 (the
+whole step, T=64, full vocabulary), #5 (the FFN block) and #10 (split
+float32 cache, T=64) at B in LAYOUT_BATCHES, tiny widths, on the
+`slimt_tpu_torch` package beside the script, with the wrapper's own
+layout and, where the package can force one, on every cluster size the
+card schedules: CUDA-event ms and the median of three graph replays,
+written as one JSON object to OUT. A copy of the script beside another
+tree's package times that tree; run both in one call, in turns.
 """
 
 from __future__ import annotations
@@ -375,11 +391,12 @@ def check_layer(torch, enc, dev, load_host, params_from_numpy):
             x = torch.randn((b, t, emb), device=dev)
             mask_add = torch.zeros((b, 1, 1, t), device=dev)
             kernel = cuda_ms(torch, lambda: enc.layer_kernel(x, layer, mask_add, HEADS), 10)
+            graph = graph_ms(torch, lambda: enc.layer_kernel(x, layer, mask_add, HEADS), 5)
             plain = cuda_ms(torch, lambda: enc.layer_plain(x, layer, mask_add, HEADS), 10)
             log(f"time encoder layer E={emb} F={ffn} B={b} T={t}: kernel "
-                f"{kernel:.4f} ms, plain {plain:.4f} ms")
+                f"{kernel:.4f} ms ({graph:.4f} ms in a CUDA graph), plain {plain:.4f} ms")
             if (emb, b) == (EMB, 512):
-                timing = (kernel, plain)
+                timing = {"ms": kernel, "plain_ms": plain, "graph_ms": graph}
     log(f"encoder layer: {within}/{positions} positions within {LAYER_TOL} "
         f"({within / positions:.6f}), max |diff| {worst:.3g}")
     if within / positions < AGREEMENT_MIN:
@@ -433,13 +450,15 @@ def logit_gap(qmm, y, args, choice, want) -> float:
 
 
 def check_step(torch, dstep, lam, tfm, qmm, dev, load_host, params_from_numpy):
-    """Whole step vs plain at tiny and base widths: states and attn0 within
-    STEP_TOL, >= 99% of choices equal, the projection stage bit-equal
-    given the same rows; a tie across vocab tiles; times."""
+    """Whole step vs plain at tiny and base widths, on the chooser's
+    cluster layout and on one block a row tile (cs=1): states and attn0
+    within STEP_TOL, >= 99% of choices equal, the projection stage
+    bit-equal given the same rows; the cluster layout bit-equal to cs=1;
+    a tie across vocab tiles; times of both layouts."""
     worst = 0.0
     rows = same = within = 0
     worst_gap = 0.0
-    cases = 0
+    cases = exact = 0
     tiny = None
     for emb, ffn in ((EMB, FFN), (512, 2048)):
         params = params_from_numpy(load_host(emb, ffn, 1, DEC, vocab=VOCAB), dev)
@@ -455,6 +474,7 @@ def check_step(torch, dstep, lam, tfm, qmm, dev, load_host, params_from_numpy):
         for b, t, width in shapes:
             args = step_case(torch, tfm, params, gen, b, t, width)
             choice, states, attn0 = dstep.whole_step_kernel(*args)
+            one = dstep.whole_step_kernel(*args, _cluster=1)
             y, want_states, want_attn0 = dstep.layers_plain(*args[:6])
             want = dstep.argmax_affine_plain(y, *args[6], args[7], args[8])
             stage = dstep.argmax_affine_kernel(y, *args[6], args[7], args[8])
@@ -462,9 +482,16 @@ def check_step(torch, dstep, lam, tfm, qmm, dev, load_host, params_from_numpy):
             label = f"whole step E={emb} F={ffn} B={b} T={t} S={width or VOCAB}"
             if not all(bool(torch.isfinite(s).all()) for s in states + (attn0,)):
                 raise RuntimeError(f"{label}: non-finite output")
-            row_err = (attn0 - want_attn0).abs().amax(-1)
-            for got, ref in zip(states, want_states):
-                row_err = torch.maximum(row_err, (got - ref).abs().amax((1, 2)))
+            if not bit_equal((choice, *states, attn0), (one[0], *one[1], one[2])):
+                raise RuntimeError(f"{label}: the cluster layout is not bit-equal to cs=1")
+            exact += 1
+            errs = []
+            for got_states, got_attn0 in ((states, attn0), one[1:]):
+                row_err = (got_attn0 - want_attn0).abs().amax(-1)
+                for got, ref in zip(got_states, want_states):
+                    row_err = torch.maximum(row_err, (got - ref).abs().amax((1, 2)))
+                errs.append(row_err)
+            row_err = torch.maximum(*errs)
             err = float(row_err.max())
             worst = max(worst, err)
             beyond = int((row_err > STEP_TOL).sum())
@@ -483,7 +510,8 @@ def check_step(torch, dstep, lam, tfm, qmm, dev, load_host, params_from_numpy):
     log(f"whole step: {cases} cases; states and attn0 within {STEP_TOL} on "
         f"{within}/{rows} rows ({within / rows:.6f}), max |diff| {worst:.3g}; "
         f"choices equal on {same}/{rows} rows ({share:.6f}), largest logit gap "
-        f"where they differ {worst_gap:.3g}; projection stage bit-equal")
+        f"where they differ {worst_gap:.3g}; projection stage bit-equal; the cluster "
+        f"layout bit-equal to cs=1 on {exact}/{cases} cases")
     if within / rows < AGREEMENT_MIN or share < AGREEMENT_MIN:
         raise RuntimeError(f"whole step: rows within {STEP_TOL} {within / rows}, "
                            f"choices equal {share}; both must be >= {AGREEMENT_MIN}")
@@ -519,23 +547,44 @@ def check_tie(torch, lam, tfm, params):
         f"(full, shortlist; {', '.join(lam.METHODS)})")
 
 
+def layouts_in_turns(torch, name, new, one):
+    """CUDA-event and CUDA-graph ms a call of the cluster layout (`new`)
+    and of one block a row tile (`one`), timed new, one, one, new on one
+    card; the means of each pair."""
+    times = {"new": [], "one": []}
+    for key, fn in (("new", new), ("one", one), ("one", one), ("new", new)):
+        times[key].append((cuda_ms(torch, fn, 50), graph_ms(torch, fn)))
+    (ms, graph), (one_ms, one_graph) = (
+        tuple(statistics.fmean(t[i] for t in times[key]) for i in (0, 1))
+        for key in ("new", "one"))
+    log(f"time {name}: cluster layout {ms:.4f} ms ({graph:.4f} ms in a CUDA graph), "
+        f"one block a tile {one_ms:.4f} ms ({one_graph:.4f} ms in a CUDA graph); "
+        f"in turns new/one/one/new: {[round(t[0], 4) for t in times['new']]} / "
+        f"{[round(t[0], 4) for t in times['one']]}")
+    return {"ms": ms, "graph_ms": graph, "cs1_ms": one_ms, "cs1_graph_ms": one_graph}
+
+
 def time_step(torch, dstep, tfm, params):
-    """Kernel (with its per-batch plan) vs plain, CUDA events, T=64,
-    tiny widths. Returns the B=1 full-vocab pair."""
+    """Kernel (with its per-batch plan) on both layouts, in turns, vs
+    plain, T=64, tiny widths. Returns the B=1 full-vocab times."""
     gen = torch.Generator(device=params["emb"]["q"].device)
     gen.manual_seed(1)
     timing = None
     for width in (0, 1024):
         for b in (1, 8, 64):
             args = step_case(torch, tfm, params, gen, b, 64, width)
-            plan = dstep.StepPlan(args[0], args[4], args[3], HEADS, args[6],
-                                  args[7], args[8])
-            kernel = cuda_ms(torch, lambda: dstep.whole_step_kernel(*args, plan=plan), 50)
-            plain = cuda_ms(torch, lambda: dstep.whole_step_plain(*args), 20)
-            log(f"time whole step E={EMB} F={FFN} B={b} T=64 S={width or VOCAB}: "
-                f"kernel {kernel:.4f} ms, plain {plain:.4f} ms")
+            plans = [dstep.StepPlan(args[0], args[4], args[3], HEADS, args[6], args[7],
+                                    args[8], _cluster=cluster) for cluster in (None, 1)]
+            times = layouts_in_turns(
+                torch, f"whole step E={EMB} F={FFN} B={b} T=64 S={width or VOCAB} "
+                f"(cs={plans[0].cs}, {plans[0].rows} rows a tile)",
+                lambda: dstep.whole_step_kernel(*args, plan=plans[0]),
+                lambda: dstep.whole_step_kernel(*args, plan=plans[1]))
+            times["plain_ms"] = cuda_ms(torch, lambda: dstep.whole_step_plain(*args), 20)
+            log(f"time whole step E={EMB} F={FFN} B={b} T=64 S={width or VOCAB}: plain "
+                f"{times['plain_ms']:.4f} ms")
             if (b, width) == (1, 0):
-                timing = (kernel, plain)
+                timing = times
     return timing
 
 
@@ -597,6 +646,7 @@ def check_layer_steps(torch, dstep, dev, load_host, params_from_numpy):
     shares = {name: RowShare(name) for name in kinds}
     gen = torch.Generator(device=dev)
     gen.manual_seed(10)
+    exact = 0
 
     def case(layer, emb, b, t, dtype, split):
         x = torch.randn((b, 1, emb), device=dev, generator=gen) * 2.0
@@ -614,8 +664,13 @@ def check_layer_steps(torch, dstep, dev, load_host, params_from_numpy):
                     for t in (16, 64, 1024):
                         args, real = case(layer, emb, b, t, dtype, split)
                         y, c_t, attn0 = kernel(*args)
+                        one = kernel(*args, _cluster=1)
                         want_y, want_c, want_attn0 = plain(*args)
                         torch.cuda.synchronize()
+                        if not bit_equal((y, c_t, attn0), one):
+                            raise RuntimeError(f"{name} E={emb} {dtype} B={b} T={t}: the "
+                                               "cluster layout is not bit-equal to cs=1")
+                        exact += 1
                         state_err = torch.maximum((y - want_y).abs().amax((1, 2)),
                                                   (c_t - want_c).abs().amax((1, 2)))
                         shares[name].add(f"{name} E={emb} {dtype} B={b} T={t}", state_err,
@@ -623,18 +678,20 @@ def check_layer_steps(torch, dstep, dev, load_host, params_from_numpy):
     launched = {name: kernel.launches for name, (_, kernel, _) in kinds.items()}
     for share in shares.values():
         share.finish()
+    log(f"layer steps: the cluster layout bit-equal to cs=1 on {exact} cases")
     layer = params_from_numpy(load_host(EMB, FFN, 1, 1), dev)["decoder"][0]
     timing = {}
     for name, (split, kernel, plain) in kinds.items():
         for b in (64, 512):
             args, _ = case(layer, EMB, b, 64, "float32", split)
-            pair = (cuda_ms(torch, lambda: kernel(*args), 20),
-                    cuda_ms(torch, lambda: plain(*args), 10))
+            times = layouts_in_turns(torch, f"{name} E={EMB} F={FFN} B={b} T=64 float32 cache",
+                                     lambda: kernel(*args), lambda: kernel(*args, _cluster=1))
+            times["plain_ms"] = cuda_ms(torch, lambda: plain(*args), 10)
             bound_ms, by = layer_step_bound(b, 64, EMB, FFN)
-            log(f"time {name} E={EMB} F={FFN} B={b} T=64 float32 cache: kernel "
-                f"{pair[0]:.4f} ms, plain {pair[1]:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+            log(f"time {name} E={EMB} F={FFN} B={b} T=64 float32 cache: plain "
+                f"{times['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({by})")
             if b == 64:
-                timing[name] = pair
+                timing[name] = times
     return launched, {name: share.worst for name, share in shares.items()}, timing
 
 
@@ -646,7 +703,7 @@ def check_step_float(torch, dstep, tfm, dev, widths):
     the rows. Returns the worst error and, per cache type, the (kernel,
     plain) ms at B=1, T=64, full vocabulary (tiny widths)."""
     share = RowShare("whole step, float caches")
-    rows = same = 0
+    rows = same = exact = 0
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     for params in widths:
@@ -657,8 +714,13 @@ def check_step_float(torch, dstep, tfm, dev, widths):
             for b, t, width in shapes:
                 args = float_step_case(torch, tfm, params, gen, b, t, width, dtype)
                 choice, states, attn0 = dstep.whole_step_kernel(*args)
+                one = dstep.whole_step_kernel(*args, _cluster=1)
                 want, want_states, want_attn0 = dstep.whole_step_plain(*args)
                 torch.cuda.synchronize()
+                if not bit_equal((choice, *states, attn0), (one[0], *one[1], one[2])):
+                    raise RuntimeError(f"whole step E={emb} {dtype} B={b} T={t}: the "
+                                       "cluster layout is not bit-equal to cs=1")
+                exact += 1
                 state_err = torch.zeros((b,), device=dev)
                 for got, ref in zip(states, want_states):
                     state_err = torch.maximum(state_err, (got - ref).abs().amax((1, 2)))
@@ -669,7 +731,7 @@ def check_step_float(torch, dstep, tfm, dev, widths):
                 same += int((choice == want).sum())
     share.finish()
     log(f"whole step, float caches: choices equal on {same}/{rows} rows "
-        f"({same / rows:.6f})")
+        f"({same / rows:.6f}); the cluster layout bit-equal to cs=1 on {exact} cases")
     if same / rows < CHOICE_MIN:
         raise RuntimeError(f"whole step, float caches: choices equal {same / rows} "
                            f"< {CHOICE_MIN}")
@@ -678,11 +740,12 @@ def check_step_float(torch, dstep, tfm, dev, widths):
         args = float_step_case(torch, tfm, widths[0], gen, 1, 64, 0, dtype)
         plan = dstep.StepPlan(args[0], args[4], args[3], HEADS, args[6], args[7], args[8])
         timing[dtype] = (cuda_ms(torch, lambda: dstep.whole_step_kernel(*args, plan=plan), 50),
-                         cuda_ms(torch, lambda: dstep.whole_step_plain(*args), 20))
+                         cuda_ms(torch, lambda: dstep.whole_step_plain(*args), 20),
+                         graph_ms(torch, lambda: dstep.whole_step_kernel(*args, plan=plan)))
         bound_ms, by = step_bound(1, 64, EMB, FFN, DEC, VOCAB, dtype)
-        log(f"time whole step E={EMB} F={FFN} B=1 T=64 S={VOCAB} {dtype} cache: kernel "
-            f"{timing[dtype][0]:.4f} ms, plain {timing[dtype][1]:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({by})")
+        log(f"time whole step E={EMB} F={FFN} B=1 T=64 S={VOCAB} {dtype} cache "
+            f"(cs={plan.cs}): kernel {timing[dtype][0]:.4f} ms ({timing[dtype][2]:.4f} ms "
+            f"in a CUDA graph), plain {timing[dtype][1]:.4f} ms, bound {bound_ms:.4f} ms ({by})")
     return share.worst, timing
 
 
@@ -696,6 +759,11 @@ def float_step_case(torch, tfm, params, gen, b, t, width, dtype):
                     "v": float_cache(torch, gen, (b, t, e), dtype),
                     "kqi": one, "vqi": one} for _ in args[0])
     return args[:4] + (caches,) + args[5:]
+
+
+def bit_equal(got, want) -> bool:
+    """Every tensor of `got` equal to its pair in `want`, bit for bit."""
+    return all(a.equal(b) for a, b in zip(got, want, strict=True))
 
 
 def rows_check(label, row_err, tol, bound):
@@ -713,11 +781,14 @@ def rows_check(label, row_err, tol, bound):
 
 def check_blocks(torch, fblocks, dev, load_host, params_from_numpy):
     """SSRU and FFN blocks vs plain at tiny and base widths: >= 99% of
-    rows within STEP_TOL, every row within FLIP_BOUND; times at T=1 rows
-    (decode), B in {1, 64, 512}."""
+    rows within STEP_TOL, every row within FLIP_BOUND, the FFN block on the
+    chooser's cluster layout and on one block a row tile (cs=1), the
+    first bit-equal to the second; times at T=1 rows (decode), B in {1,
+    64, 512}, the FFN block's two layouts in turns."""
     worst = {"ssru_block": 0.0, "ffn_block": 0.0}
     rows = {"ssru_block": [0, 0], "ffn_block": [0, 0]}
     timing = {}
+    exact = 0
     for emb, ffn in ((EMB, FFN), (512, 2048)):
         layers = params_from_numpy(load_host(emb, ffn, 1, DEC), dev)["decoder"]
         gen = torch.Generator(device=dev)
@@ -729,13 +800,19 @@ def check_blocks(torch, fblocks, dev, load_host, params_from_numpy):
                 h, c_t = fblocks.ssru_kernel(x, c, layer["rnn"])
                 want_h, want_c = fblocks.ssru_plain(x, c, layer["rnn"])
                 y = fblocks.ffn_kernel(x, layer["ffn"])
+                y_one = fblocks.ffn_kernel(x, layer["ffn"], _cluster=1)
                 want_y = fblocks.ffn_plain(x, layer["ffn"])
                 torch.cuda.synchronize()
                 label = f"E={emb} F={ffn} B={b}"
+                if not torch.equal(y, y_one):
+                    raise RuntimeError(f"ffn_block {label}: the cluster layout is not "
+                                       "bit-equal to cs=1")
+                exact += 1
                 for name, err in (
                     ("ssru_block", torch.maximum((h - want_h).abs().amax(-1),
                                                  (c_t - want_c).abs().amax(-1))),
-                    ("ffn_block", (y - want_y).abs().amax(-1)),
+                    ("ffn_block", torch.maximum((y - want_y).abs().amax(-1),
+                                                (y_one - want_y).abs().amax(-1))),
                 ):
                     n, within, e = rows_check(f"{name} {label}", err, STEP_TOL, FLIP_BOUND)
                     rows[name][0] += n
@@ -745,17 +822,25 @@ def check_blocks(torch, fblocks, dev, load_host, params_from_numpy):
         for b in (1, 64, 512):
             x = torch.randn((b, emb), device=dev, generator=gen)
             c = torch.randn((b, emb), device=dev, generator=gen)
-            for name, kernel, plain in (
-                ("ssru_block", lambda: fblocks.ssru_kernel(x, c, layer["rnn"]),
-                 lambda: fblocks.ssru_plain(x, c, layer["rnn"])),
-                ("ffn_block", lambda: fblocks.ffn_kernel(x, layer["ffn"]),
-                 lambda: fblocks.ffn_plain(x, layer["ffn"])),
-            ):
-                pair = (cuda_ms(torch, kernel, 50), cuda_ms(torch, plain, 20))
-                log(f"time {name} E={emb} F={ffn} B={b}: kernel {pair[0]:.4f} ms, "
-                    f"plain {pair[1]:.4f} ms")
-                if (emb, b) == (EMB, 64):
-                    timing[name] = pair
+            ssru = {"ms": cuda_ms(torch, lambda: fblocks.ssru_kernel(x, c, layer["rnn"]), 50),
+                    "graph_ms": graph_ms(torch, lambda: fblocks.ssru_kernel(x, c, layer["rnn"])),
+                    "plain_ms": cuda_ms(torch, lambda: fblocks.ssru_plain(x, c, layer["rnn"]),
+                                        20)}
+            log(f"time ssru_block E={emb} F={ffn} B={b}: kernel {ssru['ms']:.4f} ms "
+                f"({ssru['graph_ms']:.4f} ms in a CUDA graph), plain {ssru['plain_ms']:.4f} ms")
+            cs = fblocks.ffn_layout(b, emb, ffn, dev.index)[0]
+            ffn_times = layouts_in_turns(
+                torch, f"ffn_block E={emb} F={ffn} B={b} (cs={cs})",
+                lambda: fblocks.ffn_kernel(x, layer["ffn"]),
+                lambda: fblocks.ffn_kernel(x, layer["ffn"], _cluster=1))
+            ffn_times["plain_ms"] = cuda_ms(torch, lambda: fblocks.ffn_plain(x, layer["ffn"]), 20)
+            log(f"time ffn_block E={emb} F={ffn} B={b}: plain {ffn_times['plain_ms']:.4f} ms")
+            if emb == EMB:
+                timing[f"ffn_block B={b}"] = ffn_times
+            if (emb, b) == (EMB, 64):
+                timing["ssru_block"] = ssru
+                timing["ffn_block"] = ffn_times
+    log(f"ffn_block: the cluster layout bit-equal to cs=1 on {exact} cases")
     for name, (n, within) in rows.items():
         log(f"{name}: {within}/{n} rows within {STEP_TOL} ({within / n:.6f}), "
             f"max |diff| {worst[name]:.3g}")
@@ -805,12 +890,13 @@ def check_attention(torch, dattn, dev):
     log(f"decode attention: {cases} cases within {ATTN_TOL}, max |diff| {worst:.3g}")
     for b in (1, 64, 512):
         args = case(b, 64, EMB)
-        pair = (cuda_ms(torch, lambda: dattn.decode_attention_kernel(*args, HEADS), 50),
-                cuda_ms(torch, lambda: dattn.attention_plain(*args, HEADS), 20))
-        log(f"time decode attention E={EMB} B={b} T=64: kernel {pair[0]:.4f} ms, "
-            f"plain {pair[1]:.4f} ms")
+        times = {"ms": cuda_ms(torch, lambda: dattn.decode_attention_kernel(*args, HEADS), 50),
+                 "graph_ms": graph_ms(torch, lambda: dattn.decode_attention_kernel(*args, HEADS)),
+                 "plain_ms": cuda_ms(torch, lambda: dattn.attention_plain(*args, HEADS), 20)}
+        log(f"time decode attention E={EMB} B={b} T=64: kernel {times['ms']:.4f} ms "
+            f"({times['graph_ms']:.4f} ms in a CUDA graph), plain {times['plain_ms']:.4f} ms")
         if b == 64:
-            timing = pair
+            timing = times
     return worst, timing
 
 
@@ -854,12 +940,16 @@ def check_argmax(torch, lam, tfm, widths):
     for rows in (1, 64, 512):
         y = torch.randn((rows, EMB), device=dev, generator=gen)
         for method in lam.METHODS:
-            pair = (cuda_ms(torch, lambda: lam.argmax_affine_kernel(y, w, b, aq, inv, method), 50),
-                    cuda_ms(torch, lambda: lam.argmax_affine_plain(y, w, b, aq, inv, method), 20))
-            log(f"time argmax {method} B={rows} V={VOCAB}: kernel {pair[0]:.4f} ms, "
-                f"plain {pair[1]:.4f} ms")
+            def kernel():
+                return lam.argmax_affine_kernel(y, w, b, aq, inv, method)
+
+            times = {"ms": cuda_ms(torch, kernel, 50), "graph_ms": graph_ms(torch, kernel),
+                     "plain_ms": cuda_ms(torch, lambda: lam.argmax_affine_plain(
+                         y, w, b, aq, inv, method), 20)}
+            log(f"time argmax {method} B={rows} V={VOCAB}: kernel {times['ms']:.4f} ms "
+                f"({times['graph_ms']:.4f} ms in a CUDA graph), plain {times['plain_ms']:.4f} ms")
             if (rows, method) == (64, "exact"):
-                timing = pair
+                timing = times
     return float(differ), timing
 
 
@@ -919,13 +1009,15 @@ def check_fused_sdpa(torch, att, enc, dev):
     def heads(a):
         return a.view(b, t, HEADS, e // HEADS).transpose(1, 2)
 
-    times = (cuda_ms(torch, lambda: att.fused_sdpa_kernel(q, k, v, mask_add, HEADS)),
-             cuda_ms(torch, lambda: enc.sdpa_plain(q, k, v, mask_add, HEADS), 10),
-             cuda_ms(torch, lambda: library_sdpa(torch, heads(q), heads(k), heads(v),
-                                                 mask_add)))
+    times = {"ms": cuda_ms(torch, lambda: att.fused_sdpa_kernel(q, k, v, mask_add, HEADS)),
+             "graph_ms": graph_ms(torch, lambda: att.fused_sdpa_kernel(q, k, v, mask_add, HEADS)),
+             "plain_ms": cuda_ms(torch, lambda: enc.sdpa_plain(q, k, v, mask_add, HEADS), 10),
+             "library_ms": cuda_ms(torch, lambda: library_sdpa(
+                 torch, heads(q), heads(k), heads(v), mask_add))}
     bound_ms, by = sdpa_bound(b, t, e)
-    log(f"time fused SDPA B={b} T={t} E={e}: kernel {times[0]:.4f} ms, plain "
-        f"{times[1]:.4f} ms, scaled_dot_product_attention {times[2]:.4f} ms, "
+    log(f"time fused SDPA B={b} T={t} E={e}: kernel {times['ms']:.4f} ms "
+        f"({times['graph_ms']:.4f} ms in a CUDA graph), plain {times['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention {times['library_ms']:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({by})")
     # Base widths (head dim 64), against the library call only.
     for t64 in (64, 256):
@@ -976,13 +1068,15 @@ def check_blockwise(torch, att, dev):
     b, t = 16, 1024
     q, k, v = (torch.randn((b, HEADS, t, 32), device=dev, generator=gen) for _ in range(3))
     mask_add = padded_mask(torch, dev, b, t)[0]
-    times = (cuda_ms(torch, lambda: att.blockwise_kernel(q, k, v, mask_add), 10),
-             cuda_ms(torch, lambda: att.blockwise_plain(q, k, v, mask_add), 10),
-             cuda_ms(torch, lambda: library_sdpa(torch, q, k, v, mask_add), 10))
+    times = {"ms": cuda_ms(torch, lambda: att.blockwise_kernel(q, k, v, mask_add), 10),
+             "graph_ms": graph_ms(torch, lambda: att.blockwise_kernel(q, k, v, mask_add), 5),
+             "plain_ms": cuda_ms(torch, lambda: att.blockwise_plain(q, k, v, mask_add), 10),
+             "library_ms": cuda_ms(torch, lambda: library_sdpa(torch, q, k, v, mask_add), 10)}
     bh = b * HEADS
     bound_ms, by = bound(16 * bh * t * 32 + 4 * b * t, f32_ops=4 * bh * t * t * 32)
-    log(f"time blockwise B*H={bh} T={t} D=32: kernel {times[0]:.4f} ms, plain "
-        f"{times[1]:.4f} ms, scaled_dot_product_attention {times[2]:.4f} ms, "
+    log(f"time blockwise B*H={bh} T={t} D=32: kernel {times['ms']:.4f} ms "
+        f"({times['graph_ms']:.4f} ms in a CUDA graph), plain {times['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention {times['library_ms']:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({by})")
     return worst, times
 
@@ -1367,6 +1461,87 @@ def longctx(torch, tfm, params, name, smi):
                 f"on {name} ({smi})")
 
 
+LAYOUT_BATCHES = (1, 8, 64, 130, 200, 512)
+
+
+def layout_times(out: str) -> None:
+    """The --layouts mode (see the module's note)."""
+    import inspect
+
+    import torch
+
+    name, smi = probe(torch)
+    from slimt_tpu_torch import ModelConfig
+    from slimt_tpu_torch.io import load_items
+    from slimt_tpu_torch.io.loader import load_weights
+    from slimt_tpu_torch.io.params import params_from_numpy
+    from slimt_tpu_torch.io.synthetic import synthetic_model_bytes
+    from slimt_tpu_torch.models import transformer as tfm
+    from slimt_tpu_torch.ops import _build
+    from slimt_tpu_torch.ops import decoder_step as dstep
+    from slimt_tpu_torch.ops import fused_blocks as fblocks
+
+    dev = torch.device("cuda", 0)
+    _build.library()
+    config = ModelConfig(encoder_layers=1, decoder_layers=DEC)
+    params = params_from_numpy(load_weights(load_items(synthetic_model_bytes(
+        config=config, vocab_size=VOCAB, emb_dim=EMB, ffn_dim=FFN, seed=0)), config), dev)
+    layer = params["decoder"][0]
+    forced = "_cluster" in inspect.signature(fblocks.ffn_kernel).parameters
+    sizes = (None,) + (fblocks.CLUSTER_SIZES if forced else ())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    record = {"device": name, "power": smi, "package": str(fblocks.__file__), "times": []}
+
+    def timed(kernel, b, cs, make):
+        try:
+            fn, used = make()
+            fn()
+        except RuntimeError as exc:  # a size the card cannot schedule
+            if cs is None or "cannot schedule" not in str(exc):
+                raise
+            return
+        torch.cuda.synchronize()
+        ms = cuda_ms(torch, fn, 50)
+        graph = statistics.median(graph_ms(torch, fn) for _ in range(3))
+        record["times"].append({"kernel": kernel, "b": b, "forced": cs, "cs": used,
+                                "ms": ms, "graph_ms": graph})
+        log(f"layouts {kernel} B={b} cs={'auto' if cs is None else cs} (runs {used}): "
+            f"{ms:.4f} ms, {graph:.4f} ms in a CUDA graph")
+
+    for b in LAYOUT_BATCHES:
+        args = step_case(torch, tfm, params, gen, b, 64, 0)
+        x = torch.randn((b, EMB), device=dev, generator=gen)
+        c = torch.randn((b, 1, EMB), device=dev, generator=gen)
+        kv = tuple(float_cache(torch, gen, (b, HEADS, 64, EMB // HEADS), "float32")
+                   for _ in range(2))
+        mask_add = args[3]
+        for cs in sizes:
+            extra = {} if cs is None else {"_cluster": cs}
+
+            def step():
+                plan = dstep.StepPlan(args[0], args[4], args[3], HEADS, *args[6:], **extra)
+                used = getattr(plan, "cs", None)
+                return (lambda: dstep.whole_step_kernel(*args, plan=plan)), used
+
+            def ffn():
+                used = fblocks.ffn_layout(b, EMB, FFN, 0, cs)[0] if forced else None
+                return (lambda: fblocks.ffn_kernel(x, layer["ffn"], **extra)), used
+
+            def layer_step():
+                kind = dstep.SPLIT_KINDS[torch.float32]
+                used = dstep.step_layout(b, EMB, FFN, HEADS, 64, kind, 0, cs)[0] if forced else None
+                return (lambda: dstep.decoder_layer_step_kernel(
+                    layer, c, x[:, None], mask_add, kv, HEADS, **extra)), used
+
+            timed("whole_decode_step", b, cs, step)
+            timed("ffn_block", b, cs, ffn)
+            timed("decoder_layer_step", b, cs, layer_step)
+    with open(out, "w") as handle:
+        json.dump(record, handle, indent=1)
+    log(f"layouts: {len(record['times'])} timings on {name} ({smi}) into {out}")
+
+
 def main() -> None:
     import torch
 
@@ -1627,7 +1802,7 @@ def main() -> None:
     e, f, b, t = EMB, FFN, 64, 64
     rows = [
         ("qmm_affine", AFFINE_SOURCE, "slimt_tpu/ops/qmm_pallas.py:42", affine_err,
-         (affine_times[0]["ms"], affine_times[0]["plain_ms"]),
+         {key: affine_times[0][key] for key in ("ms", "plain_ms", "graph_ms")},
          affine_bound(512 * 64, EMB, FFN)),
         ("encoder_layer", LAYER_SOURCE, "slimt_tpu/ops/encoder_layer_pallas.py:87",
          layer_err, layer_ms, layer_bound(512, 64, e, f)),
@@ -1665,9 +1840,10 @@ def main() -> None:
         {"name": key, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[key],
          "launches_from": "kernels" if key in layer_step_launches else "serve",
-         "max_abs_err": err, "ms": times[0],
-         "plain_ms": times[1], "bound_ms": bound_ms, "bound_by": by,
-         "library_ms": times[2] if len(times) > 2 else None,
+         "max_abs_err": err, "ms": times["ms"],
+         "plain_ms": times["plain_ms"], "bound_ms": bound_ms, "bound_by": by,
+         "library_ms": times.get("library_ms"), "graph_ms": times["graph_ms"],
+         **{k: times[k] for k in ("cs1_ms", "cs1_graph_ms") if k in times},
          **({"shapes": affine_times} if key == "qmm_affine" else {})}
         for key, source, replaces, err, times, (bound_ms, by) in rows
     ]}
@@ -1678,5 +1854,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--layouts"]:
+        layout_times(sys.argv[2])
+    else:
+        main()
     sys.exit(0)

@@ -44,18 +44,21 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P
     ),
     # ptrs, scales, layers, b, t, e, f, heads, s, w_stride_k, w_stride_n,
-    # rows, cache, x, c_in, c_out, attn0, choice, scratch, stream
+    # rows, cs, cache, x, c_in, c_out, attn0, choice, scratch, stream
     "slimt_whole_decode_step": (
-        _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I,
+        _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _I,
         _P, _P, _P, _P, _P, _P, _P,
     ),
-    # ptrs, scales, b, t, e, f, heads, rows, cache, x, c_in, c_out, attn0,
-    # y, stream
+    # ptrs, scales, b, t, e, f, heads, rows, cs, cache, x, c_in, c_out,
+    # attn0, y, stream
     "slimt_decoder_layer_step": (
-        _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+        _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
     ),
-    # rows, e, f, heads, t: the rows a block of the step takes (0: none)
-    "slimt_whole_step_rows": (_I, _I, _I, _I, _I),
+    # rows, cs, e, f, heads, t: the rows a block of the step takes (0: none)
+    "slimt_whole_step_rows": (_I, _I, _I, _I, _I, _I),
+    # rows, cs, e, f, heads, t, cache: clusters of the layers kernel the
+    # card holds at once (0: none)
+    "slimt_step_clusters": (_I, _I, _I, _I, _I, _I, _I),
     # y, w, bias, choice, scratch, b, e, s, w_stride_k, w_stride_n, aq,
     # inv, mode, stream
     "slimt_argmax_affine": (
@@ -66,11 +69,13 @@ _SIGNATURES = {
     "slimt_ssru_block": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P
     ),
-    # x, w1, b1, w2, b2, ln_scale, ln_bias, out, m, e, f, rows, aq1, inv1,
-    # aq2, inv2, stream
+    # x, w1, b1, w2, b2, ln_scale, ln_bias, out, m, e, f, rows, cs, aq1,
+    # inv1, aq2, inv2, stream
     "slimt_ffn_block": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P
     ),
+    # rows, cs, e, f: clusters of the FFN block the card holds at once
+    "slimt_ffn_clusters": (_I, _I, _I, _I),
     # q, k, v, kqi, vqi, mask, out, b, t, e, heads, scale, stream
     "slimt_decode_attention": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P

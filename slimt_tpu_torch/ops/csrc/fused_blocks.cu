@@ -12,18 +12,35 @@
 // LN(v) = (v - mean) / sqrt(var + 1e-6) * scale + bias.
 //
 // Design. The TPU kernel tiles 128 rows and holds the whole weights in
-// VMEM. Here a block takes a tile of 1 row (M <= 64, to spread a decode
-// batch over the SMs) or 4 rows (larger M, to read the weights once per
-// 4 rows), keeps the rows, the gate, Wx and the FFN hidden row in shared
+// VMEM. Here the SSRU block takes a tile of 1 row (M <= 64, to spread a
+// decode batch over the SMs) or 4 rows (larger M, to read the weights
+// once per 4 rows) on one block, keeps the rows, the gate, Wx in shared
 // memory, and runs the device functions of slimt_device.cuh: __dp4a
-// matvecs over transposed W words, a warp per row for LayerNorm.
+// products over transposed W words, a warp per row for LayerNorm.
 //
-// Bounds on the H100. Each block reads the block's whole weights from L2
-// or device memory: 2 E^2 bytes for the SSRU (128 KB at E = 256), 2 E F
-// for the FFN (768 KB at E = 256, F = 1536). At decode batch the weights
-// stay in the 50 MB L2, and the time is one SM's L2 read rate and
-// __dp4a rate per row tile; at M = 512 the FFN issues 512 / 4 = 128
-// blocks, about one wave on 132 SMs.
+// The FFN block runs its tile on a thread-block cluster of cs blocks
+// (cluster_ffn, slimt_device.cuh): block i computes the hidden units
+// [i F/cs, (i+1) F/cs) from its columns of W1 and their share of FFN2
+// from the same rows of W2, and the int32 partials meet through
+// distributed shared memory after one cluster.sync(); every block then
+// sums them, runs the epilogue and the LayerNorm on whole rows and writes
+// its E/cs output columns. Where they fit, its two weight slices are
+// copied into shared memory by cp.async (W2's while W1's product runs),
+// laid out for the lanes that split k. It replaces one block a tile,
+// where at B = 1 one SM walked both products alone (34 us a call on the
+// H100, 768 KB of weights at ~23 GB/s). The wrapper picks cs as the
+// layers kernel's does (the largest that splits the widths, halved until
+// the card holds every tile's cluster at once: at M = 512 clusters of 2,
+// whose blocks read their weights in place and share an SM); the output
+// does not depend on cs (exact int32 sums, float sums in one order).
+//
+// Bounds on the H100. The blocks read their weights from L2 or device
+// memory: 2 E^2 bytes for the SSRU (128 KB at E = 256), 2 E F for the FFN
+// (768 KB at E = 256, F = 1536), once per row tile. At decode batch the
+// weights stay in the 50 MB L2; the SSRU's time is one SM's L2 read rate
+// and __dp4a rate per row tile, the FFN's a few L2 round trips and a
+// cluster barrier; at M = 512 each issues 512 / 4 = 128 blocks, about one
+// wave on 132 SMs.
 
 #include <cmath>
 #include <cstdint>
@@ -44,7 +61,7 @@ struct BlockArgs {
   const float* ln_bias;
   float* out;          // [m, e]: h or the FFN output
   float* c_out;        // ssru: [m, e] new cell
-  int m, e, f, rows;
+  int m, e, f, rows, cs, slots;
   float aq0, inv0, aq1, inv1;
 };
 
@@ -77,28 +94,65 @@ __global__ void __launch_bounds__(kThreads) ssru_kernel(const __grid_constant__ 
   add_layer_norm(xs, wx, a.ln_scale, a.ln_bias, a.out + tile0, rows, e);
 }
 
+// The FFN block's shared memory: the weight ring's `slots` buffers of e x
+// f/cs bytes, x and y [rows, e], the [rows, e] int32 partials, the
+// cross-warp sums (cs > 1) and two rows of quantized inputs.
+size_t ffn_smem_bytes(int rows, int cs, int e, int f, int slots = 0) {
+  const size_t ldq = static_cast<size_t>(f / cs > e ? f / cs : e);
+  return static_cast<size_t>(slots) * e * (f / cs) +
+         sizeof(float) * 3 * static_cast<size_t>(rows) * e +
+         sizeof(int) * (cs > 1 ? kReduceInts : 0) + 2 * static_cast<size_t>(rows) * ldq;
+}
+
+// The ring's buffers: 2 (W1's and W2's slices, W2's copied while W1's
+// product runs) where they fit in what a block may opt into, else 0.
+int ffn_slots(int rows, int cs, int e, int f) {
+  return ffn_smem_bytes(rows, cs, e, f, 2) <= smem_optin() ? 2 : 0;
+}
+
 __global__ void __launch_bounds__(kThreads) ffn_kernel(const __grid_constant__ BlockArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
   const int e = a.e;
-  const int f = a.f;
+  const int cs = a.cs;
+  const int es = e / cs;
+  const int fs = a.f / cs;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n0 = rank * es;
+  const int k0 = rank * fs;
   const int cap = a.rows;
-  const int row0 = blockIdx.x * cap;
+  const int row0 = blockIdx.x / cs * cap;
   const int rows = min(cap, a.m - row0);
-  const int ldq = e > f ? e : f;
-  float* xs = reinterpret_cast<float*>(smem);
+  const int ldq = e > fs ? e : fs;
+  int8_t* ring = reinterpret_cast<int8_t*>(smem);
+  float* xs = reinterpret_cast<float*>(ring + a.slots * e * fs);
   float* ys = xs + cap * e;
-  float* hidden = ys + cap * e;
-  int8_t* xq = reinterpret_cast<int8_t*>(hidden + cap * f);
+  int* part = reinterpret_cast<int*>(ys + cap * e);
+  int* red = part + cap * e;
+  int8_t* xq = reinterpret_cast<int8_t*>(red + (cs > 1 ? kReduceInts : 0));
   const long long tile0 = static_cast<long long>(row0) * e;
+  const FfnWeights w = {a.b0 + k0, a.b1, a.ln_scale, a.ln_bias, a.inv0, a.aq1, a.inv1};
+  // W1's columns k0.. and W2's rows k0..
+  auto slice_of = [&](int i) -> Slice {
+    if (i == 0) return {a.w0 + k0, e, fs, a.f};
+    return {a.w1 + static_cast<long long>(k0) * e, fs, e, e};
+  };
+  const auto weights = weight_stream(slice_of, 2, ring, a.slots, e * fs);
 
+  weights.start();
   for (int i = threadIdx.x; i < rows * e; i += kThreads) xs[i] = a.x[tile0 + i];
   __syncthreads();
   quantize_rows(xs, e, e, a.aq0, xq, ldq, rows);
-  matvec(xq, ldq, rows, a.w0, e, f, a.inv0, a.b0, true, hidden, f);
-  quantize_rows(hidden, f, f, a.aq1, xq, ldq, rows);
-  matvec(xq, ldq, rows, a.w1, f, e, a.inv1, a.b1, false, ys, e);
-  add_layer_norm(ys, xs, a.ln_scale, a.ln_bias, a.out + tile0, rows, e);
+  cluster_ffn(w, [&](int m) { return weights.take(m); }, xs, ys, ys, part, red, xq,
+              xq + cap * ldq, ldq, rows, e, a.f);
+  for (int i = threadIdx.x; i < rows * es; i += kThreads) {
+    const int at = i / es * e + n0 + i % es;
+    a.out[tile0 + at] = ys[at];
+  }
+  cluster.sync();  // the other blocks read this block's partials until here
 }
+
+KernelAttrs ffn_attrs;
 
 bool shapes_ok(int m, int e, int f, int rows) {
   return m >= 1 && e >= 16 && e % 16 == 0 && f >= 16 && f % 16 == 0 &&
@@ -124,7 +178,7 @@ extern "C" int slimt_ssru_block(const void* x, const void* c, const void* wf,
       static_cast<const int8_t*>(w), nullptr,
       static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias),
       static_cast<float*>(h), static_cast<float*>(c_out),
-      m, e, e, rows, aq_f, inv_f, aq_w, inv_w};
+      m, e, e, rows, 1, 0, aq_f, inv_f, aq_w, inv_w};
   const size_t smem = sizeof(float) * 3 * static_cast<size_t>(rows) * e +
                       static_cast<size_t>(rows) * e;
   static size_t smem_cap = 48 * 1024;
@@ -135,30 +189,36 @@ extern "C" int slimt_ssru_block(const void* x, const void* c, const void* wf,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Clusters of cs blocks of `rows` rows the FFN block can hold on the
+// current device at once; 0 where it cannot run one.
+extern "C" int slimt_ffn_clusters(int rows, int cs, int e, int f) {
+  using namespace slimt;
+  if (!shapes_ok(1, e, f, rows) || !cluster_layout_ok(cs, e, f)) return 0;
+  return cluster_capacity(ffn_kernel, cs,
+                          ffn_smem_bytes(rows, cs, e, f, ffn_slots(rows, cs, e, f)),
+                          &ffn_attrs);
+}
+
 // x, out [m, e] f32; w1 [e, f], w2 [f, e] int8; b1 [f], b2, ln_scale,
-// ln_bias [e] f32; all 16-byte aligned device pointers.
+// ln_bias [e] f32; all 16-byte aligned device pointers. rows: rows per
+// tile; cs: the blocks of a tile's cluster (slimt_ffn_clusters).
 extern "C" int slimt_ffn_block(const void* x, const void* w1, const void* b1,
                                const void* w2, const void* b2,
                                const void* ln_scale, const void* ln_bias,
-                               void* out, int m, int e, int f, int rows,
+                               void* out, int m, int e, int f, int rows, int cs,
                                float aq1, float inv1, float aq2, float inv2,
                                void* stream) {
   using namespace slimt;
-  if (!shapes_ok(m, e, f, rows)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shapes_ok(m, e, f, rows) || !cluster_layout_ok(cs, e, f))
+    return static_cast<int>(cudaErrorInvalidValue);
   const BlockArgs a = {
       static_cast<const float*>(x), nullptr,
       static_cast<const int8_t*>(w1), static_cast<const float*>(b1),
       static_cast<const int8_t*>(w2), static_cast<const float*>(b2),
       static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias),
       static_cast<float*>(out), nullptr,
-      m, e, f, rows, aq1, inv1, aq2, inv2};
-  const size_t smem =
-      sizeof(float) * static_cast<size_t>(rows) * (2 * static_cast<size_t>(e) + f) +
-      static_cast<size_t>(rows) * (e > f ? e : f);
-  static size_t smem_cap = 48 * 1024;
-  const cudaError_t err = ensure_smem(ffn_kernel, smem, &smem_cap);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_kernel<<<(m + rows - 1) / rows, kThreads, smem,
-               static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+      m, e, f, rows, cs, ffn_slots(rows, cs, e, f), aq1, inv1, aq2, inv2};
+  return launch_cluster(ffn_kernel, (m + rows - 1) / rows * cs, cs,
+                        ffn_smem_bytes(rows, cs, e, f, a.slots), &ffn_attrs,
+                        static_cast<cudaStream_t>(stream), a);
 }

@@ -5,22 +5,29 @@
 // kernel: the SDPA of the whole-layer kernel (encoder_layer.cu) and the
 // split encoder's fused SDPA and blockwise attention (attention.cu).
 //
-// Every block but the attention kernel's runs kThreads threads. The int8 products are __dp4a over
-// int32 accumulators (exact); the epilogues round the multiply and the
-// add separately (__fmul_rn, __fadd_rn), and q8 is rintf (half to even)
-// clipped to +-127, as in qmm_affine.cu. Each TU gets its own copy (an
+// Every block but the attention kernel's runs kThreads threads. The int8
+// products are __dp4a over int32 accumulators (exact); the epilogues round
+// the multiply and the add separately (__fmul_rn, __fadd_rn), and q8 is
+// rintf (half to even) clipped to +-127, as in qmm_affine.cu. The layers
+// kernel and the FFN block spread a row tile over a thread-block cluster
+// (cluster_ffn, push_cols, launch_cluster) and stream their weight slices
+// through shared memory (WeightStream). Each TU gets its own copy (an
 // anonymous namespace), so no relocatable device code is needed.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
+#include <utility>
 
 namespace slimt {
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -62,33 +69,79 @@ __device__ __forceinline__ void transpose4(unsigned a0, unsigned a1,
   out[3] = static_cast<int>(__byte_perm(t2, t3, 0x7632));
 }
 
-// xq[r * ldq + k] = q8(x[r * ldx + k]) for r < rows, k < k_dim.
+// xq[r * ldq + k] = q8(x[r * ldx + k]) for r < rows, k < k_dim (and,
+// where xq2 is given, xq2 the same by aq2).
 __device__ void quantize_rows(const float* x, int ldx, int k_dim, float aq,
-                              int8_t* xq, int ldq, int rows) {
+                              int8_t* xq, int ldq, int rows, float aq2 = 0.0f,
+                              int8_t* xq2 = nullptr) {
   for (int i = threadIdx.x; i < rows * k_dim; i += kThreads) {
     const int r = i / k_dim;
     const int k = i % k_dim;
-    xq[r * ldq + k] = quant8(x[r * ldx + k], aq);
+    const float v = x[r * ldx + k];
+    xq[r * ldq + k] = quant8(v, aq);
+    if (xq2 != nullptr) xq2[r * ldq + k] = quant8(v, aq2);
   }
   __syncthreads();
 }
 
-// out[r * ldo + n] = acc * inv (+ bias[n]) (relu), acc = sum_k xq[r, k] *
-// w[k, n], for r < rows <= kMaxRows. w is row-major [k_dim, n_cols] int8,
-// 16-byte aligned, n_cols % 16 == 0, k_dim % 4 == 0; ldq % 4 == 0. A
-// thread owns 16 columns and a slice of k (ks lanes per column group,
-// reduced by shuffles).
-__device__ void matvec(const int8_t* xq, int ldq, int rows,
-                       const int8_t* __restrict__ w, int k_dim, int n_cols,
-                       float inv, const float* __restrict__ bias, bool relu,
-                       float* out, int ldo) {
+// acc * inv (+ bias[n]) (relu), the epilogue of every int8 product here:
+// the multiply and the add rounded separately, as in qmm_affine.cu.
+__device__ __forceinline__ float affine_value(int acc, float inv,
+                                              const float* __restrict__ bias,
+                                              int n, bool relu) {
+  float v = __fmul_rn(__int2float_rn(acc), inv);
+  if (bias != nullptr) v = __fadd_rn(v, bias[n]);
+  if (relu) v = fmaxf(v, 0.0f);
+  return v;
+}
+
+// Shared-memory ints slice_product needs where a column group spans more
+// than one warp (n_cols < 128).
+constexpr int kReduceInts = kWarps * kMaxRows * 16;
+
+// Where a product reads its int8 weights: the 16 bytes of rows 4 kq + i,
+// columns 16 g.. at w + kq * quad + i * row + g * group. A row-major [K, N]
+// matrix with row stride ld is (w, 4 ld, ld, 16); a slice staged in shared
+// memory by WeightStream is laid out [i][g][kq], so that the lanes of a
+// column group, which split k, read neighbouring 16-byte chunks.
+struct Slab {
+  const int8_t* w;
+  int quad, row, group;
+};
+
+__device__ __forceinline__ Slab row_major(const int8_t* w, int ld) {
+  return {w, 4 * ld, ld, 16};
+}
+
+// a[j] for a j known only at run time, without indexing the registers.
+__device__ __forceinline__ int pick(const int (&a)[16], int j) {
+  int v = a[0];
+#pragma unroll
+  for (int i = 1; i < 16; ++i) v = j == i ? a[i] : v;
+  return v;
+}
+
+// epi(r, n, acc) once for each r < rows <= kMaxRows and n < n_cols, acc =
+// sum_{k < k_dim} xq[r * ldq + k] * W[k, n], an exact int32 sum; W is read
+// through `w` (Slab: int8 in global or shared memory, 16-byte aligned),
+// n_cols % 16 == 0, k_dim % 4 == 0, ldq % 4 == 0. A group of ks lanes owns 16
+// columns and splits k between them, ks growing as the groups get fewer (up
+// to the whole block); the lanes of one warp meet by shuffles, the warps of
+// one group in `red` (kReduceInts ints of shared memory, null where n_cols >=
+// 128); each lane then runs epi for the 16 / ks columns it holds. Ends with
+// __syncthreads().
+template <typename Epi>
+__device__ void slice_product(const int8_t* xq, int ldq, int rows, const Slab& w,
+                              int k_dim, int n_cols, int* red, Epi epi) {
   const int groups = n_cols / 16;
-  int ks = 16;
-  while (ks > 1 && groups * ks > kThreads) ks /= 2;
+  const int quads = k_dim / 4;
+  int ks = 1;
+  while (ks < kThreads && 2 * ks * groups <= kThreads && 2 * ks <= quads) ks *= 2;
   const int lane_k = threadIdx.x % ks;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
   const int per_pass = kThreads / ks;
   const int passes = (groups + per_pass - 1) / per_pass;
-  const int quads = k_dim / 4;
   for (int pass = 0; pass < passes; ++pass) {
     const int g = pass * per_pass + static_cast<int>(threadIdx.x) / ks;
     const bool active = g < groups;
@@ -99,14 +152,14 @@ __device__ void matvec(const int8_t* xq, int ldq, int rows,
       for (int j = 0; j < 16; ++j) acc[r][j] = 0;
     }
     if (active) {
-      const int8_t* col = w + 16 * g;
+      const int8_t* col = w.w + g * w.group;
 #pragma unroll 2
       for (int kq = lane_k; kq < quads; kq += ks) {
-        const int8_t* src = col + static_cast<long long>(4 * kq) * n_cols;
-        const int4 a0 = __ldg(reinterpret_cast<const int4*>(src));
-        const int4 a1 = __ldg(reinterpret_cast<const int4*>(src + n_cols));
-        const int4 a2 = __ldg(reinterpret_cast<const int4*>(src + 2 * n_cols));
-        const int4 a3 = __ldg(reinterpret_cast<const int4*>(src + 3 * n_cols));
+        const int8_t* src = col + static_cast<long long>(kq) * w.quad;
+        const int4 a0 = *reinterpret_cast<const int4*>(src);
+        const int4 a1 = *reinterpret_cast<const int4*>(src + w.row);
+        const int4 a2 = *reinterpret_cast<const int4*>(src + 2 * w.row);
+        const int4 a3 = *reinterpret_cast<const int4*>(src + 3 * w.row);
         int cols[16];
         transpose4(a0.x, a1.x, a2.x, a3.x, cols);
         transpose4(a0.y, a1.y, a2.y, a3.y, cols + 4);
@@ -122,7 +175,7 @@ __device__ void matvec(const int8_t* xq, int ldq, int rows,
         }
       }
     }
-    for (int offset = ks / 2; offset > 0; offset /= 2) {
+    for (int offset = (ks < 32 ? ks : 32) / 2; offset > 0; offset /= 2) {
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r) {
         if (r < rows) {
@@ -132,32 +185,57 @@ __device__ void matvec(const int8_t* xq, int ldq, int rows,
         }
       }
     }
-    if (active) {
+    if (ks <= 32) {
+      // Every lane holds the 16 sums; lane_k takes columns lane_k + q ks.
+      if (active) {
 #pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        if (r < rows) {
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            if (j % ks != lane_k) continue;
-            const int n = 16 * g + j;
-            float v = __fmul_rn(__int2float_rn(acc[r][j]), inv);
-            if (bias != nullptr) v = __fadd_rn(v, bias[n]);
-            if (relu) v = fmaxf(v, 0.0f);
-            out[r * ldo + n] = v;
+        for (int r = 0; r < kMaxRows; ++r) {
+          if (r < rows) {
+            for (int j = lane_k; j < 16; j += ks) epi(r, 16 * g + j, pick(acc[r], j));
           }
         }
       }
+    } else {
+      // A group of ks / 32 whole warps: lane j of each holds column j's sum.
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) {
+        if (r < rows && lane < 16) red[(warp * kMaxRows + r) * 16 + lane] = pick(acc[r], lane);
+      }
+      __syncthreads();
+      if (active && lane_k < 16) {
+        for (int r = 0; r < rows; ++r) {
+          int sum = 0;
+          for (int i = 0; i < ks / 32; ++i) sum += red[((warp + i) * kMaxRows + r) * 16 + lane];
+          epi(r, 16 * g + lane, sum);
+        }
+      }
+      __syncthreads();
     }
   }
   __syncthreads();
 }
 
+// out[r * ldo + n] = affine_value(acc, inv, bias, n, relu) for the whole
+// of a row-major [k_dim, n_cols] W, n_cols >= 128 (the SSRU block).
+__device__ void matvec(const int8_t* xq, int ldq, int rows,
+                       const int8_t* __restrict__ w, int k_dim, int n_cols,
+                       float inv, const float* __restrict__ bias, bool relu,
+                       float* out, int ldo) {
+  slice_product(xq, ldq, rows, row_major(w, n_cols), k_dim, n_cols, nullptr,
+                [&](int r, int n, int acc) {
+                  out[r * ldo + n] = affine_value(acc, inv, bias, n, relu);
+                });
+}
+
 // out[r] = LN(a[r] + b[r]) * gamma + beta for r < rows, one warp per row
-// of e; out may alias a or b.
+// of e; out may alias a or b. Where q0 (q1) is given, q0[r * ldq + i] =
+// q8(out[r, i]) by aq0 (aq1) too: the next products' quantized input.
 __device__ void add_layer_norm(const float* a, const float* b,
                                const float* __restrict__ gamma,
                                const float* __restrict__ beta, float* out,
-                               int rows, int e) {
+                               int rows, int e, int ldq = 0, float aq0 = 0.0f,
+                               int8_t* q0 = nullptr, float aq1 = 0.0f,
+                               int8_t* q1 = nullptr) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   for (int r = warp; r < rows; r += kWarps) {
@@ -176,10 +254,202 @@ __device__ void add_layer_norm(const float* a, const float* b,
     const float inv = 1.0f / sqrtf(var + kLnEps);
     for (int i = lane; i < e; i += 32) {
       const float c = __fadd_rn(pa[i], pb[i]) - mean;
-      po[i] = __fadd_rn(__fmul_rn(__fmul_rn(c, inv), gamma[i]), beta[i]);
+      const float v = __fadd_rn(__fmul_rn(__fmul_rn(c, inv), gamma[i]), beta[i]);
+      po[i] = v;
+      if (q0 != nullptr) q0[r * ldq + i] = quant8(v, aq0);
+      if (q1 != nullptr) q1[r * ldq + i] = quant8(v, aq1);
     }
   }
   __syncthreads();
+}
+
+// A row tile spread over a thread-block cluster (the decoder step's
+// layers kernel and the FFN block). The cs blocks of a cluster hold the
+// same rows; each computes 1/cs of every product (a slice of W's columns,
+// or of its rows with int32 partial sums), and the rows meet again in
+// every block through distributed shared memory, each phase closed by
+// cluster.sync(). LayerNorm and the element-wise steps run in every block
+// on whole rows, so a row is the same in every block and the same as with
+// cs = 1: int32 sums are exact in any order, and every float sum keeps its
+// order. A cluster of one block is the one-block layout.
+
+// The two halves of cluster.sync(). A block may touch another block's
+// shared memory only once every block of the cluster has started, which
+// cluster_wait() after every block's cluster_arrive() guarantees: a kernel
+// whose first exchange is not behind a cluster.sync() arrives at its start
+// and waits just before that exchange, keeping its prologue (the first
+// weight copies) overlapped.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Columns [c0, c0 + n) of the rows [rows, ld] of `buf` in this block's
+// shared memory, copied to the same place in every other block of the
+// cluster (the caller's cluster.sync() then makes them visible). Every
+// block of the cluster must have started (cluster_wait).
+__device__ void push_cols(float* buf, int ld, int rows, int c0, int n) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int me = static_cast<int>(cluster.block_rank());
+  const int per = rows * n;
+  for (int i = threadIdx.x; i < per * (cs - 1); i += kThreads) {
+    const int other = i / per;
+    const int at = (i % per) / n * ld + c0 + i % n;
+    cluster.map_shared_rank(buf, other < me ? other : other + 1)[at] = buf[at];
+  }
+}
+
+// The weight slices of the cluster kernels' products, streamed into shared
+// memory. A block's slice of a [K, N] matrix is rows x width bytes, row r
+// at src + r * ld (width and ld multiples of 16, src 16-byte aligned).
+struct Slice {
+  const int8_t* src;
+  int rows, width, ld;
+};
+
+// The FFN block's vectors and scales (its weights come from `take`).
+struct FfnWeights {
+  const float* b1;  // this block's f/cs hidden units
+  const float* b2;  // [e]
+  const float* ln_scale;
+  const float* ln_bias;
+  float inv1, aq2, inv2;
+};
+
+// out = LN(x + q8(relu(q8(x) W1 inv1 + b1)) W2 inv2 + b2) for the rows of
+// one tile, over the cluster, with xq = q8(x) given: the block of rank i
+// computes the hidden units [i f/cs, (i+1) f/cs) whole (its columns of W1,
+// take(0); quantized in the epilogue into xq2), then their share of FFN2
+// (the same rows of W2, take(1)) as int32 partials in `part`; after one
+// cluster.sync() every block sums the cs partials of every column and runs
+// the epilogue and the LayerNorm on whole rows (and, where q0 or q1 is given, quantizes the
+// output by aq0 or aq1 for the next products). Shared memory of each
+// block: x, y, out [rows, e] (out may alias x or y), part [rows, e] ints,
+// red (slice_product), xq and xq2 [rows, ldq] bytes, ldq >= max(e, f/cs).
+// The other blocks read `part` until the cluster's next sync: write it
+// again only after that.
+template <typename Take>
+__device__ void cluster_ffn(const FfnWeights& w, Take take, const float* x, float* y,
+                            float* out, int* part, int* red, const int8_t* xq,
+                            int8_t* xq2, int ldq, int rows, int e, int f,
+                            float aq0 = 0.0f, int8_t* q0 = nullptr, float aq1 = 0.0f,
+                            int8_t* q1 = nullptr) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int fs = f / cs;
+  slice_product(xq, ldq, rows, take(0), e, fs, red, [&](int r, int n, int acc) {
+    xq2[r * ldq + n] = quant8(affine_value(acc, w.inv1, w.b1, n, true), w.aq2);
+  });
+  slice_product(xq2, ldq, rows, take(1), fs, e, red,
+                [&](int r, int n, int acc) { part[r * e + n] = acc; });
+  cluster.sync();
+  for (int i = threadIdx.x; i < rows * e; i += kThreads) {
+    int acc = 0;
+    for (int src = 0; src < cs; ++src) acc += cluster.map_shared_rank(part, src)[i];
+    y[i] = affine_value(acc, w.inv2, w.b2, i % e, false);
+  }
+  __syncthreads();
+  add_layer_norm(y, x, w.ln_scale, w.ln_bias, out, rows, e, ldq, aq0, q0, aq1, q1);
+}
+
+// Cluster sizes the kernels take: a power of two up to 16 (above 8 only
+// with the non-portable attribute, which launch_cluster sets).
+__host__ __device__ constexpr bool cluster_size_ok(int cs) {
+  return cs == 1 || cs == 2 || cs == 4 || cs == 8 || cs == 16;
+}
+
+// Widths a cluster of cs blocks splits: each block a multiple of 16
+// columns of E and of F.
+__host__ __device__ constexpr bool cluster_layout_ok(int cs, int e, int f) {
+  return cluster_size_ok(cs) && e % (16 * cs) == 0 && f % (16 * cs) == 0;
+}
+
+// Shared memory a block of the current device may opt into (0 where the
+// query fails).
+size_t smem_optin() {
+  int device = 0;
+  int limit = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return 0;
+  return static_cast<size_t>(limit);
+}
+
+// A kernel's launch attributes, set once: the dynamic shared-memory cap
+// (48 KB without the attribute) and the non-portable cluster sizes.
+struct KernelAttrs {
+  size_t smem_cap = 48 * 1024;
+  bool clusters = false;
+};
+
+cudaError_t prepare_cluster_kernel(const void* kernel, size_t smem, KernelAttrs* attrs) {
+  if (!attrs->clusters) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    attrs->clusters = true;
+  }
+  if (smem <= attrs->smem_cap) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) attrs->smem_cap = smem;
+  return err;
+}
+
+cudaLaunchConfig_t cluster_config(int blocks, int cs, size_t smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of cs blocks with `smem` bytes each that the device can hold at
+// once (0: such a cluster cannot be scheduled, or the query failed).
+template <typename... Params>
+int cluster_capacity(void (*kernel)(Params...), int cs, size_t smem, KernelAttrs* attrs) {
+  if (!cluster_size_ok(cs) ||
+      prepare_cluster_kernel(reinterpret_cast<const void*>(kernel), smem, attrs) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(cs, cs, smem, nullptr, &attr);
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return clusters;
+}
+
+// `blocks` blocks (a multiple of cs) in clusters of cs. Returns the launch's
+// error (cleared), cudaSuccess on a launch.
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), int blocks, int cs, size_t smem,
+                   KernelAttrs* attrs, cudaStream_t stream, Args&&... args) {
+  if (!cluster_size_ok(cs) || blocks % cs) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = prepare_cluster_kernel(reinterpret_cast<const void*>(kernel), smem, attrs);
+  if (err == cudaSuccess) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(blocks, cs, smem, stream, &attr);
+    err = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  }
+  if (err != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(err);
 }
 
 // The decode attention's K/V cache (attention below), in one of three
@@ -298,48 +568,59 @@ template <typename T>
 using SplitFloat = Cache<T, kSplitFloat>;
 
 // Cross-attention of rows row0..row0+rows-1 at T_q = 1 over `cache` (see
-// CacheLayout): per head, s = the cache's score of (K . q) + mask, softmax
-// over t, out = sum_t weight(p) V. q, out: [rows, e] in shared memory; sc:
-// [rows, heads, t]. attn0, if not null, receives the head-0 probabilities
-// [b, t] (unrounded). e % 256 == 0; the head dim d = e / heads is a
-// multiple of 8 with d / 8 a power of two <= 32.
+// CacheLayout), for the heads h0, h0 + hstep, ... < heads (all by
+// default): per head, s = the cache's score of (K . q) + mask, softmax
+// over t, out = sum_t weight(p) V. q, out: [rows, e] in shared memory
+// (only those heads' columns of out are written); sc: [rows, the heads
+// taken, t]. attn0, if not null, receives the head-0 probabilities [b, t]
+// (unrounded) where head 0 is taken. The head dim d = e / heads is a
+// multiple of 8 with d / 8 a power of two <= 32. Every sum runs in one
+// order whatever the heads taken, so a head's output does not depend on
+// which block computes it.
 template <typename C>
 __device__ void attention(const float* q, const C& cache,
                           const float* __restrict__ mask, int row0, int rows,
                           int heads, float scale, float* sc, float* out,
-                          float* __restrict__ attn0) {
+                          float* __restrict__ attn0, int h0 = 0, int hstep = 1) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int t = cache.t;
   const int e = cache.e;
   const int d = cache.d;
+  const int nh = h0 < heads ? (heads - h0 + hstep - 1) / hstep : 0;
   const int lanes_per_head = d / 8;  // a lane holds 8 elements of a head
-  // Scores: a warp per (row, position) reads that K row, 8 elements a lane.
-  for (int item = warp; item < rows * t; item += kWarps) {
-    const int r = item / t;
-    const int j = item % t;
+  const int per_warp = 32 / lanes_per_head;
+  // Scores: lanes_per_head lanes per (row, position, head), 8 elements a
+  // lane; a warp's lanes read neighbouring heads of one K row.
+  const int items = rows * t * nh;
+  for (int first = warp * per_warp; first < items; first += kWarps * per_warp) {
+    const int item = first + lane / lanes_per_head;
+    const bool valid = item < items;
+    const int hl = item % nh;
+    const int rj = item / nh;
+    const int r = rj / t;
+    const int j = rj % t;
+    const int base = (h0 + hl * hstep) * d + 8 * (lane % lanes_per_head);
     const long long pos = static_cast<long long>(row0 + r) * t + j;
-    const float* q_row = q + r * e;
-    for (int c0 = 0; c0 < e; c0 += 256) {
-      const int base = c0 + 8 * lane;
+    float s = 0.0f;
+    if (valid) {
       float kv[8];
       load8(cache.k + cache.at(row0 + r, j, base), kv);
-      float s = 0.0f;
+      const float* q_row = q + r * e;
 #pragma unroll
       for (int i = 0; i < 8; ++i)
         s = __fadd_rn(s, __fmul_rn(kv[i], cache.query(q_row[base + i])));
-      for (int offset = lanes_per_head / 2; offset > 0; offset /= 2)
-        s += __shfl_xor_sync(0xffffffffu, s, offset);
-      if (lane % lanes_per_head == 0)
-        sc[(r * heads + base / d) * t + j] =
-            __fadd_rn(cache.score(s, scale, pos), mask[pos]);
     }
+    for (int offset = lanes_per_head / 2; offset > 0; offset /= 2)
+      s += __shfl_xor_sync(0xffffffffu, s, offset);
+    if (valid && lane % lanes_per_head == 0)
+      sc[(r * nh + hl) * t + j] = __fadd_rn(cache.score(s, scale, pos), mask[pos]);
   }
   __syncthreads();
   // Softmax over t: a warp per (row, head); then the weights in place.
-  for (int item = warp; item < rows * heads; item += kWarps) {
+  for (int item = warp; item < rows * nh; item += kWarps) {
     float* s = sc + item * t;
-    const int r = item / heads;
+    const int r = item / nh;
     const long long row_t = static_cast<long long>(row0 + r) * t;
     float m = -INFINITY;
     for (int j = lane; j < t; j += 32) m = fmaxf(m, s[j]);
@@ -351,7 +632,7 @@ __device__ void attention(const float* q, const C& cache,
       sum += p;
     }
     sum = warp_sum(sum);
-    const bool head0 = attn0 != nullptr && item % heads == 0;
+    const bool head0 = attn0 != nullptr && h0 + (item % nh) * hstep == 0;
     for (int j = lane; j < t; j += 32) {
       const float p = s[j] / sum;
       if (head0) attn0[row_t + j] = p;
@@ -359,19 +640,22 @@ __device__ void attention(const float* q, const C& cache,
     }
   }
   __syncthreads();
-  // out[r, c] = sum_t w[r, head(c), t] * V[row, t, c].
+  // out[r, c] = sum_t w[r, head(c), t] * V[row, t, c], a thread per (r, c).
+  // (Issuing 32 positions' loads before their sums measured slower on the
+  // H100: #10 at B=512 0.242 against 0.166 ms.)
   const int step = cache.step();
-  for (int item = threadIdx.x; item < rows * e; item += kThreads) {
-    const int r = item / e;
-    const int c = item % e;
+  for (int item = threadIdx.x; item < rows * nh * d; item += kThreads) {
+    const int r = item / (nh * d);
+    const int hl = item % (nh * d) / d;
+    const int c = (h0 + hl * hstep) * d + item % d;
     const auto* v_col = cache.v + cache.at(row0 + r, 0, c);
-    const float* p = sc + (r * heads + c / d) * t;
+    const float* p = sc + (r * nh + hl) * t;
     float acc = 0.0f;
     for (int j = 0; j < t; ++j) {
       const float vv = to_float(v_col[static_cast<long long>(j) * step]);
       acc = __fadd_rn(acc, __fmul_rn(vv, p[j]));
     }
-    out[item] = acc;
+    out[r * e + c] = acc;
   }
   __syncthreads();
 }
@@ -437,6 +721,70 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The weight slices (Slice) slice_of(0), slice_of(1), ... of a kernel's
+// products, in the order the products take them, through a ring of
+// `slots` (2 or 3) buffers of `slot` bytes in shared memory: cp.async
+// copies (16 bytes, L2 to shared memory) run slots - 1 slices ahead of the
+// product that reads one, so a product reads its weights from shared
+// memory instead of waiting on a strided L2 load per weight quad. With
+// slots = 0 the products read the slices in place. take(i) has a
+// __syncthreads(): every thread calls it.
+template <typename SliceOf>
+struct WeightStream {
+  SliceOf slice_of;
+  int total;
+  int8_t* base;
+  int slots, slot;
+
+  // Chunk (row k, group g) of a slice of `groups` groups and `quads`
+  // quads of rows lands at [k % 4][g][k / 4] (Slab).
+  __device__ void issue(int i) const {
+    if (i < total) {
+      const Slice s = slice_of(i);
+      int8_t* dst = base + (i % slots) * slot;
+      const int groups = s.width / 16;
+      const int quads = s.rows / 4;
+      for (int c = threadIdx.x; c < s.rows * groups; c += kThreads) {
+        const int k = c / groups;
+        const int g = c % groups;
+        cp_async16(dst + 16 * ((k % 4 * groups + g) * quads + k / 4),
+                   s.src + static_cast<long long>(k) * s.ld + 16 * g, true);
+      }
+    }
+    cp_async_commit();  // one group a slice, empty past the end
+  }
+
+  __device__ void start() const {
+    for (int i = 0; i < slots - 1; ++i) issue(i);
+  }
+
+  __device__ Slab take(int i) const {
+    const Slice s = slice_of(i);
+    if (slots == 0) return row_major(s.src, s.ld);
+    issue(i + slots - 1);  // into the buffer of slice i - 1, whose product is done
+    if (slots == 3) {
+      cp_async_wait<2>();
+    } else {
+      cp_async_wait<1>();
+    }
+    __syncthreads();
+    const int quads = s.rows / 4;
+    return {base + (i % slots) * slot, 16, s.width * quads, 16 * quads};
+  }
+};
+
+template <typename SliceOf>
+__device__ WeightStream<SliceOf> weight_stream(SliceOf slice_of, int total, int8_t* base,
+                                              int slots, int slot) {
+  return {slice_of, total, base, slots, slot};
+}
+
+// Buffers of `slot` bytes a ring may take beside `rest` bytes of other
+// shared memory within `cap`: 3, 2, or 0 (no ring).
+__host__ __device__ constexpr int ring_slots(size_t slot, size_t rest, size_t cap) {
+  return rest + 3 * slot <= cap ? 3 : rest + 2 * slot <= cap ? 2 : 0;
 }
 
 // Keys j0 .. j0 + kTile - 1 of one head into shared memory (zeros past t),

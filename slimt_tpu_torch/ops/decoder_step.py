@@ -29,7 +29,9 @@ them either.
 On a CUDA tensor each entry launches its kernel (csrc/decoder_step.cu:
 `slimt_whole_decode_step`, `slimt_decoder_layer_step`) or raises; on a CPU tensor it runs its plain
 version. The plain versions call `qmm.affine_plain` directly, so that on
-the card they share no kernel with what they are compared against.
+the card they share no kernel with what they are compared against. The
+layers kernel runs a tile of rows on a thread-block cluster of `cs`
+blocks (`fused_blocks.cluster_layout`; `step_layout` fits it to the card).
 """
 
 from __future__ import annotations
@@ -42,7 +44,14 @@ import torch
 
 from slimt_tpu_torch.ops import _build, decode_attn, fused_blocks, qmm
 from slimt_tpu_torch.ops.encoder_layer import layer_norm, softmax
-from slimt_tpu_torch.ops.fused_blocks import EMB_DIMS, FFN_DIMS
+from slimt_tpu_torch.ops.fused_blocks import (
+    EMB_DIMS,
+    FFN_DIMS,
+    card_query,
+    check_cluster,
+    cluster_layout,
+    fit_cluster,
+)
 # The projection stage alone: the exact mode of the argmax kernel.
 from slimt_tpu_torch.ops.logits_argmax import (  # noqa: F401
     TILE_S,
@@ -148,7 +157,7 @@ def decoder_layer_step_plain(layer, state, x, mask_add, kv, num_heads):
 def check_shapes(e: int, f: int, t: int, num_heads: int, layers: int) -> None:
     """Raise ValueError on a shape the kernel does not take. T is bounded
     only by the shared memory of one row, which the C entry knows
-    (`step_rows`; at tiny widths T <= 6896)."""
+    (`step_rows`; at tiny widths and cs=1, T <= 7008)."""
     d = e // num_heads if num_heads > 0 else 0
     problems = []
     if e not in EMB_DIMS:
@@ -176,18 +185,43 @@ def _check_projection(w, b, e: int, device) -> None:
         raise ValueError("projection must be on the step's CUDA device")
 
 
-def step_rows(b: int, e: int, f: int, heads: int, t: int) -> int:
-    """Rows a block of the layers kernel takes on the current device:
-    those of the blocks (fused_blocks.rows_per_block), or 1 where their
-    scores over T do not fit in shared memory (at tiny widths, 4 rows fit
-    up to T=1448). The C entry decides; ValueError where one row does not
-    fit."""
-    rows = _build.library().slimt_whole_step_rows(
-        fused_blocks.rows_per_block(b), e, f, heads, t)
+def step_rows(b: int, e: int, f: int, heads: int, t: int, cs: int = 1,
+              device: Optional[int] = None) -> int:
+    """Rows a tile of the layers kernel takes on card `device` (the current
+    one by default), on a cluster of cs blocks: those of the blocks
+    (fused_blocks.rows_per_block), or 1 where their scores over T do not
+    fit in shared memory (at tiny widths and cs=1, 4 rows fit up to
+    T=1560). The C entry decides; ValueError where one row does not fit."""
+    if device is None:
+        device = torch.cuda.current_device()
+    rows = card_query(device, "slimt_whole_step_rows", fused_blocks.rows_per_block(b), cs,
+                      e, f, heads, t)
     if rows == 0:
         raise ValueError(f"whole decode step: T={t}: the scores of one row do "
                          "not fit in shared memory")
     return rows
+
+
+def step_layout(b: int, e: int, f: int, heads: int, t: int, kind: int, device: int,
+                _cluster: Optional[int] = None) -> tuple:
+    """(cs, rows) of the layers kernel over caches of `kind` on card
+    `device`: `cluster_layout`'s cluster size (`_cluster` forces one, for
+    the card checks that compare them), halved while the card cannot hold
+    one cluster a row tile at once (`fit_cluster`; a forced size raises
+    where it cannot run at all), and the rows a tile that fit in shared
+    memory at that size."""
+    cs, rows = cluster_layout(b, e, f)
+    if _cluster is not None:
+        check_cluster(_cluster, e, f)
+        cs = _cluster
+
+    def capacity(size):
+        return card_query(device, "slimt_step_clusters",
+                          step_rows(b, e, f, heads, t, size, device), size, e, f, heads, t,
+                          kind)
+
+    cs = fit_cluster(capacity, cs, -(-b // rows), "whole decode step", _cluster is not None)
+    return cs, step_rows(b, e, f, heads, t, cs, device)
 
 
 def _layer_tensors(layer) -> list:
@@ -249,11 +283,13 @@ class StepPlan:
     scratch. A step then passes only x, the states and its outputs."""
 
     def __init__(self, layers, kv_caches, mask_add, num_heads, projection,
-                 out_aq, out_inv):
+                 out_aq, out_inv, _cluster: Optional[int] = None):
         k0 = kv_caches[0]["k"]
         b, t, e = k0.shape
         f = layers[0]["ffn"]["w1"]["q"].shape[1]
         check_shapes(e, f, t, num_heads, len(layers))
+        if _cluster is not None:
+            check_cluster(_cluster, e, f)
         if not k0.is_cuda:
             raise ValueError(f"the kernel takes CUDA tensors, got {k0.device}")
         dev = k0.device
@@ -283,13 +319,14 @@ class StepPlan:
         self._scales = _floats(scales)
         self.device = dev
         self.shape = (len(layers), b, t, e)
-        self.rows = step_rows(b, e, f, num_heads, t)
+        kind = kinds.pop()
+        self.cs, self.rows = step_layout(b, e, f, num_heads, t, kind, dev.index, _cluster)
         tiles = -(-w.shape[1] // TILE_S)
         self.scratch = torch.empty(b * e + 2 * b * tiles, dtype=torch.float32, device=dev)
         self.args = (
             ctypes.addressof(self._ptrs), ctypes.addressof(self._scales),
             len(layers), b, t, e, f, num_heads, w.shape[1],
-            w.stride(0), w.stride(1), self.rows, kinds.pop(),
+            w.stride(0), w.stride(1), self.rows, self.cs, kind,
         )
 
 
@@ -310,13 +347,15 @@ def _stacked(states, shape) -> torch.Tensor:
 
 def whole_step_kernel(
     layers, states, x, mask_add, kv_caches, num_heads, projection,
-    out_aq, out_inv, plan: Optional[StepPlan] = None,
+    out_aq, out_inv, plan: Optional[StepPlan] = None, _cluster: Optional[int] = None,
 ):
-    """Launch csrc/decoder_step.cu on CUDA tensors. `launches` counts
-    the whole-step launches."""
+    """Launch csrc/decoder_step.cu on CUDA tensors, the layers on clusters
+    of `step_layout` blocks (`_cluster`, without a plan, forces a size for
+    the card checks that compare them). `launches` counts the whole-step
+    launches."""
     if plan is None:
         plan = StepPlan(layers, kv_caches, mask_add, num_heads, projection,
-                        out_aq, out_inv)
+                        out_aq, out_inv, _cluster)
     n_layers, b, t, e = plan.shape
     if not x.is_cuda or x.device != plan.device:
         raise ValueError(f"x must be on {plan.device}, got {x.device}")
@@ -368,15 +407,18 @@ def whole_decode_step(
     raise ValueError(f"unsupported device {x.device}")
 
 
-def _layer_step_kernel(layer, state, x, mask_add, kv, num_heads, split: bool):
+def _layer_step_kernel(layer, state, x, mask_add, kv, num_heads, split: bool,
+                       _cluster: Optional[int]):
     """Launch slimt_decoder_layer_step (csrc/decoder_step.cu): one layer
-    over a joined [B, T, E] or split [B, H, T, D] float cache. Returns (y,
-    c', attn0)."""
+    over a joined [B, T, E] or split [B, H, T, D] float cache, on clusters
+    as the whole step's. Returns (y, c', attn0)."""
     k, v = kv
     b, e = x.shape[0], x.shape[-1]
     t = k.shape[2] if split else k.shape[1]
     f = layer["ffn"]["w1"]["q"].shape[1]
     check_shapes(e, f, t, num_heads, 1)
+    if _cluster is not None:
+        check_cluster(_cluster, e, f)
     if not x.is_cuda:
         raise ValueError(f"the kernel takes CUDA tensors, got {x.device}")
     want = (b, num_heads, t, e // num_heads) if split else (b, t, e)
@@ -393,10 +435,11 @@ def _layer_step_kernel(layer, state, x, mask_add, kv, num_heads, split: bool):
     for tensor in (x2, c_in):
         if tensor.device != dev or tensor.data_ptr() % 16:
             raise ValueError("x and the state must be 16-byte aligned on one device")
+    cs, rows = step_layout(b, e, f, num_heads, t, kind, dev.index, _cluster)
     lib = _build.library()
     code = lib.slimt_decoder_layer_step(
         ctypes.addressof(ptrs), ctypes.addressof(scales), b, t, e, f, num_heads,
-        step_rows(b, e, f, num_heads, t), kind,
+        rows, cs, kind,
         x2.data_ptr(), c_in.data_ptr(), c_out.data_ptr(), attn0.data_ptr(),
         y.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -404,10 +447,10 @@ def _layer_step_kernel(layer, state, x, mask_add, kv, num_heads, split: bool):
     return y, c_out, attn0
 
 
-def decoder_layer_step_bte_kernel(layer, state, x, mask_add, kv, num_heads):
+def decoder_layer_step_bte_kernel(layer, state, x, mask_add, kv, num_heads, _cluster=None):
     """Launch the joined-cache layer step on CUDA tensors. `launches`
     counts its launches."""
-    out = _layer_step_kernel(layer, state, x, mask_add, kv, num_heads, split=False)
+    out = _layer_step_kernel(layer, state, x, mask_add, kv, num_heads, False, _cluster)
     decoder_layer_step_bte_kernel.launches += 1
     return out
 
@@ -415,10 +458,10 @@ def decoder_layer_step_bte_kernel(layer, state, x, mask_add, kv, num_heads):
 decoder_layer_step_bte_kernel.launches = 0
 
 
-def decoder_layer_step_kernel(layer, state, x, mask_add, kv, num_heads):
+def decoder_layer_step_kernel(layer, state, x, mask_add, kv, num_heads, _cluster=None):
     """Launch the split-cache layer step on CUDA tensors. `launches`
     counts its launches."""
-    out = _layer_step_kernel(layer, state, x, mask_add, kv, num_heads, split=True)
+    out = _layer_step_kernel(layer, state, x, mask_add, kv, num_heads, True, _cluster)
     decoder_layer_step_kernel.launches += 1
     return out
 

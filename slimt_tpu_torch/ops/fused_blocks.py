@@ -11,11 +11,17 @@ functions do. On a CUDA tensor `ssru_block` and `ffn_block` launch
 csrc/fused_blocks.cu or raise; on a CPU tensor they run the plain
 versions below, which call `qmm.affine_plain` directly, so that on the
 card they share no kernel with what they are compared against.
+
+The FFN block (and the whole decode step's layers kernel) runs a tile of
+rows on a thread-block cluster of `cs` blocks that split its products;
+`cluster_layout` picks cs and the rows of a tile from the batch, and
+`fit_cluster` halves cs until the card holds every tile's cluster at once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -49,10 +55,68 @@ def ffn_plain(x, ffn):
 
 
 def rows_per_block(m: int) -> int:
-    """Rows a block of these kernels (and of the whole step's layers
+    """Rows a tile of these kernels (and of the whole step's layers
     kernel) takes: one spreads a small batch over the SMs, four cut the
     weight reads at large M."""
     return 1 if m <= 64 else 4
+
+
+# Blocks a row tile's cluster may take.
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+
+
+def cluster_layout(b: int, e: int, f: int) -> tuple:
+    """(cs, rows) for B rows of width E and hidden width F: rows a tile
+    (`rows_per_block`) and the largest cluster size whose blocks split E
+    and F in multiples of 16 columns (16 at tiny and base widths). What
+    the card holds at once decides the rest (`fit_cluster`): at B=512 on
+    the H100, one block a tile for the layers kernel, clusters of 2 for
+    the FFN block, which holds several blocks an SM there."""
+    sizes = [cs for cs in CLUSTER_SIZES if not (e % (16 * cs) or f % (16 * cs))]
+    return max(sizes), rows_per_block(b)
+
+
+def check_cluster(cs: int, e: int, f: int) -> None:
+    """ValueError on a cluster size the kernels do not take at these widths."""
+    if cs not in CLUSTER_SIZES or e % (16 * cs) or f % (16 * cs):
+        raise ValueError(f"a cluster of {cs} blocks: sizes {CLUSTER_SIZES} whose "
+                         f"blocks take multiples of 16 of E={e} and F={f}")
+
+
+def fit_cluster(capacity, cs: int, tiles: int, what: str, forced: bool = False) -> int:
+    """The largest cluster size from cs down (halving) whose clusters, one
+    a row tile, the card holds at once: capacity(cs) >= tiles, where
+    capacity is what the C entry reports (a second wave of clusters would
+    double the time). One block (cs = 1) and a forced size need only fit
+    once; where they do not, raise instead of shrinking."""
+    while True:
+        have = capacity(cs)
+        if have >= 1 and (forced or cs == 1 or have >= tiles):
+            return cs
+        if forced or cs == 1:
+            raise RuntimeError(f"{what}: the card cannot schedule a cluster of {cs} blocks")
+        cs //= 2
+
+
+@functools.lru_cache(maxsize=256)
+def card_query(device: int, entry: str, *args: int) -> int:
+    """What the C entry `entry` reports for `args` on card `device` (the
+    entries ask the current device): the rows or clusters a shape takes,
+    which depend on the card and the shape alone."""
+    with torch.cuda.device(device):
+        return getattr(_build.library(), entry)(*args)
+
+
+def ffn_layout(m: int, e: int, f: int, device: int, _cluster=None) -> tuple:
+    """(cs, rows) of the FFN block on card `device`: `cluster_layout`'s,
+    or a cluster of `_cluster` blocks, fitted to the card (`fit_cluster`)."""
+    cs, rows = cluster_layout(m, e, f)
+    if _cluster is not None:
+        check_cluster(_cluster, e, f)
+        cs = _cluster
+    cs = fit_cluster(lambda size: card_query(device, "slimt_ffn_clusters", rows, size, e, f),
+                     cs, -(-m // rows), "FFN block", _cluster is not None)
+    return cs, rows
 
 
 def _check(x, tensors, e: int, f=None) -> None:
@@ -101,19 +165,24 @@ def ssru_kernel(x, state, rnn):
 ssru_kernel.launches = 0
 
 
-def ffn_kernel(x, ffn):
-    """Launch csrc/fused_blocks.cu's FFN block on CUDA [M, E] rows.
+def ffn_kernel(x, ffn, _cluster=None):
+    """Launch csrc/fused_blocks.cu's FFN block on CUDA [M, E] rows, a tile
+    on a cluster of `ffn_layout` blocks (`_cluster` forces a size, for the
+    card checks that compare them; one the card cannot schedule raises).
     `launches` counts the launches."""
     m, e = x.shape
     w1, w2, ln = ffn["w1"], ffn["w2"], ffn["ln"]
     f = w1["q"].shape[1]
+    if _cluster is not None:
+        check_cluster(_cluster, e, f)
     _check(x, (w1["q"], w1["b"], w2["q"], w2["b"], ln["scale"], ln["bias"]), e, f)
+    cs, rows = ffn_layout(m, e, f, x.device.index, _cluster)
     out = torch.empty_like(x)
     lib = _build.library()
     code = lib.slimt_ffn_block(
         x.data_ptr(), w1["q"].data_ptr(), w1["b"].data_ptr(), w2["q"].data_ptr(),
         w2["b"].data_ptr(), ln["scale"].data_ptr(), ln["bias"].data_ptr(),
-        out.data_ptr(), m, e, f, rows_per_block(m),
+        out.data_ptr(), m, e, f, rows, cs,
         _scale(w1["aq"]), _scale(w1["inv"]), _scale(w2["aq"]), _scale(w2["inv"]),
         torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -6,6 +6,8 @@ nothing of the JAX package, so it runs on a machine with only PyTorch:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
 
+import itertools
+
 import numpy as np
 import pytest
 
@@ -18,7 +20,7 @@ from slimt_tpu_torch.io.loader import load_weights  # noqa: E402
 from slimt_tpu_torch.io.synthetic import synthetic_model_bytes  # noqa: E402
 from slimt_tpu_torch.io.params import params_from_numpy  # noqa: E402
 from slimt_tpu_torch.models import transformer as tfm  # noqa: E402
-from slimt_tpu_torch.ops import attention, decode_attn  # noqa: E402
+from slimt_tpu_torch.ops import _build, attention, decode_attn  # noqa: E402
 from slimt_tpu_torch.ops import decoder_step as dstep  # noqa: E402
 from slimt_tpu_torch.ops import encoder_layer as enc  # noqa: E402
 from slimt_tpu_torch.ops import fused_blocks, logits_argmax, qmm  # noqa: E402
@@ -320,28 +322,32 @@ def test_blockwise_kernel_matches_plain(card, b, t, d):
 
 def test_whole_step_rows(card):
     """The C entry picks the layers kernel's rows a block from the card's
-    shared memory: 4 rows fit up to T=1448 at tiny widths, 1 row up to
-    T=6896; past that the step raises."""
+    shared memory: on one block (cs=1) 4 rows fit up to T=1560 at tiny
+    widths, 1 row up to T=7008; past that the step raises. A block of a
+    cluster holds the scores of its heads only: at cs=4 (2 heads a
+    block) 4 rows fit at T=2048."""
     e, f, heads = 256, 1536, 8
-    assert dstep.step_rows(130, e, f, heads, 1448) == 4
-    assert dstep.step_rows(130, e, f, heads, 1449) == 1
+    assert dstep.step_rows(130, e, f, heads, 1560) == 4
+    assert dstep.step_rows(130, e, f, heads, 1561) == 1
     assert dstep.step_rows(8, e, f, heads, 1024) == 1
-    assert dstep.step_rows(130, e, f, heads, 6896) == 1
+    assert dstep.step_rows(130, e, f, heads, 7008) == 1
+    assert dstep.step_rows(130, e, f, heads, 2048, cs=4) == 4
     with pytest.raises(ValueError, match="shared memory"):
-        dstep.step_rows(1, e, f, heads, 6897)
+        dstep.step_rows(1, e, f, heads, 7009)
 
 
 @pytest.mark.parametrize("b", [1, 8, 130])
 def test_whole_step_kernel_long_t(card, b):
-    """T=1024 (B=130 takes 4 rows a block, which fit up to T=1448 at
-    these widths) and T=2048 (1 row a block): the kernel's own bound, not
+    """T=1024 and T=2048 (B=130 takes 4 rows a tile on a cluster of 4,
+    whose blocks hold 2 heads' scores each): the kernel's own bound, not
     the encoder's. As in chip_smoke.py, every row within 0.25 on states
     and head-0 attention (an int8 rounding flip in layer 1 moves a row by
     up to ~0.06) and >= 99% of the rows with a real key within 2e-5."""
     for t in (1024, 2048):
         params, args = _step_case(card, b, t, False, seed=b + t)
         plan = dstep.StepPlan(args[0], args[4], args[3], 8, *args[6:])
-        assert plan.rows == (4 if b > 64 and t <= 1448 else 1)
+        assert plan.rows == dstep.step_rows(b, 256, 1536, 8, t, plan.cs)
+        assert plan.rows == (4 if b > 64 else 1)
         choice, states, attn0 = dstep.whole_decode_step(*args, plan=plan)
         want_choice, want_states, want_attn0 = dstep.whole_step_plain(*args)
         torch.cuda.synchronize()
@@ -512,3 +518,178 @@ def test_forward_async_returns_before_the_batch_completes(card, monkeypatch):
     assert not done.is_set()
     assert [h.target for h in finish()] == want
     assert done.is_set()
+
+
+# The cluster layout of the layers kernel (#7, #10, #11) and the FFN block
+# (#5): every cluster size the chooser can return, each against the plain
+# version by the smoke's rules and bit for bit against one block (cs=1).
+CLUSTERS = fused_blocks.CLUSTER_SIZES
+STEP_CACHES = ("int16",) + tuple(FLOAT_CACHES)
+
+
+def _cluster_step_case(card, emb, ffn, b, t, cache, seed):
+    """Whole-step arguments at the given widths over an int16 or float
+    joined cache; one row padded, one fully masked (b > 1)."""
+    config = ModelConfig(encoder_layers=1, decoder_layers=2, num_heads=8)
+    host = load_weights(load_items(synthetic_model_bytes(
+        config=config, vocab_size=STEP_VOCAB, emb_dim=emb, ffn_dim=ffn, seed=seed)), config)
+    params = params_from_numpy(host, card)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    x = torch.randn((b, 1, emb), device=card, generator=gen) * 2.0
+    states = tuple(torch.randn((b, 1, emb), device=card, generator=gen) for _ in range(2))
+    mask_add, _ = _padded_mask(card, b, t)
+    if cache == "int16":
+        caches = tuple(
+            {"k": torch.randint(-32767, 32768, (b, t, emb), device=card, dtype=torch.int16,
+                                generator=gen),
+             "v": torch.randint(-32767, 32768, (b, t, emb), device=card, dtype=torch.int16,
+                                generator=gen),
+             "kqi": (torch.rand((b, t), device=card, generator=gen) * 1.5 + 0.5) / 32767,
+             "vqi": (torch.rand((b, t), device=card, generator=gen) * 1.5 + 0.5) / 32767}
+            for _ in range(2))
+    else:
+        one = torch.ones((), device=card)
+        caches = tuple(
+            {"k": (torch.randn((b, t, emb), device=card, generator=gen) * 0.5).to(
+                FLOAT_CACHES[cache]),
+             "v": (torch.randn((b, t, emb), device=card, generator=gen) * 0.5).to(
+                FLOAT_CACHES[cache]),
+             "kqi": one, "vqi": one}
+            for _ in range(2))
+    projection = tfm.prepare_output_projection(params, None)
+    return (params["decoder"], states, x, mask_add, caches, 8, projection,
+            params["out"]["aq"], tfm.output_inv(params))
+
+
+@pytest.mark.parametrize("emb,ffn", [(256, 1536), (512, 2048)], ids=["tiny", "base"])
+def test_whole_step_every_cluster_size(card, emb, ffn):
+    """The whole step on clusters of 1-16 blocks at B 1, 2, 8, 33, 64 and
+    130 over the int16 and the three float caches at T 16, 64 and 1024:
+    every output of a cluster bit-equal to one block's, the choices equal
+    to the plain projection of the kernel's own rows, and one block
+    against the plain layers by the smoke's rules over the test's cases,
+    as chip_smoke.py counts them (every row within 0.25 on the
+    projection's input rows, the states and attn0; >= 99% of the rows
+    within 2e-5, and on a float cache attn0 of a real row within 1e-6,
+    PAD_TOL on a padding row)."""
+    rows = within = 0
+    for b, t, cache in itertools.product((1, 2, 8, 33, 64, 130), (16, 64, 1024), STEP_CACHES):
+        args = _cluster_step_case(card, emb, ffn, b, t, cache, seed=b + t + emb)
+        want_y, want_states, want_attn0 = dstep.layers_plain(*args[:6])
+        real = (args[3][:, 0, 0, :] == 0).any(-1)
+        first = None
+        for cs in CLUSTERS:
+            plan = dstep.StepPlan(args[0], args[4], args[3], 8, *args[6:], _cluster=cs)
+            assert plan.cs == cs
+            choice, states, attn0 = dstep.whole_decode_step(*args, plan=plan)
+            y = plan.scratch[:b * emb].view(b, emb).clone()
+            torch.cuda.synchronize()
+            label = f"{cache} B={b} T={t} cs={cs}"
+            projected = dstep.argmax_affine_plain(y, *args[6], args[7], args[8])
+            assert torch.equal(choice, projected), label
+            if first is not None:
+                assert torch.equal(y, first[0]) and torch.equal(choice, first[1]), label
+                assert all(torch.equal(a, c) for a, c in zip(states, first[2])), label
+                assert torch.equal(attn0, first[3]), label
+                continue
+            first = (y, choice, states, attn0)
+            state_err = (y - want_y).abs().amax(-1)
+            for got, want in zip(states, want_states):
+                state_err = torch.maximum(state_err, (got - want).abs().amax((1, 2)))
+            attn_err = (attn0 - want_attn0).abs().amax(-1)
+            worst = float(torch.maximum(state_err, attn_err).max())
+            assert worst <= 0.25, f"{label}: max |diff| {worst}"  # also catches NaN
+            # check_step's rule on the int16 cache, RowShare's on a float one.
+            real_tol, pad_tol = (2e-5, 2e-5) if cache == "int16" else (1e-6, PAD_TOL)
+            ok = (state_err <= 2e-5) & torch.where(real, attn_err <= real_tol,
+                                                   attn_err <= pad_tol)
+            rows += b
+            within += int(ok.sum())
+    assert within / rows >= 0.99, f"{within}/{rows} rows within the tolerance"
+
+
+@pytest.mark.parametrize("m", [1, 8, 33, 130])
+@pytest.mark.parametrize("emb,ffn", [(256, 1536), (512, 2048)], ids=["tiny", "base"])
+def test_ffn_block_every_cluster_size(card, emb, ffn, m):
+    """The FFN block on clusters of 1-16 blocks: against ffn_plain within
+    2e-5 on every row, and each cluster's output bit-equal to one
+    block's."""
+    layer = _decoder_layer(card, emb, ffn, seed=m + 7)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(m)
+    x = torch.randn((m, emb), device=card, generator=gen) * 2.0
+    want = fused_blocks.ffn_plain(x, layer["ffn"])
+    first = None
+    for cs in CLUSTERS:
+        before = fused_blocks.ffn_kernel.launches
+        got = fused_blocks.ffn_kernel(x, layer["ffn"], _cluster=cs)
+        assert fused_blocks.ffn_kernel.launches == before + 1
+        torch.cuda.synchronize()
+        if first is None:
+            first = got
+            assert float((got - want).abs().max()) <= 2e-5
+        else:
+            assert torch.equal(got, first), cs
+
+
+@pytest.mark.parametrize("b,t", [(1, 64), (8, 16), (130, 1024)])
+@pytest.mark.parametrize("dtype", list(FLOAT_CACHES))
+@pytest.mark.parametrize("split", [True, False], ids=["split", "joined"])
+def test_layer_steps_every_cluster_size(card, split, dtype, b, t):
+    """#10 and #11 through the cluster layers kernel: one block against
+    the plain version, every cluster bit-equal to it."""
+    layer = _decoder_layer(card, 256, 1536, seed=b + 2 * t)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(b + t)
+    x = torch.randn((b, 1, 256), device=card, generator=gen) * 2.0
+    c = torch.randn((b, 1, 256), device=card, generator=gen)
+    shape = (b, 8, t, 32) if split else (b, t, 256)
+    kv = tuple((torch.randn(shape, device=card, generator=gen) * 0.5).to(FLOAT_CACHES[dtype])
+               for _ in range(2))
+    mask_add, real = _padded_mask(card, b, t)
+    kernel, plain = ((dstep.decoder_layer_step_kernel, dstep.decoder_layer_step_plain) if split
+                     else (dstep.decoder_layer_step_bte_kernel,
+                           dstep.decoder_layer_step_bte_plain))
+    first = None
+    for cs in CLUSTERS:
+        out = kernel(layer, c, x, mask_add, kv, 8, _cluster=cs)
+        torch.cuda.synchronize()
+        if first is None:
+            first = out
+            want_y, want_c, want_attn0 = plain(layer, c, x, mask_add, kv, 8)
+            row_err = torch.maximum((out[0] - want_y).abs().amax((1, 2)),
+                                    (out[1] - want_c).abs().amax((1, 2)))
+            _row_rule(f"{'split' if split else 'joined'} {dtype} B={b} T={t}", row_err,
+                      (out[2] - want_attn0).abs().amax(-1), real)
+        else:
+            assert all(torch.equal(a, w) for a, w in zip(out, first)), cs
+
+
+@pytest.mark.parametrize("b", [1, 8, 64, 130, 512])
+def test_step_layout_holds_every_cluster_at_once(card, b):
+    """The chooser's size, halved only where the card cannot hold one
+    cluster a row tile at once."""
+    lib = _build.library()
+    want_cs, rows = fused_blocks.cluster_layout(b, 256, 1536)
+    cs, got_rows = dstep.step_layout(b, 256, 1536, 8, 64, 0, torch.cuda.current_device())
+    assert cs <= want_cs and got_rows == rows
+    tiles = -(-b // rows)
+    assert cs == 1 or lib.slimt_step_clusters(rows, cs, 256, 1536, 8, 64, 0) >= tiles
+    if cs < want_cs:
+        assert lib.slimt_step_clusters(rows, 2 * cs, 256, 1536, 8, 64, 0) < tiles
+
+
+def test_refused_cluster_launch_raises(card, monkeypatch):
+    """A cluster the C entries refuse (here 3 blocks) raises from the
+    wrapper: nothing carries on with another layout or the plain path."""
+    layer = _decoder_layer(card, 256, 1536, seed=3)
+    x = torch.randn((1, 256), device=card)
+    lib = _build.library()
+    assert lib.slimt_ffn_clusters(1, 3, 256, 1536) == 0
+    assert lib.slimt_step_clusters(1, 32, 256, 1536, 8, 64, 0) == 0
+    monkeypatch.setattr(fused_blocks, "ffn_layout", lambda *args: (3, 1))
+    before = fused_blocks.ffn_kernel.launches
+    with pytest.raises(RuntimeError, match="slimt_ffn_block"):
+        fused_blocks.ffn_kernel(x, layer["ffn"])
+    assert fused_blocks.ffn_kernel.launches == before
