@@ -27,7 +27,8 @@ without printing a result:
              within 2e-5 on >= 99% of rows and every row within 0.25,
              the decode attention within 2e-5, the projection argmax
              bit-equal in its three methods (exact, packed_fp16,
-             packed_bf16; a tie across vocab tiles included), at tiny
+             packed_bf16; a tie across vocab tiles at two row-tile
+             heights, a partial last tile of negative logits), at tiny
              and base widths; the split encoder's fused SDPA within
              2e-5 at B in (1, 33, 512), T in (16, 17, 64, 100, 256), E in
              (256, 512), and its blockwise attention within 2e-5 abs + 1e-5
@@ -41,8 +42,9 @@ without printing a result:
              the states and 1e-6 on the head-0 attention of a real row
              (padding rows 1e-4), every row within 0.25, the whole step's
              choices equal on >= 99.9% of rows; the whole step, #10,
-             #11 and the FFN block on the chooser's thread-block cluster
-             layout and on one block a row tile (cs=1), each against the
+             #11, the SSRU and the FFN block on the chooser's
+             thread-block cluster layout and on one block a row tile
+             (cs=1), each against the
              plain version and the first bit-equal to the second; times
              beside the plain versions' (and, for the two attention
              kernels, one scaled_dot_product_attention call's), each with
@@ -100,18 +102,24 @@ The second-to-last line is the kernels' JSON record (eleven kernels;
 launches from the serving paths, but for #10 and #11, which no serving
 path reaches: theirs are the kernels phase's; graph_ms, the device ms a
 call from a CUDA graph; cs1_ms and cs1_graph_ms, the times on one block
-a row tile, for the kernels on a cluster; qmm_affine also lists its
-times at the six timed shapes under "shapes"), the last line {"ok":
-true, "device": {...}}.
+a row tile, for the kernels on a cluster; ssru_block and argmax_affine
+also list graph_ms_by_b, the device ms at B = 1, 64 and 512, and
+argmax_affine split_ms_by_b, its projection and pick kernels' device ms
+from torch.profiler; qmm_affine also lists its times at the six timed
+shapes under "shapes"), the last line {"ok": true, "device": {...}}.
 
-`python3 chip_smoke.py --layouts OUT` runs no check: it times #7 (the
-whole step, T=64, full vocabulary), #5 (the FFN block) and #10 (split
-float32 cache, T=64) at B in LAYOUT_BATCHES, tiny widths, on the
-`slimt_tpu_torch` package beside the script, with the wrapper's own
-layout and, where the package can force one, on every cluster size the
-card schedules: CUDA-event ms and the median of three graph replays,
-written as one JSON object to OUT. A copy of the script beside another
-tree's package times that tree; run both in one call, in turns.
+`python3 chip_smoke.py --layouts OUT [KERNEL ...]` runs no check: it
+times #7 (the whole step, T=64, full vocabulary), #5 (the FFN block),
+#10 (split float32 cache, T=64) and #6 (the SSRU block) at B in
+LAYOUT_BATCHES, and #4 (the argmax, exact and packed_fp16, full
+vocabulary and shortlists of 1024 and 3072) at B in ARGMAX_BATCHES, tiny
+widths, on the `slimt_tpu_torch` package beside the script, with the
+wrapper's own layout and, where the package can force one, on every
+cluster size the card schedules: CUDA-event ms and the median of three
+graph replays (for #4 also each kernel's device ms from
+torch.profiler), written as one JSON object to OUT. KERNEL names limit
+it to some of LAYOUT_KERNELS. A copy of the script beside another tree's
+package times that tree; run both in one call, in turns.
 """
 
 from __future__ import annotations
@@ -525,24 +533,26 @@ def check_tie(torch, lam, tfm, params):
     method of the argmax kernel."""
     dev = params["emb"]["q"].device
     emb = params["emb"]["q"].clone()
-    first, second = 301, 20006  # tiles 1 and 78 of 256 columns
+    # Tiles 2 and 156 of the kernel's 128 columns.
+    first, second = 301, 20006
     emb[second] = emb[first]
     bias = params["out"]["b"].clone()
     bias[second] = bias[first]
-    ids = torch.arange(0, VOCAB, 7, device=dev)  # holds both, in tiles 0 and 11
+    ids = torch.arange(0, VOCAB, 7, device=dev)  # holds both, in tiles 0 and 22 of 128
     for label, w, b, col in (
         ("full", emb.T, bias, first),
         ("shortlist", emb.index_select(0, ids).T, bias.index_select(0, ids),
          int((ids == first).nonzero())),
     ):
-        y = (w[:, col].float() / 40.0).repeat(3, 1).contiguous()
-        for method in lam.METHODS:
-            got = lam.argmax_affine_kernel(y, w, b, 20.0, 1e-3, method)
-            want = lam.argmax_affine_plain(y, w, b, 20.0, 1e-3, method)
-            torch.cuda.synchronize()
-            if got.tolist() != [col] * 3 or not torch.equal(got, want):
-                raise RuntimeError(f"tie ({label}, {method}): kernel {got.tolist()}, "
-                                   f"plain {want.tolist()}, first column {col}")
+        for rows in (3, 20):  # one row tile of 16, then of 32
+            y = (w[:, col].float() / 40.0).repeat(rows, 1).contiguous()
+            for method in lam.METHODS:
+                got = lam.argmax_affine_kernel(y, w, b, 20.0, 1e-3, method)
+                want = lam.argmax_affine_plain(y, w, b, 20.0, 1e-3, method)
+                torch.cuda.synchronize()
+                if got.tolist() != [col] * rows or not torch.equal(got, want):
+                    raise RuntimeError(f"tie ({label}, B={rows}, {method}): kernel "
+                                       f"{got.tolist()}, plain {want.tolist()}, first column {col}")
     log("projection tie across vocab tiles: the first column wins "
         f"(full, shortlist; {', '.join(lam.METHODS)})")
 
@@ -781,13 +791,13 @@ def rows_check(label, row_err, tol, bound):
 
 def check_blocks(torch, fblocks, dev, load_host, params_from_numpy):
     """SSRU and FFN blocks vs plain at tiny and base widths: >= 99% of
-    rows within STEP_TOL, every row within FLIP_BOUND, the FFN block on the
+    rows within STEP_TOL, every row within FLIP_BOUND, each block on the
     chooser's cluster layout and on one block a row tile (cs=1), the
     first bit-equal to the second; times at T=1 rows (decode), B in {1,
-    64, 512}, the FFN block's two layouts in turns."""
+    64, 512}, each block's two layouts in turns."""
     worst = {"ssru_block": 0.0, "ffn_block": 0.0}
     rows = {"ssru_block": [0, 0], "ffn_block": [0, 0]}
-    timing = {}
+    timing = {"ssru_block": {}}
     exact = 0
     for emb, ffn in ((EMB, FFN), (512, 2048)):
         layers = params_from_numpy(load_host(emb, ffn, 1, DEC), dev)["decoder"]
@@ -798,19 +808,24 @@ def check_blocks(torch, fblocks, dev, load_host, params_from_numpy):
                 x = torch.randn((b, emb), device=dev, generator=gen) * 2.0
                 c = torch.randn((b, emb), device=dev, generator=gen)
                 h, c_t = fblocks.ssru_kernel(x, c, layer["rnn"])
+                h_one, c_one = fblocks.ssru_kernel(x, c, layer["rnn"], _cluster=1)
                 want_h, want_c = fblocks.ssru_plain(x, c, layer["rnn"])
                 y = fblocks.ffn_kernel(x, layer["ffn"])
                 y_one = fblocks.ffn_kernel(x, layer["ffn"], _cluster=1)
                 want_y = fblocks.ffn_plain(x, layer["ffn"])
                 torch.cuda.synchronize()
                 label = f"E={emb} F={ffn} B={b}"
+                if not bit_equal((h, c_t), (h_one, c_one)):
+                    raise RuntimeError(f"ssru_block {label}: the cluster layout is not "
+                                       "bit-equal to cs=1")
                 if not torch.equal(y, y_one):
                     raise RuntimeError(f"ffn_block {label}: the cluster layout is not "
                                        "bit-equal to cs=1")
                 exact += 1
+                ssru_err = torch.maximum((h - want_h).abs().amax(-1), (c_t - want_c).abs().amax(-1))
                 for name, err in (
-                    ("ssru_block", torch.maximum((h - want_h).abs().amax(-1),
-                                                 (c_t - want_c).abs().amax(-1))),
+                    ("ssru_block", torch.maximum(ssru_err, torch.maximum(
+                        (h_one - want_h).abs().amax(-1), (c_one - want_c).abs().amax(-1)))),
                     ("ffn_block", torch.maximum((y - want_y).abs().amax(-1),
                                                 (y_one - want_y).abs().amax(-1))),
                 ):
@@ -822,12 +837,13 @@ def check_blocks(torch, fblocks, dev, load_host, params_from_numpy):
         for b in (1, 64, 512):
             x = torch.randn((b, emb), device=dev, generator=gen)
             c = torch.randn((b, emb), device=dev, generator=gen)
-            ssru = {"ms": cuda_ms(torch, lambda: fblocks.ssru_kernel(x, c, layer["rnn"]), 50),
-                    "graph_ms": graph_ms(torch, lambda: fblocks.ssru_kernel(x, c, layer["rnn"])),
-                    "plain_ms": cuda_ms(torch, lambda: fblocks.ssru_plain(x, c, layer["rnn"]),
-                                        20)}
-            log(f"time ssru_block E={emb} F={ffn} B={b}: kernel {ssru['ms']:.4f} ms "
-                f"({ssru['graph_ms']:.4f} ms in a CUDA graph), plain {ssru['plain_ms']:.4f} ms")
+            cs = fblocks.ssru_layout(b, emb, dev.index)[0]
+            ssru = layouts_in_turns(
+                torch, f"ssru_block E={emb} B={b} (cs={cs})",
+                lambda: fblocks.ssru_kernel(x, c, layer["rnn"]),
+                lambda: fblocks.ssru_kernel(x, c, layer["rnn"], _cluster=1))
+            ssru["plain_ms"] = cuda_ms(torch, lambda: fblocks.ssru_plain(x, c, layer["rnn"]), 20)
+            log(f"time ssru_block E={emb} B={b}: plain {ssru['plain_ms']:.4f} ms")
             cs = fblocks.ffn_layout(b, emb, ffn, dev.index)[0]
             ffn_times = layouts_in_turns(
                 torch, f"ffn_block E={emb} F={ffn} B={b} (cs={cs})",
@@ -837,10 +853,11 @@ def check_blocks(torch, fblocks, dev, load_host, params_from_numpy):
             log(f"time ffn_block E={emb} F={ffn} B={b}: plain {ffn_times['plain_ms']:.4f} ms")
             if emb == EMB:
                 timing[f"ffn_block B={b}"] = ffn_times
+                timing["ssru_block"].setdefault("graph_ms_by_b", {})[b] = ssru["graph_ms"]
             if (emb, b) == (EMB, 64):
-                timing["ssru_block"] = ssru
+                timing["ssru_block"].update(ssru)
                 timing["ffn_block"] = ffn_times
-    log(f"ffn_block: the cluster layout bit-equal to cs=1 on {exact} cases")
+    log(f"ssru_block, ffn_block: the cluster layout bit-equal to cs=1 on {exact} cases each")
     for name, (n, within) in rows.items():
         log(f"{name}: {within}/{n} rows within {STEP_TOL} ({within / n:.6f}), "
             f"max |diff| {worst[name]:.3g}")
@@ -902,10 +919,12 @@ def check_attention(torch, dattn, dev):
 
 def check_argmax(torch, lam, tfm, widths):
     """The argmax kernel bit-equal to plain in every method, at each
-    width's params (tiny first), full vocab and shortlists of 1024 and
-    3072, B in {1, 8, 33, 64, 512}; times at tiny width. Returns (most
-    differing indices in a case, which must be 0; the B=64 exact
-    times)."""
+    width's params (tiny first), full vocab and shortlists of 1024, 3072
+    and 1000 (a partial last tile, also with every logit negative), B in
+    {1, 8, 33, 64, 512}; times at tiny width, B in {1, 64, 512}, with the
+    projection and pick kernels' device times. Returns (most differing
+    indices in a case, which must be 0; the B=64 exact times, with the
+    exact method's device ms and split at each B)."""
     cases = differ = 0
     for params in widths:
         dev = params["emb"]["q"].device
@@ -913,9 +932,13 @@ def check_argmax(torch, lam, tfm, widths):
         gen = torch.Generator(device=dev)
         gen.manual_seed(emb)
         projections = {"full": tfm.prepare_output_projection(params)}
-        for width in (1024, 3072):
+        for width in (1024, 3072, 1000):
             ids = torch.randperm(VOCAB, device=dev, generator=gen)[:width].sort().values
             projections[f"shortlist {width}"] = tfm.prepare_output_projection(params, ids)
+        # A partial last tile (1000 columns) where every logit is negative:
+        # its padding columns must never win.
+        w, b = projections["shortlist 1000"]
+        projections["shortlist 1000, negative"] = (w, b - 100.0)
         aq, inv = params["out"]["aq"], tfm.output_inv(params)
         for label, (w, b) in projections.items():
             for rows in (1, 8, 33, 64, 512):
@@ -937,6 +960,7 @@ def check_argmax(torch, lam, tfm, widths):
     w, b = tfm.prepare_output_projection(params)
     gen = torch.Generator(device=w.device)
     gen.manual_seed(5)
+    by_b = {}
     for rows in (1, 64, 512):
         y = torch.randn((rows, EMB), device=dev, generator=gen)
         for method in lam.METHODS:
@@ -946,10 +970,18 @@ def check_argmax(torch, lam, tfm, widths):
             times = {"ms": cuda_ms(torch, kernel, 50), "graph_ms": graph_ms(torch, kernel),
                      "plain_ms": cuda_ms(torch, lambda: lam.argmax_affine_plain(
                          y, w, b, aq, inv, method), 20)}
+            split = {("project" if "project" in name else "pick" if "pick" in name else name): ms
+                     for name, ms in kernel_split(torch, kernel).items()}
             log(f"time argmax {method} B={rows} V={VOCAB}: kernel {times['ms']:.4f} ms "
-                f"({times['graph_ms']:.4f} ms in a CUDA graph), plain {times['plain_ms']:.4f} ms")
+                f"({times['graph_ms']:.4f} ms in a CUDA graph; by kernel "
+                f"{ {k: round(v, 4) for k, v in split.items()} }), plain "
+                f"{times['plain_ms']:.4f} ms")
+            if method == "exact":
+                by_b[rows] = {"graph_ms": times["graph_ms"], "split_ms": split}
             if (rows, method) == (64, "exact"):
                 timing = times
+    timing["graph_ms_by_b"] = {rows: t["graph_ms"] for rows, t in by_b.items()}
+    timing["split_ms_by_b"] = {rows: t["split_ms"] for rows, t in by_b.items()}
     return float(differ), timing
 
 
@@ -1462,9 +1494,35 @@ def longctx(torch, tfm, params, name, smi):
 
 
 LAYOUT_BATCHES = (1, 8, 64, 130, 200, 512)
+LAYOUT_KERNELS = ("whole_decode_step", "ffn_block", "decoder_layer_step", "ssru_block",
+                  "argmax_affine")
+# The argmax (#4) at the batches the records keep, its exact and packed
+# methods, the full vocabulary and the two shortlists.
+ARGMAX_BATCHES = (1, 64, 512)
+ARGMAX_METHODS = ("exact", "packed_fp16")
+ARGMAX_WIDTHS = (0, 1024, 3072)
 
 
-def layout_times(out: str) -> None:
+def kernel_split(torch, fn, calls=20):
+    """Device ms per call of `fn` by kernel name: `calls` calls (already
+    warm) under torch.profiler, each kernel's time summed and divided by
+    `calls`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            split[event.name] = split.get(event.name, 0.0) + event.time_range.elapsed_us()
+    return {name: us / calls / 1e3 for name, us in split.items()}
+
+
+def layout_times(out: str, kernels=LAYOUT_KERNELS) -> None:
     """The --layouts mode (see the module's note)."""
     import inspect
 
@@ -1480,7 +1538,12 @@ def layout_times(out: str) -> None:
     from slimt_tpu_torch.ops import _build
     from slimt_tpu_torch.ops import decoder_step as dstep
     from slimt_tpu_torch.ops import fused_blocks as fblocks
+    from slimt_tpu_torch.ops import logits_argmax as lam
 
+    unknown = set(kernels) - set(LAYOUT_KERNELS)
+    if unknown:
+        raise SystemExit(f"--layouts: unknown kernels {sorted(unknown)}; "
+                         f"choose from {LAYOUT_KERNELS}")
     dev = torch.device("cuda", 0)
     _build.library()
     config = ModelConfig(encoder_layers=1, decoder_layers=DEC)
@@ -1488,12 +1551,14 @@ def layout_times(out: str) -> None:
         config=config, vocab_size=VOCAB, emb_dim=EMB, ffn_dim=FFN, seed=0)), config), dev)
     layer = params["decoder"][0]
     forced = "_cluster" in inspect.signature(fblocks.ffn_kernel).parameters
-    sizes = (None,) + (fblocks.CLUSTER_SIZES if forced else ())
+    ssru_forced = "_cluster" in inspect.signature(fblocks.ssru_kernel).parameters
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     record = {"device": name, "power": smi, "package": str(fblocks.__file__), "times": []}
 
-    def timed(kernel, b, cs, make):
+    def timed(kernel, b, cs, make, split=False, **labels):
+        if kernel not in kernels:
+            return
         try:
             fn, used = make()
             fn()
@@ -1504,19 +1569,25 @@ def layout_times(out: str) -> None:
         torch.cuda.synchronize()
         ms = cuda_ms(torch, fn, 50)
         graph = statistics.median(graph_ms(torch, fn) for _ in range(3))
-        record["times"].append({"kernel": kernel, "b": b, "forced": cs, "cs": used,
-                                "ms": ms, "graph_ms": graph})
-        log(f"layouts {kernel} B={b} cs={'auto' if cs is None else cs} (runs {used}): "
-            f"{ms:.4f} ms, {graph:.4f} ms in a CUDA graph")
+        entry = {"kernel": kernel, "b": b, "forced": cs, "cs": used, **labels,
+                 "ms": ms, "graph_ms": graph}
+        if split:
+            entry["split_ms"] = kernel_split(torch, fn)
+        record["times"].append(entry)
+        shown = "".join(f" {key}={value}" for key, value in labels.items())
+        log(f"layouts {kernel} B={b}{shown} cs={'auto' if cs is None else cs} (runs {used}): "
+            f"{ms:.4f} ms, {graph:.4f} ms in a CUDA graph"
+            + (f"; by kernel {entry['split_ms']}" if split else ""))
 
     for b in LAYOUT_BATCHES:
         args = step_case(torch, tfm, params, gen, b, 64, 0)
         x = torch.randn((b, EMB), device=dev, generator=gen)
         c = torch.randn((b, 1, EMB), device=dev, generator=gen)
+        state = torch.randn((b, EMB), device=dev, generator=gen)
         kv = tuple(float_cache(torch, gen, (b, HEADS, 64, EMB // HEADS), "float32")
                    for _ in range(2))
         mask_add = args[3]
-        for cs in sizes:
+        for cs in (None,) + fblocks.CLUSTER_SIZES:
             extra = {} if cs is None else {"_cluster": cs}
 
             def step():
@@ -1534,9 +1605,27 @@ def layout_times(out: str) -> None:
                 return (lambda: dstep.decoder_layer_step_kernel(
                     layer, c, x[:, None], mask_add, kv, HEADS, **extra)), used
 
-            timed("whole_decode_step", b, cs, step)
-            timed("ffn_block", b, cs, ffn)
-            timed("decoder_layer_step", b, cs, layer_step)
+            def ssru():
+                used = fblocks.ssru_layout(b, EMB, 0, cs)[0] if ssru_forced else None
+                return (lambda: fblocks.ssru_kernel(x, state, layer["rnn"], **extra)), used
+
+            if cs is None or forced:
+                timed("whole_decode_step", b, cs, step)
+                timed("ffn_block", b, cs, ffn)
+                timed("decoder_layer_step", b, cs, layer_step)
+            if cs is None or ssru_forced:
+                timed("ssru_block", b, cs, ssru)
+    aq, inv = params["out"]["aq"], tfm.output_inv(params)
+    for width in ARGMAX_WIDTHS:
+        w, bias = tfm.prepare_output_projection(params, None if not width else torch.randperm(
+            VOCAB, device=dev, generator=gen)[:width].sort().values)
+        for b in ARGMAX_BATCHES:
+            y = torch.randn((b, EMB), device=dev, generator=gen)
+            for method in ARGMAX_METHODS:
+                timed("argmax_affine", b, None,
+                      lambda: ((lambda: lam.argmax_affine_kernel(y, w, bias, aq, inv, method)),
+                               None),
+                      split=True, method=method, width=width or VOCAB)
     with open(out, "w") as handle:
         json.dump(record, handle, indent=1)
     log(f"layouts: {len(record['times'])} timings on {name} ({smi}) into {out}")
@@ -1843,7 +1932,8 @@ def main() -> None:
          "max_abs_err": err, "ms": times["ms"],
          "plain_ms": times["plain_ms"], "bound_ms": bound_ms, "bound_by": by,
          "library_ms": times.get("library_ms"), "graph_ms": times["graph_ms"],
-         **{k: times[k] for k in ("cs1_ms", "cs1_graph_ms") if k in times},
+         **{k: times[k] for k in ("cs1_ms", "cs1_graph_ms", "graph_ms_by_b", "split_ms_by_b")
+            if k in times},
          **({"shapes": affine_times} if key == "qmm_affine" else {})}
         for key, source, replaces, err, times, (bound_ms, by) in rows
     ]}
@@ -1855,7 +1945,7 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--layouts"]:
-        layout_times(sys.argv[2])
+        layout_times(sys.argv[2], tuple(sys.argv[3:]) or LAYOUT_KERNELS)
     else:
         main()
     sys.exit(0)

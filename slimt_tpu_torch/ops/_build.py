@@ -64,11 +64,15 @@ _SIGNATURES = {
     "slimt_argmax_affine": (
         _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _F, _F, _I, _P
     ),
-    # x, c, wf, bf, w, ln_scale, ln_bias, h, c_out, m, e, rows, aq_f,
+    # b, s: floats of scratch slimt_argmax_affine takes
+    "slimt_argmax_scratch": (_I, _I),
+    # x, c, wf, bf, w, ln_scale, ln_bias, h, c_out, m, e, rows, cs, aq_f,
     # inv_f, aq_w, inv_w, stream
     "slimt_ssru_block": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P
     ),
+    # rows, cs, e: clusters of the SSRU block the card holds at once
+    "slimt_ssru_clusters": (_I, _I, _I),
     # x, w1, b1, w2, b2, ln_scale, ln_bias, out, m, e, f, rows, cs, aq1,
     # inv1, aq2, inv2, stream
     "slimt_ffn_block": (

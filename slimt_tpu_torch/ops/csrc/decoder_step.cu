@@ -39,13 +39,16 @@
 //      row tile spread over a thread-block cluster"), one instantiation
 //      per cache type, cs and the rows runtime values;
 //   2. and 3. the exact argmax of logits_argmax.cu (launch_argmax): a
-//      projection block per (vocab tile of 256 columns, 16 rows) writes
-//      its tile's first maximum per row, and a pick walks the tiles in
-//      ascending order with a strict >.
+//      projection block per (vocab tile of 128 columns, 16-64 rows; at
+//      large B several tiles a block) runs int8 tensor-core tiles and
+//      writes its best 64-bit key per row (the logit's order-preserving
+//      bits above the reversed column), and a pick takes each row's
+//      largest key, a warp per row: the first maximum, whatever the order
+//      of the tiles.
 // The projection stage is bit-equal to its plain version given the same
 // input rows. W_out may be any strided [E, S] view: the full vocabulary is
-// the transposed [V, E] embedding, read 16 bytes at a time down its
-// contiguous E axis.
+// the transposed [V, E] embedding (a shortlist its gathered rows), whose
+// columns are E contiguous bytes, the tensor cores' "col" operand.
 //
 // The layers on a cluster. Until this design a row tile ran on one block,
 // so at B = 1 one SM of 132 walked the whole chain: about 20 phases a
@@ -384,7 +387,8 @@ extern "C" int slimt_step_clusters(int rows, int cs, int e, int f, int heads, in
 // scales: aq and inv of wf, w, wq, wo, w1, w2 per layer, then aq_out and
 //         inv_out (host floats);
 // x [b, e], c_in and c_out [layers, b, e], attn0 [b, t] f32, choice [b]
-// s32; scratch: b * e + 2 * b * ceil(s / 256) floats of device memory.
+// s32; scratch: b * e + slimt_argmax_scratch(b, s) floats of device
+// memory.
 extern "C" int slimt_whole_decode_step(
     const void* ptrs_, const void* scales_, int layers, int b, int t, int e,
     int f, int heads, int s, long long sk, long long sn, int rows, int cs, int cache,

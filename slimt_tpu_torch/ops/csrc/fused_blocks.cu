@@ -12,35 +12,45 @@
 // LN(v) = (v - mean) / sqrt(var + 1e-6) * scale + bias.
 //
 // Design. The TPU kernel tiles 128 rows and holds the whole weights in
-// VMEM. Here the SSRU block takes a tile of 1 row (M <= 64, to spread a
-// decode batch over the SMs) or 4 rows (larger M, to read the weights
-// once per 4 rows) on one block, keeps the rows, the gate, Wx in shared
-// memory, and runs the device functions of slimt_device.cuh: __dp4a
-// products over transposed W words, a warp per row for LayerNorm.
+// VMEM. Here both blocks run a tile of 1 row (M <= 64, to spread a decode
+// batch over the SMs) or 4 rows (larger M, to read the weights once per 4
+// rows) on a thread-block cluster of cs blocks (slimt_device.cuh, "A row
+// tile spread over a thread-block cluster"), with the device functions of
+// slimt_device.cuh: __dp4a products (slice_product) and a warp per row for
+// LayerNorm.
 //
-// The FFN block runs its tile on a thread-block cluster of cs blocks
-// (cluster_ffn, slimt_device.cuh): block i computes the hidden units
-// [i F/cs, (i+1) F/cs) from its columns of W1 and their share of FFN2
-// from the same rows of W2, and the int32 partials meet through
-// distributed shared memory after one cluster.sync(); every block then
-// sums them, runs the epilogue and the LayerNorm on whole rows and writes
-// its E/cs output columns. Where they fit, its two weight slices are
-// copied into shared memory by cp.async (W2's while W1's product runs),
-// laid out for the lanes that split k. It replaces one block a tile,
-// where at B = 1 one SM walked both products alone (34 us a call on the
-// H100, 768 KB of weights at ~23 GB/s). The wrapper picks cs as the
-// layers kernel's does (the largest that splits the widths, halved until
-// the card holds every tile's cluster at once: at M = 512 clusters of 2,
-// whose blocks read their weights in place and share an SM); the output
-// does not depend on cs (exact int32 sums, float sums in one order).
+// The SSRU block: block i quantizes x once by both scales, computes the
+// columns [i E/cs, (i+1) E/cs) of Wf and of W, applies the gate and the
+// cell there and writes those columns of c'; relu(c') meets in every
+// block through distributed shared memory after one cluster.sync(), and
+// every block runs the LayerNorm on whole rows and writes its E/cs columns
+// of h. Its weights are read in place and its vectors copied in at the
+// start.
+//
+// The FFN block: block i computes the hidden units [i F/cs, (i+1) F/cs)
+// from its columns of W1 and their share of FFN2 from the same rows of W2
+// (cluster_ffn), and the int32 partials meet through distributed shared
+// memory after one cluster.sync(); every block then sums them, runs the
+// epilogue and the LayerNorm on whole rows and writes its E/cs output
+// columns. Where they fit, its two weight slices are copied into shared
+// memory by cp.async (WeightStream: W2's copied while W1's product runs).
+// It replaces one block a tile, where at B = 1 one SM walked
+// both products alone (34 us a call on the H100, 768 KB of weights at ~23
+// GB/s).
+//
+// The wrappers pick cs as the layers kernel's does (the largest that
+// splits the widths, halved until the card holds every tile's cluster at
+// once; at M = 512 fewer, larger-tiled clusters whose blocks share an SM);
+// the output does not depend on cs (exact int32 sums, float sums in one
+// order).
 //
 // Bounds on the H100. The blocks read their weights from L2 or device
 // memory: 2 E^2 bytes for the SSRU (128 KB at E = 256), 2 E F for the FFN
 // (768 KB at E = 256, F = 1536), once per row tile. At decode batch the
-// weights stay in the 50 MB L2; the SSRU's time is one SM's L2 read rate
-// and __dp4a rate per row tile, the FFN's a few L2 round trips and a
-// cluster barrier; at M = 512 each issues 512 / 4 = 128 blocks, about one
-// wave on 132 SMs.
+// weights stay in the 50 MB L2, and a block of a 16-block cluster reads
+// 1/16 of them: the time is a few L2 round trips and the cluster
+// barriers; at M = 512 each issues 512 / 4 = 128 tiles, about one wave on
+// 132 SMs.
 
 #include <cmath>
 #include <cstdint>
@@ -65,33 +75,86 @@ struct BlockArgs {
   float aq0, inv0, aq1, inv1;
 };
 
+// The SSRU block's shared memory, as floats x and relu(c') [rows, e], the
+// gate and the previous cell of the block's e/cs columns [rows, e/cs], bf
+// of those columns and the LayerNorm's scale and bias [e]; the cross-warp
+// sums (cs > 1) and the two quantized copies of x [rows, e].
+size_t ssru_smem_bytes(int rows, int cs, int e) {
+  const size_t es = static_cast<size_t>(e / cs);
+  return sizeof(float) * (2 * static_cast<size_t>(rows) * (e + es) + es + 2 * static_cast<size_t>(e)) +
+         sizeof(int) * (cs > 1 ? kReduceInts : 0) + 2 * static_cast<size_t>(rows) * e;
+}
+
+// n floats (a multiple of 4, both ends 16-byte aligned) from device memory
+// into shared memory by cp.async.
+__device__ __forceinline__ void copy_floats(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x; i < n / 4; i += kThreads) cp_async16(dst + 4 * i, src + 4 * i, true);
+}
+
+// A tile of a.rows rows on a cluster of a.cs blocks: block i computes
+// columns [i e/cs, (i+1) e/cs) of both products from one quantization of
+// x by both scales, applies the gate and the cell there, writes those
+// columns of c' and pushes relu(c') into every block's copy of the rows;
+// after one cluster.sync() every block runs the LayerNorm on whole rows
+// and writes its columns of h. Every vector the block reads (x, its
+// columns of c and bf, the LayerNorm's) is copied in by one cp.async
+// group at the start; the weights are read in place (a shared-memory ring
+// of the two slices read slower at every B on the H100: the block reads
+// each weight once). The first push waits at a cluster barrier that every
+// block arrived at on starting; no block reads another's shared memory
+// after the cluster.sync() that follows it, so none waits at the end.
 __global__ void __launch_bounds__(kThreads) ssru_kernel(const __grid_constant__ BlockArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
   const int e = a.e;
+  const int cs = a.cs;
+  const int es = e / cs;
+  const int n0 = static_cast<int>(cluster.block_rank()) * es;
   const int cap = a.rows;
-  const int row0 = blockIdx.x * cap;
+  const int row0 = blockIdx.x / cs * cap;
   const int rows = min(cap, a.m - row0);
   float* xs = reinterpret_cast<float*>(smem);
-  float* gate = xs + cap * e;
-  float* wx = gate + cap * e;
-  int8_t* xq = reinterpret_cast<int8_t*>(wx + cap * e);
+  float* hs = xs + cap * e;  // relu(c'), then h
+  float* gate = hs + cap * e;
+  float* c_prev = gate + cap * es;
+  float* bf = c_prev + cap * es;
+  float* ln = bf + es;  // scale, then bias
+  int* red = reinterpret_cast<int*>(ln + 2 * e);
+  int8_t* xq = reinterpret_cast<int8_t*>(red + (cs > 1 ? kReduceInts : 0));
+  int8_t* xq2 = xq + cap * e;
   const long long tile0 = static_cast<long long>(row0) * e;
 
-  for (int i = threadIdx.x; i < rows * e; i += kThreads) xs[i] = a.x[tile0 + i];
+  cluster_arrive();  // push_cols waits for every block to start
+  copy_floats(xs, a.x + tile0, rows * e);
+  for (int i = threadIdx.x; i < rows * es / 4; i += kThreads)
+    cp_async16(c_prev + 4 * i, a.c + tile0 + 4 * i / es * e + n0 + 4 * i % es, true);
+  copy_floats(bf, a.b0 + n0, es);
+  copy_floats(ln, a.ln_scale, e);
+  copy_floats(ln + e, a.ln_bias, e);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  quantize_rows(xs, e, e, a.aq0, xq, e, rows);
-  matvec(xq, e, rows, a.w0, e, e, a.inv0, a.b0, false, gate, e);
-  quantize_rows(xs, e, e, a.aq1, xq, e, rows);
-  matvec(xq, e, rows, a.w1, e, e, a.inv1, nullptr, false, wx, e);
-  for (int i = threadIdx.x; i < rows * e; i += kThreads) {
-    const float f = 1.0f / (1.0f + expf(-gate[i]));
-    const float c_t = __fadd_rn(__fmul_rn(f, a.c[tile0 + i]),
-                                __fmul_rn(1.0f - f, wx[i]));
-    a.c_out[tile0 + i] = c_t;
-    wx[i] = fmaxf(c_t, 0.0f);
+  quantize_rows(xs, e, e, a.aq0, xq, e, rows, a.aq1, xq2);
+  // Wf's and W's columns n0.., in place.
+  slice_product(xq, e, rows, row_major(a.w0 + n0, e), e, es, red, [&](int r, int n, int acc) {
+    gate[r * es + n] = affine_value(acc, a.inv0, bf, n, false);
+  });
+  slice_product(xq2, e, rows, row_major(a.w1 + n0, e), e, es, red, [&](int r, int n, int acc) {
+    const float wx = affine_value(acc, a.inv1, nullptr, n, false);
+    const float f = 1.0f / (1.0f + expf(-gate[r * es + n]));
+    const float c_t = __fadd_rn(__fmul_rn(f, c_prev[r * es + n]), __fmul_rn(1.0f - f, wx));
+    const int at = r * e + n0 + n;
+    a.c_out[tile0 + at] = c_t;
+    hs[at] = fmaxf(c_t, 0.0f);
+  });
+  cluster_wait();
+  push_cols(hs, e, rows, n0, es);
+  cluster.sync();
+  add_layer_norm(xs, hs, ln, ln + e, hs, rows, e);
+  for (int i = threadIdx.x; i < rows * es; i += kThreads) {
+    const int at = i / es * e + n0 + i % es;
+    a.out[tile0 + at] = hs[at];
   }
-  __syncthreads();
-  add_layer_norm(xs, wx, a.ln_scale, a.ln_bias, a.out + tile0, rows, e);
 }
 
 // The FFN block's shared memory: the weight ring's `slots` buffers of e x
@@ -152,6 +215,7 @@ __global__ void __launch_bounds__(kThreads) ffn_kernel(const __grid_constant__ B
   cluster.sync();  // the other blocks read this block's partials until here
 }
 
+KernelAttrs ssru_attrs;
 KernelAttrs ffn_attrs;
 
 bool shapes_ok(int m, int e, int f, int rows) {
@@ -162,31 +226,35 @@ bool shapes_ok(int m, int e, int f, int rows) {
 }  // namespace
 }  // namespace slimt
 
+// Clusters of cs blocks of `rows` rows the SSRU block can hold on the
+// current device at once; 0 where it cannot run one.
+extern "C" int slimt_ssru_clusters(int rows, int cs, int e) {
+  using namespace slimt;
+  if (!shapes_ok(1, e, e, rows) || !cluster_layout_ok(cs, e, e)) return 0;
+  return cluster_capacity(ssru_kernel, cs, ssru_smem_bytes(rows, cs, e), &ssru_attrs);
+}
+
 // x, c, h, c_out [m, e] f32; wf, w [e, e] int8; bf, ln_scale, ln_bias
-// [e] f32; all 16-byte aligned device pointers. rows: rows per block.
+// [e] f32; all 16-byte aligned device pointers. rows: rows per tile; cs:
+// the blocks of a tile's cluster (slimt_ssru_clusters).
 extern "C" int slimt_ssru_block(const void* x, const void* c, const void* wf,
                                 const void* bf, const void* w,
                                 const void* ln_scale, const void* ln_bias,
-                                void* h, void* c_out, int m, int e, int rows,
+                                void* h, void* c_out, int m, int e, int rows, int cs,
                                 float aq_f, float inv_f, float aq_w,
                                 float inv_w, void* stream) {
   using namespace slimt;
-  if (!shapes_ok(m, e, e, rows)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shapes_ok(m, e, e, rows) || !cluster_layout_ok(cs, e, e))
+    return static_cast<int>(cudaErrorInvalidValue);
   const BlockArgs a = {
       static_cast<const float*>(x), static_cast<const float*>(c),
       static_cast<const int8_t*>(wf), static_cast<const float*>(bf),
       static_cast<const int8_t*>(w), nullptr,
       static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias),
       static_cast<float*>(h), static_cast<float*>(c_out),
-      m, e, e, rows, 1, 0, aq_f, inv_f, aq_w, inv_w};
-  const size_t smem = sizeof(float) * 3 * static_cast<size_t>(rows) * e +
-                      static_cast<size_t>(rows) * e;
-  static size_t smem_cap = 48 * 1024;
-  const cudaError_t err = ensure_smem(ssru_kernel, smem, &smem_cap);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssru_kernel<<<(m + rows - 1) / rows, kThreads, smem,
-                static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+      m, e, e, rows, cs, 0, aq_f, inv_f, aq_w, inv_w};
+  return launch_cluster(ssru_kernel, (m + rows - 1) / rows * cs, cs, ssru_smem_bytes(rows, cs, e),
+                        &ssru_attrs, static_cast<cudaStream_t>(stream), a);
 }
 
 // Clusters of cs blocks of `rows` rows the FFN block can hold on the

@@ -55,6 +55,7 @@
 #include <cstdint>
 
 #include "slimt_kernels.cuh"
+#include "slimt_mma.cuh"
 
 namespace slimt {
 namespace {
@@ -260,50 +261,6 @@ struct BChunk {
   }
 };
 
-__device__ __forceinline__ void mma_s8(int* c, unsigned a0, unsigned a1,
-                                       unsigned a2, unsigned a3, unsigned b0,
-                                       unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// acc[mt][nt] += A[16 mt .., s0 .. s0+63] . B[8 nt .., s0 .. s0+63] for
-// one warp: a_s holds its first row, b_s its first column, both with k
-// contiguous at `pitch` bytes. Lane (g, i) = (lane / 4, lane % 4) reads
-// bytes s0 + 16 i .. +15 of rows g and g + 8 and of column g: words 0-1
-// go to the first m16n8k32 step and 2-3 to the second, in A and B alike.
-// With swizzle >= 0 (the column of b_s[0] in its block), B's 16-byte
-// piece i of column c sits at piece i ^ ((c / 16) % 4) (pitch 64).
-template <int MT, int NT>
-__device__ __forceinline__ void mma_slice(const int8_t* a_s, const int8_t* b_s,
-                                          int pitch, int s0, int (&acc)[MT][NT][4],
-                                          int swizzle = -1) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int off = s0 + 16 * (lane % 4);
-  int4 lo[MT];
-  int4 hi[MT];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    lo[mt] = *reinterpret_cast<const int4*>(a_s + (16 * mt + g) * pitch + off);
-    hi[mt] = *reinterpret_cast<const int4*>(a_s + (16 * mt + g + 8) * pitch + off);
-  }
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int b_off = swizzle < 0 ? off
-        : s0 + 16 * ((lane % 4) ^ (((swizzle + 8 * nt + g) / 16) % 4));
-    const int4 b = *reinterpret_cast<const int4*>(b_s + (8 * nt + g) * pitch + b_off);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      mma_s8(acc[mt][nt], lo[mt].x, hi[mt].x, lo[mt].y, hi[mt].y, b.x, b.y);
-      mma_s8(acc[mt][nt], lo[mt].z, hi[mt].z, lo[mt].w, hi[mt].w, b.z, b.w);
-    }
-  }
-}
-
 // y = acc * inv (+ b) (relu), b the bias of the output's column.
 __device__ __forceinline__ float epilogue(const Operands& p, int acc, float b) {
   float v = __fmul_rn(__int2float_rn(acc), p.inv);
@@ -348,21 +305,6 @@ __device__ __forceinline__ float bias_at(const Operands& p, int c) {
 // are in flight while the block converts one (x quantized, row-major W
 // transposed, both shared memory to shared memory) and runs its MMAs,
 // without registers held for the loads.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool copy) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(copy ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 template <int BM, int BN, int STAGES>
 constexpr size_t async_smem_bytes() {
   return static_cast<size_t>(STAGES) * (BM * 64 * sizeof(float) + BN * 64) + (BM + BN) * 64;

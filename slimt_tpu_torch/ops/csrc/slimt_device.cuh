@@ -1,15 +1,18 @@
 // Device functions shared by the kernels: the whole decode step and the
 // per-layer step (decoder_step.cu), the SSRU and FFN blocks
-// (fused_blocks.cu), the decode attention over the int16, float and split
-// caches (decode_attn.cu and the steps), and the encoder's attention
-// kernel: the SDPA of the whole-layer kernel (encoder_layer.cu) and the
-// split encoder's fused SDPA and blockwise attention (attention.cu).
+// (fused_blocks.cu), the projection argmax (logits_argmax.cu), the decode
+// attention over the int16, float and split caches (decode_attn.cu and the
+// steps), and the encoder's attention kernel: the SDPA of the whole-layer
+// kernel (encoder_layer.cu) and the split encoder's fused SDPA and
+// blockwise attention (attention.cu).
 //
 // Every block but the attention kernel's runs kThreads threads. The int8
-// products are __dp4a over int32 accumulators (exact); the epilogues round
-// the multiply and the add separately (__fmul_rn, __fadd_rn), and q8 is
-// rintf (half to even) clipped to +-127, as in qmm_affine.cu. The layers
-// kernel and the FFN block spread a row tile over a thread-block cluster
+// products of the decoder blocks are __dp4a over int32 accumulators
+// (exact), those of the projection argmax int8 tensor-core tiles
+// (slimt_mma.cuh, exact too); the epilogues round the multiply and the add
+// separately (__fmul_rn, __fadd_rn), and q8 is rintf (half to even)
+// clipped to +-127, as in qmm_affine.cu. The layers kernel, the SSRU block
+// and the FFN block spread a row tile over a thread-block cluster
 // (cluster_ffn, push_cols, launch_cluster) and stream their weight slices
 // through shared memory (WeightStream). Each TU gets its own copy (an
 // anonymous namespace), so no relocatable device code is needed.
@@ -24,6 +27,8 @@
 #include <type_traits>
 #include <utility>
 
+#include "slimt_mma.cuh"
+
 namespace slimt {
 namespace {
 
@@ -31,7 +36,7 @@ namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRows = 4;  // rows a matvec carries
+constexpr int kMaxRows = 4;  // rows a slice_product carries
 constexpr float kLnEps = 1e-6f;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -215,18 +220,6 @@ __device__ void slice_product(const int8_t* xq, int ldq, int rows, const Slab& w
   __syncthreads();
 }
 
-// out[r * ldo + n] = affine_value(acc, inv, bias, n, relu) for the whole
-// of a row-major [k_dim, n_cols] W, n_cols >= 128 (the SSRU block).
-__device__ void matvec(const int8_t* xq, int ldq, int rows,
-                       const int8_t* __restrict__ w, int k_dim, int n_cols,
-                       float inv, const float* __restrict__ bias, bool relu,
-                       float* out, int ldo) {
-  slice_product(xq, ldq, rows, row_major(w, n_cols), k_dim, n_cols, nullptr,
-                [&](int r, int n, int acc) {
-                  out[r * ldo + n] = affine_value(acc, inv, bias, n, relu);
-                });
-}
-
 // out[r] = LN(a[r] + b[r]) * gamma + beta for r < rows, one warp per row
 // of e; out may alias a or b. Where q0 (q1) is given, q0[r * ldq + i] =
 // q8(out[r, i]) by aq0 (aq1) too: the next products' quantized input.
@@ -264,14 +257,15 @@ __device__ void add_layer_norm(const float* a, const float* b,
 }
 
 // A row tile spread over a thread-block cluster (the decoder step's
-// layers kernel and the FFN block). The cs blocks of a cluster hold the
-// same rows; each computes 1/cs of every product (a slice of W's columns,
-// or of its rows with int32 partial sums), and the rows meet again in
-// every block through distributed shared memory, each phase closed by
-// cluster.sync(). LayerNorm and the element-wise steps run in every block
-// on whole rows, so a row is the same in every block and the same as with
-// cs = 1: int32 sums are exact in any order, and every float sum keeps its
-// order. A cluster of one block is the one-block layout.
+// layers kernel, the SSRU block and the FFN block). The cs blocks of a
+// cluster hold the same rows; each computes 1/cs of every product (a
+// slice of W's columns, or of its rows with int32 partial sums), and the
+// rows meet again in every block through distributed shared memory, each
+// phase closed by cluster.sync(). LayerNorm and the element-wise steps run
+// in every block on whole rows, so a row is the same in every block and
+// the same as with cs = 1: int32 sums are exact in any order, and every
+// float sum keeps its order. A cluster of one block is the one-block
+// layout.
 
 // The two halves of cluster.sync(). A block may touch another block's
 // shared memory only once every block of the cluster has started, which
@@ -707,21 +701,6 @@ cudaError_t ensure_smem(Kernel kernel, size_t bytes, size_t* cap) {
 struct HeadLayout {
   long long batch, head, row;
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool copy) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(copy ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // The weight slices (Slice) slice_of(0), slice_of(1), ... of a kernel's
 // products, in the order the products take them, through a ring of

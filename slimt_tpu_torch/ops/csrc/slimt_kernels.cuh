@@ -2,6 +2,7 @@
 // one source and called from others.
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -29,12 +30,15 @@ enum ArgmaxMode : int {
   kArgmaxBf16 = 2    // packed key of the bfloat16-rounded logit
 };
 
+// Bytes of scratch launch_argmax needs for b rows over s columns.
+size_t argmax_scratch_bytes(int b, int s);
+
 // choice[r] = argmax over n < s of q8(y[r]) W[:, n] inv + bias[n] by
 // `mode`, W[k, n] = w[k * sk + n * sn] int8 [e, s]; the packed modes need
-// s <= 65536. part: 2 * b * ceil(s / 256) floats of scratch. Returns
-// cudaGetLastError() after the launches.
+// s <= 65536. part: argmax_scratch_bytes(b, s) bytes of scratch, 8-byte
+// aligned. Returns cudaGetLastError() after the launches.
 int launch_argmax(const float* y, const int8_t* w, const float* bias,
-                  int* choice, float* part, int b, int e, int s, long long sk,
+                  int* choice, void* part, int b, int e, int s, long long sk,
                   long long sn, float aq, float inv, int mode,
                   cudaStream_t stream);
 

@@ -54,7 +54,7 @@ from slimt_tpu_torch.ops.fused_blocks import (
 )
 # The projection stage alone: the exact mode of the argmax kernel.
 from slimt_tpu_torch.ops.logits_argmax import (  # noqa: F401
-    TILE_S,
+    argmax_scratch,
     argmax_affine_kernel,
     argmax_affine_plain,
 )
@@ -321,8 +321,8 @@ class StepPlan:
         self.shape = (len(layers), b, t, e)
         kind = kinds.pop()
         self.cs, self.rows = step_layout(b, e, f, num_heads, t, kind, dev.index, _cluster)
-        tiles = -(-w.shape[1] // TILE_S)
-        self.scratch = torch.empty(b * e + 2 * b * tiles, dtype=torch.float32, device=dev)
+        self.scratch = torch.empty(b * e + argmax_scratch(b, w.shape[1]), dtype=torch.float32,
+                                   device=dev)
         self.args = (
             ctypes.addressof(self._ptrs), ctypes.addressof(self._scales),
             len(layers), b, t, e, f, num_heads, w.shape[1],

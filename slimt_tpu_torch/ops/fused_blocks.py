@@ -12,8 +12,8 @@ csrc/fused_blocks.cu or raise; on a CPU tensor they run the plain
 versions below, which call `qmm.affine_plain` directly, so that on the
 card they share no kernel with what they are compared against.
 
-The FFN block (and the whole decode step's layers kernel) runs a tile of
-rows on a thread-block cluster of `cs` blocks that split its products;
+Both blocks (and the whole decode step's layers kernel) run a tile of
+rows on a thread-block cluster of `cs` blocks that split their products;
 `cluster_layout` picks cs and the rows of a tile from the batch, and
 `fit_cluster` halves cs until the card holds every tile's cluster at once.
 """
@@ -107,6 +107,19 @@ def card_query(device: int, entry: str, *args: int) -> int:
         return getattr(_build.library(), entry)(*args)
 
 
+def ssru_layout(m: int, e: int, device: int, _cluster=None) -> tuple:
+    """(cs, rows) of the SSRU block on card `device`: `cluster_layout`'s
+    for its two [E, E] products, or a cluster of `_cluster` blocks, fitted
+    to the card (`fit_cluster`)."""
+    cs, rows = cluster_layout(m, e, e)
+    if _cluster is not None:
+        check_cluster(_cluster, e, e)
+        cs = _cluster
+    cs = fit_cluster(lambda size: card_query(device, "slimt_ssru_clusters", rows, size, e),
+                     cs, -(-m // rows), "SSRU block", _cluster is not None)
+    return cs, rows
+
+
 def ffn_layout(m: int, e: int, f: int, device: int, _cluster=None) -> tuple:
     """(cs, rows) of the FFN block on card `device`: `cluster_layout`'s,
     or a cluster of `_cluster` blocks, fitted to the card (`fit_cluster`)."""
@@ -139,21 +152,26 @@ def _scale(value) -> ctypes.c_float:
     return ctypes.c_float(np.float32(value))
 
 
-def ssru_kernel(x, state, rnn):
-    """Launch csrc/fused_blocks.cu's SSRU block on CUDA [M, E] rows.
+def ssru_kernel(x, state, rnn, _cluster=None):
+    """Launch csrc/fused_blocks.cu's SSRU block on CUDA [M, E] rows, a tile
+    on a cluster of `ssru_layout` blocks (`_cluster` forces a size, for the
+    card checks that compare them; one the card cannot schedule raises).
     `launches` counts the launches."""
     m, e = x.shape
     wf, w, ln = rnn["wf"], rnn["w"], rnn["ln"]
+    if _cluster is not None:
+        check_cluster(_cluster, e, e)
     _check(x, (state, wf["q"], wf["b"], w["q"], ln["scale"], ln["bias"]), e)
     if tuple(state.shape) != (m, e) or state.dtype != torch.float32:
         raise ValueError(f"state must be float32 [{m}, {e}]")
+    cs, rows = ssru_layout(m, e, x.device.index, _cluster)
     h = torch.empty_like(x)
     c_t = torch.empty_like(x)
     lib = _build.library()
     code = lib.slimt_ssru_block(
         x.data_ptr(), state.data_ptr(), wf["q"].data_ptr(), wf["b"].data_ptr(),
         w["q"].data_ptr(), ln["scale"].data_ptr(), ln["bias"].data_ptr(),
-        h.data_ptr(), c_t.data_ptr(), m, e, rows_per_block(m),
+        h.data_ptr(), c_t.data_ptr(), m, e, rows, cs,
         _scale(wf["aq"]), _scale(wf["inv"]), _scale(w["aq"]), _scale(w["inv"]),
         torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -9,7 +9,9 @@ slimt_tpu/ops/logits_argmax.py (`argmax_affine`).
 On a CUDA tensor `argmax_affine` launches csrc/logits_argmax.cu or
 raises; on a CPU tensor it runs `argmax_affine_plain`. The kernel's
 index is the plain version's by construction: the same epilogue
-rounding, the first maximum across tiles, the same keys.
+rounding, and one max over 64-bit keys whose order is the method's
+(`exact_key` models the exact one; the packed keys are
+`packed_argmax_16`'s), so the vocab tiles combine in any order.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ from slimt_tpu_torch.ops.fused_blocks import EMB_DIMS
 METHODS = ("exact", "packed_fp16", "packed_bf16")
 PACKED_DTYPES = {"packed_fp16": torch.float16, "packed_bf16": torch.bfloat16}
 MAX_PACKED_WIDTH = 65536  # the reversed column needs 16 bits
-TILE_S = 256  # vocab columns of a projection block
 
 
 def first_max(logits: torch.Tensor) -> torch.Tensor:
@@ -46,6 +47,24 @@ def packed_argmax_16(logits: torch.Tensor, dtype) -> torch.Tensor:
     key = (sortable - 0x8000) * 65536 | (0xFFFF - col)
     best = key.amax(-1)
     return (0xFFFF - (best & 0xFFFF)).to(torch.int32)
+
+
+def exact_key(logits: torch.Tensor) -> torch.Tensor:
+    """The kernel's key of each float32 logit for the exact method, as
+    int64 (the kernel's unsigned 64-bit key less 2^63, the same order):
+    the order-preserving bits of the logit (-0.0 as +0.0) above, the
+    reversed column below, so the largest key is the first maximum."""
+    bits = torch.where(logits == 0, 0.0, logits).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    sortable = torch.where(bits >= 0x80000000, 0xFFFFFFFF - bits, bits | 0x80000000)
+    col = torch.arange(logits.shape[-1], dtype=torch.int64, device=logits.device)
+    return (sortable - 0x80000000) * 2**32 + (0xFFFFFFFF - col)
+
+
+def argmax_scratch(b: int, s: int) -> int:
+    """Floats of device scratch the kernel takes for B rows over S columns
+    (its C entry `slimt_argmax_scratch`; the whole step's projection stage
+    asks the same)."""
+    return _build.library().slimt_argmax_scratch(b, s)
 
 
 def argmax_affine_plain(y, w, b, aq, inv, method: str = "exact") -> torch.Tensor:
@@ -80,9 +99,9 @@ def argmax_affine_kernel(y, w, b, aq, inv, method: str = "exact") -> torch.Tenso
     any strided [E, S] int8 view. `launches` counts the launches."""
     _check(y, w, b, method)
     rows, e = y.shape
-    tiles = -(-w.shape[1] // TILE_S)
     choice = torch.empty((rows,), dtype=torch.int32, device=y.device)
-    scratch = torch.empty(2 * rows * tiles, dtype=torch.float32, device=y.device)
+    scratch = torch.empty(argmax_scratch(rows, w.shape[1]), dtype=torch.float32,
+                          device=y.device)
     lib = _build.library()
     code = lib.slimt_argmax_affine(
         y.data_ptr(), w.data_ptr(), b.data_ptr(), choice.data_ptr(),

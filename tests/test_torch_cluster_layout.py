@@ -1,8 +1,8 @@
-"""The cluster layout of the layers kernel (#7, #10, #11) and the FFN block
-(#5) on the CPU: the choice of cs and the rows a tile from the batch, the
-fit to what a card can schedule, and the wrappers' refusals, which come
-before any build or launch. The kernels themselves run on the card only
-(tests/test_torch_gpu.py)."""
+"""The cluster layout of the layers kernel (#7, #10, #11), the FFN block
+(#5) and the SSRU block (#6) on the CPU: the choice of cs and the rows a
+tile from the batch, the fit to what a card can schedule, and the
+wrappers' refusals, which come before any build or launch. The kernels
+themselves run on the card only (tests/test_torch_gpu.py)."""
 
 import contextlib
 
@@ -108,6 +108,24 @@ def test_ffn_kernel_refuses_an_ffn_width_before_any_launch(no_build):
         fused_blocks.ffn_kernel(torch.zeros((1, 256)), ffn)
 
 
+@pytest.mark.parametrize("m,e,cluster,match", [
+    (2, 32, None, "E=32"), (2, 128, None, "E=128"), (1, 256, 3, "cluster of 3"),
+    (1, 512, 64, "cluster of 64"), (1, 256, 1, "CUDA"), (1, 256, None, "CUDA")])
+def test_ssru_kernel_refuses_before_any_launch(no_build, m, e, cluster, match):
+    rnn = _params()["decoder"][0]["rnn"]
+    with pytest.raises(ValueError, match=match):
+        fused_blocks.ssru_kernel(torch.zeros((m, e)), torch.zeros((m, e)), rnn,
+                                 _cluster=cluster)
+
+
+def test_ssru_kernel_refuses_a_state_before_any_launch(no_build, monkeypatch):
+    """A state of another shape raises before the layout is asked."""
+    rnn = _params()["decoder"][0]["rnn"]
+    monkeypatch.setattr(fused_blocks, "_check", lambda *args, **kwargs: None)
+    with pytest.raises(ValueError, match="state must be float32"):
+        fused_blocks.ssru_kernel(torch.zeros((2, 256)), torch.zeros((3, 256)), rnn)
+
+
 def _step_args(b=2, t=16, e=256):
     tp = _params()
     caches = tuple({"k": torch.zeros((b, t, e), dtype=torch.int16),
@@ -200,6 +218,34 @@ def test_layouts_fit_the_card(monkeypatch, b, want):
     assert dstep.step_layout(b, 256, 1536, 8, 64, 0, 1) == want
     assert fused_blocks.ffn_layout(b, 256, 1536, 1) == want
     assert {query[0] for query in asked} == {1}
+
+
+@pytest.mark.parametrize("e", [256, 512], ids=["tiny", "base"])
+@pytest.mark.parametrize("b,want", [(1, (16, 1)), (7, (16, 1)), (8, (8, 1)), (30, (4, 1)),
+                                    (64, (2, 1)), (130, (2, 4)), (264, (2, 4)),
+                                    (265, (1, 4)), (512, (1, 4))])
+def test_ssru_layout_fits_the_card(monkeypatch, e, b, want):
+    """The SSRU block asks the one chooser for its two [E, E] products and
+    halves the size to what the card holds, one cluster a row tile, by its
+    own C entry on the tensor's card."""
+    asked = _fake_card(monkeypatch, CAPACITY)
+    assert fused_blocks.cluster_layout(b, e, e) == (16, want[1])
+    assert fused_blocks.ssru_layout(b, e, 1) == want
+    assert {query[:2] for query in asked} == {(1, "slimt_ssru_clusters")}
+    assert all(query[2] == want[1] and query[4] == e for query in asked)
+
+
+@pytest.mark.parametrize("cluster", [16, 8, 2, 1])
+def test_ssru_layout_keeps_a_forced_size_that_runs(monkeypatch, cluster):
+    _fake_card(monkeypatch, CAPACITY)
+    assert fused_blocks.ssru_layout(512, 256, 0, _cluster=cluster) == (cluster, 4)
+
+
+def test_ssru_layout_raises_on_a_forced_size_the_card_refuses(monkeypatch):
+    _fake_card(monkeypatch, {1: 132})
+    with pytest.raises(RuntimeError, match="SSRU block: the card cannot schedule a cluster of 4"):
+        fused_blocks.ssru_layout(1, 256, 0, _cluster=4)
+    assert fused_blocks.ssru_layout(1, 256, 0) == (1, 1)
 
 
 def test_card_query_asks_the_named_card_once(monkeypatch):

@@ -92,7 +92,7 @@ def test_encoder_layer_kernel_matches_plain(card, emb, ffn, t):
     assert float((got - want).abs().max()) <= 2e-5
 
 
-STEP_VOCAB = 5000  # 20 projection tiles of 256, the last one partial
+STEP_VOCAB = 5000  # 40 projection tiles of 128 columns, the last one partial
 
 
 def _step_case(card, b, t, with_shortlist, seed):
@@ -260,6 +260,25 @@ def test_argmax_kernel_methods_bit_equal_with_tie(card, method, with_shortlist):
     want = logits_argmax.argmax_affine_plain(y, w, b, 20.0, 1e-3, method)
     assert torch.equal(got, want)
     assert got[:2].tolist() == [first, first]
+
+
+@pytest.mark.parametrize("b", [1, 20, 64, 100])
+@pytest.mark.parametrize("width", [1000, 3000])
+def test_argmax_kernel_shortlist_off_the_tile_width(card, width, b):
+    """Shortlists whose width is no multiple of the projection tiles (128
+    columns): every method bit-equal to plain, the last tile's
+    padding columns never winning, also where every logit is negative."""
+    rng = np.random.default_rng(width + b)
+    emb = torch.from_numpy(rng.integers(-127, 128, (8000, 256)).astype(np.int8)).to(card)
+    bias = torch.from_numpy((rng.standard_normal(8000) - 4.0).astype(np.float32)).to(card)
+    ids = torch.from_numpy(np.sort(rng.choice(8000, width, replace=False))).to(card)
+    w, bb = emb.index_select(0, ids).T, bias.index_select(0, ids)
+    y = torch.from_numpy(rng.standard_normal((b, 256)).astype(np.float32)).to(card)
+    for method in logits_argmax.METHODS:
+        got = logits_argmax.argmax_affine(y, w, bb, 20.0, 1e-4, method)
+        want = logits_argmax.argmax_affine_plain(y, w, bb, 20.0, 1e-4, method)
+        assert torch.equal(got, want), method
+        assert int(got.max()) < width
 
 
 def test_resolve_device_keeps_tf32_off(card):
@@ -633,6 +652,32 @@ def test_ffn_block_every_cluster_size(card, emb, ffn, m):
             assert torch.equal(got, first), cs
 
 
+@pytest.mark.parametrize("m", [1, 8, 65, 130])
+@pytest.mark.parametrize("emb,ffn", [(256, 1536), (512, 2048)], ids=["tiny", "base"])
+def test_ssru_block_every_cluster_size(card, emb, ffn, m):
+    """The SSRU block on clusters of 1-16 blocks: against ssru_plain within
+    2e-5 on every row, and each cluster's h and c' bit-equal to one
+    block's."""
+    layer = _decoder_layer(card, emb, ffn, seed=m + 11)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(m + 1)
+    x = torch.randn((m, emb), device=card, generator=gen) * 2.0
+    c = torch.randn((m, emb), device=card, generator=gen)
+    want_h, want_c = fused_blocks.ssru_plain(x, c, layer["rnn"])
+    first = None
+    for cs in CLUSTERS:
+        before = fused_blocks.ssru_kernel.launches
+        got = fused_blocks.ssru_kernel(x, c, layer["rnn"], _cluster=cs)
+        assert fused_blocks.ssru_kernel.launches == before + 1
+        torch.cuda.synchronize()
+        if first is None:
+            first = got
+            for out, want in zip(got, (want_h, want_c)):
+                assert float((out - want).abs().max()) <= 2e-5
+        else:
+            assert all(torch.equal(a, b) for a, b in zip(got, first)), cs
+
+
 @pytest.mark.parametrize("b,t", [(1, 64), (8, 16), (130, 1024)])
 @pytest.mark.parametrize("dtype", list(FLOAT_CACHES))
 @pytest.mark.parametrize("split", [True, False], ids=["split", "joined"])
@@ -680,6 +725,27 @@ def test_step_layout_holds_every_cluster_at_once(card, b):
         assert lib.slimt_step_clusters(rows, 2 * cs, 256, 1536, 8, 64, 0) < tiles
 
 
+@pytest.mark.parametrize("b", [1, 8, 64, 130, 512])
+def test_ssru_layout_holds_every_cluster_at_once(card, b):
+    """The SSRU block's size: the chooser's, halved only where the card
+    cannot hold one cluster a row tile at once."""
+    lib = _build.library()
+    want_cs, rows = fused_blocks.cluster_layout(b, 256, 256)
+    cs, got_rows = fused_blocks.ssru_layout(b, 256, torch.cuda.current_device())
+    assert cs <= want_cs and got_rows == rows
+    tiles = -(-b // rows)
+    assert cs == 1 or lib.slimt_ssru_clusters(rows, cs, 256) >= tiles
+    if cs < want_cs:
+        assert lib.slimt_ssru_clusters(rows, 2 * cs, 256) < tiles
+
+
+@pytest.mark.parametrize("b,s", [(1, 32000), (20, 1000), (64, 3072), (512, 32000)])
+def test_argmax_scratch_holds_a_key_per_narrowest_tile(card, b, s):
+    """The scratch the C entry asks for: a 64-bit key per row and 128-column
+    tile, the most tiles any launch writes."""
+    assert logits_argmax.argmax_scratch(b, s) == 2 * b * -(-s // 128)
+
+
 def test_refused_cluster_launch_raises(card, monkeypatch):
     """A cluster the C entries refuse (here 3 blocks) raises from the
     wrapper: nothing carries on with another layout or the plain path."""
@@ -693,3 +759,18 @@ def test_refused_cluster_launch_raises(card, monkeypatch):
     with pytest.raises(RuntimeError, match="slimt_ffn_block"):
         fused_blocks.ffn_kernel(x, layer["ffn"])
     assert fused_blocks.ffn_kernel.launches == before
+
+
+def test_refused_ssru_cluster_launch_raises(card, monkeypatch):
+    """A cluster the SSRU entry refuses raises from the wrapper, with no
+    launch counted."""
+    layer = _decoder_layer(card, 256, 1536, seed=4)
+    x = torch.randn((1, 256), device=card)
+    lib = _build.library()
+    assert lib.slimt_ssru_clusters(1, 3, 256) == 0
+    assert lib.slimt_ssru_clusters(1, 16, 256) >= 1
+    monkeypatch.setattr(fused_blocks, "ssru_layout", lambda *args: (3, 1))
+    before = fused_blocks.ssru_kernel.launches
+    with pytest.raises(RuntimeError, match="slimt_ssru_block"):
+        fused_blocks.ssru_kernel(x, torch.zeros_like(x), layer["rnn"])
+    assert fused_blocks.ssru_kernel.launches == before
