@@ -18,14 +18,15 @@ without printing a result:
              (also replayed from a CUDA graph, which drops the host's
              launch cost) beside each bound, the encoder layer within 2e-5 (the bound the
              JAX package holds its TPU kernel to) on >= 99% of
-             positions, the whole decode step within 2e-5 on states and
+             positions (its launches a layer and each launch's device
+             ms from torch.profiler), the whole decode step within 2e-5 on states and
              head-0 attention on >= 99% of rows (every position and row
              within 0.25: an int8 rounding flip moves one by up to
              ~0.06) with >= 99% of choices equal, its
              projection stage bit-equal given the same rows (a tie
              across vocab tiles included); the SSRU and FFN blocks
              within 2e-5 on >= 99% of rows and every row within 0.25,
-             the decode attention within 2e-5, the projection argmax
+             the decode attention within 2e-5 (T up to 1024), the projection argmax
              bit-equal in its three methods (exact, packed_fp16,
              packed_bf16; a tie across vocab tiles at two row-tile
              heights, a partial last tile of negative logits), at tiny
@@ -102,30 +103,38 @@ The second-to-last line is the kernels' JSON record (eleven kernels;
 launches from the serving paths, but for #10 and #11, which no serving
 path reaches: theirs are the kernels phase's; graph_ms, the device ms a
 call from a CUDA graph; cs1_ms and cs1_graph_ms, the times on one block
-a row tile, for the kernels on a cluster; ssru_block and argmax_affine
-also list graph_ms_by_b, the device ms at B = 1, 64 and 512, and
-argmax_affine split_ms_by_b, its projection and pick kernels' device ms
-from torch.profiler; qmm_affine also lists its times at the six timed
-shapes under "shapes"), the last line {"ok": true, "device": {...}}.
+a row tile, for the kernels on a cluster; ssru_block, argmax_affine
+and decode_attention also list graph_ms_by_b, the device ms at B = 1,
+64 and 512 (encoder_layer at B = 64 and 512, T=64), argmax_affine
+split_ms_by_b, its projection and pick kernels' device ms from
+torch.profiler, encoder_layer launches_per_layer and split_ms, its
+launches a layer and each one's device ms at B=512 T=64 from
+torch.profiler; qmm_affine also lists its times at the six timed shapes
+under "shapes"), the last line {"ok": true, "device": {...}}.
 
 `python3 chip_smoke.py --layouts OUT [KERNEL ...]` runs no check: it
 times #7 (the whole step, T=64, full vocabulary), #5 (the FFN block),
 #10 (split float32 cache, T=64) and #6 (the SSRU block) at B in
-LAYOUT_BATCHES, and #4 (the argmax, exact and packed_fp16, full
-vocabulary and shortlists of 1024 and 3072) at B in ARGMAX_BATCHES, tiny
-widths, on the `slimt_tpu_torch` package beside the script, with the
-wrapper's own layout and, where the package can force one, on every
-cluster size the card schedules: CUDA-event ms and the median of three
-graph replays (for #4 also each kernel's device ms from
-torch.profiler), written as one JSON object to OUT. KERNEL names limit
-it to some of LAYOUT_KERNELS. A copy of the script beside another tree's
-package times that tree; run both in one call, in turns.
+LAYOUT_BATCHES, #4 (the argmax, exact and packed_fp16, full
+vocabulary and shortlists of 1024 and 3072) at B in ARGMAX_BATCHES, #2
+(the encoder layer) at LAYER_SHAPES and both widths and #3 (the decode
+attention) at ATTN_SHAPES, on the `slimt_tpu_torch` package beside the
+script, with the wrapper's own layout and, where the package can force
+one, on every cluster size the card schedules (#3: each of its two
+kernels): CUDA-event ms and the
+median of three graph replays (for #4 and #2 also each kernel's device
+ms and launches from torch.profiler; for #2 and #3 the SHA-256 of the
+output on inputs from seeded generators), written as one JSON object to
+OUT. KERNEL names limit it to some of LAYOUT_KERNELS. A copy of the
+script beside another tree's package times that tree; run both in one
+call, in turns (equal digests show equal outputs).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -395,16 +404,25 @@ def check_layer(torch, enc, dev, load_host, params_from_numpy):
             within += ok
             worst = max(worst, err)
             log(f"{label}: max |diff| {err:.3g}")
+        by_b = {}
         for b, t in ((64, 64), (512, 64)):
             x = torch.randn((b, t, emb), device=dev)
             mask_add = torch.zeros((b, 1, 1, t), device=dev)
             kernel = cuda_ms(torch, lambda: enc.layer_kernel(x, layer, mask_add, HEADS), 10)
             graph = graph_ms(torch, lambda: enc.layer_kernel(x, layer, mask_add, HEADS), 5)
             plain = cuda_ms(torch, lambda: enc.layer_plain(x, layer, mask_add, HEADS), 10)
+            counts = {}
+            split = kernel_split(torch, lambda: enc.layer_kernel(x, layer, mask_add, HEADS),
+                                 10, counts)
+            by_b[b] = graph
             log(f"time encoder layer E={emb} F={ffn} B={b} T={t}: kernel "
-                f"{kernel:.4f} ms ({graph:.4f} ms in a CUDA graph), plain {plain:.4f} ms")
+                f"{kernel:.4f} ms ({graph:.4f} ms in a CUDA graph), plain {plain:.4f} ms; "
+                f"{sum(counts.values()):g} launches a layer, device ms by kernel {split}")
             if (emb, b) == (EMB, 512):
-                timing = {"ms": kernel, "plain_ms": plain, "graph_ms": graph}
+                timing = {"ms": kernel, "plain_ms": plain, "graph_ms": graph,
+                          "launches_per_layer": round(sum(counts.values()), 6),
+                          "split_ms": {short_kernel(name): ms for name, ms in split.items()},
+                          "graph_ms_by_b": by_b}
     log(f"encoder layer: {within}/{positions} positions within {LAYER_TOL} "
         f"({within / positions:.6f}), max |diff| {worst:.3g}")
     if within / positions < AGREEMENT_MIN:
@@ -877,43 +895,38 @@ def check_attention(torch, dattn, dev):
     timing = None
 
     def case(b, t, e):
-        q = torch.randn((b, e), device=dev, generator=gen)
-        k, v = (torch.randint(-32767, 32768, (b, t, e), device=dev,
-                              dtype=torch.int16, generator=gen) for _ in range(2))
-        kqi, vqi = ((torch.rand((b, t), device=dev, generator=gen) * 1.5 + 0.5)
-                    / 32767.0 for _ in range(2))
-        mask = torch.zeros((b, t), device=dev)
-        mask[0, t // 2:] = MASK_MIN
-        if b > 1:
-            mask[-1] = MASK_MIN
-        return q, k, v, kqi, vqi, mask
+        return attention_case(torch, gen, dev, b, t, e)
 
     cases = 0
+    shapes = [(b, t) for b in (1, 8, 33, 64, 512) for t in (16, 64, 128)]
+    shapes += [(b, LONG_T) for b in (1, 8, 33)]
     for e in (EMB, 512):
-        for b in (1, 8, 33, 64, 512):
-            for t in (16, 64, 128):
-                args = case(b, t, e)
-                got = dattn.decode_attention_kernel(*args, HEADS)
-                want = dattn.attention_plain(*args, HEADS)[0]
-                torch.cuda.synchronize()
-                if not bool(torch.isfinite(got).all()):
-                    raise RuntimeError(f"decode attention E={e} B={b} T={t}: non-finite")
-                err = float((got - want).abs().max())
-                worst = max(worst, err)
-                if not err <= ATTN_TOL:
-                    raise RuntimeError(
-                        f"decode attention E={e} B={b} T={t}: max |diff| {err} > {ATTN_TOL}")
-                cases += 1
+        for b, t in shapes:
+            args = case(b, t, e)
+            got = dattn.decode_attention_kernel(*args, HEADS)
+            want = dattn.attention_plain(*args, HEADS)[0]
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"decode attention E={e} B={b} T={t}: non-finite")
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            if not err <= ATTN_TOL:
+                raise RuntimeError(
+                    f"decode attention E={e} B={b} T={t}: max |diff| {err} > {ATTN_TOL}")
+            cases += 1
     log(f"decode attention: {cases} cases within {ATTN_TOL}, max |diff| {worst:.3g}")
+    by_b = {}
     for b in (1, 64, 512):
         args = case(b, 64, EMB)
         times = {"ms": cuda_ms(torch, lambda: dattn.decode_attention_kernel(*args, HEADS), 50),
                  "graph_ms": graph_ms(torch, lambda: dattn.decode_attention_kernel(*args, HEADS)),
                  "plain_ms": cuda_ms(torch, lambda: dattn.attention_plain(*args, HEADS), 20)}
+        by_b[b] = times["graph_ms"]
         log(f"time decode attention E={EMB} B={b} T=64: kernel {times['ms']:.4f} ms "
             f"({times['graph_ms']:.4f} ms in a CUDA graph), plain {times['plain_ms']:.4f} ms")
         if b == 64:
             timing = times
+    timing["graph_ms_by_b"] = by_b
     return worst, timing
 
 
@@ -1495,7 +1508,17 @@ def longctx(torch, tfm, params, name, smi):
 
 LAYOUT_BATCHES = (1, 8, 64, 130, 200, 512)
 LAYOUT_KERNELS = ("whole_decode_step", "ffn_block", "decoder_layer_step", "ssru_block",
-                  "argmax_affine")
+                  "argmax_affine", "encoder_layer", "decode_attention")
+# The encoder layer (#2) at both widths: B=64 and 512 at T=64, and 16,384
+# tokens a call at T=128 and T=256; the decode attention (#3) at
+# LAYOUT_BATCHES, T=64, and at B=8 and 256 T=1024 (tiny width), by the
+# kernel the wrapper chooses and, where it takes `_kernel`, by each of its
+# two kernels.
+LAYER_WIDTHS = ((256, 1536), (512, 2048))
+LAYER_SHAPES = ((64, 64), (512, 64), (128, 128), (64, 256))
+ATTN_SHAPES = tuple((b, 64) for b in LAYOUT_BATCHES) + ((8, 1024), (256, 1024))
+DECODER_LAYOUT_KERNELS = ("whole_decode_step", "ffn_block", "decoder_layer_step", "ssru_block")
+DIGESTED = ("encoder_layer", "decode_attention")  # outputs compared across trees
 # The argmax (#4) at the batches the records keep, its exact and packed
 # methods, the full vocabulary and the two shortlists.
 ARGMAX_BATCHES = (1, 64, 512)
@@ -1503,10 +1526,11 @@ ARGMAX_METHODS = ("exact", "packed_fp16")
 ARGMAX_WIDTHS = (0, 1024, 3072)
 
 
-def kernel_split(torch, fn, calls=20):
+def kernel_split(torch, fn, calls=20, counts=None):
     """Device ms per call of `fn` by kernel name: `calls` calls (already
     warm) under torch.profiler, each kernel's time summed and divided by
-    `calls`."""
+    `calls`. Where `counts` is a dict, it receives each kernel's launches
+    per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1519,7 +1543,47 @@ def kernel_split(torch, fn, calls=20):
     for event in prof.events():
         if event.device_type == DeviceType.CUDA:
             split[event.name] = split.get(event.name, 0.0) + event.time_range.elapsed_us()
+            if counts is not None:
+                counts[event.name] = counts.get(event.name, 0) + 1 / calls
     return {name: us / calls / 1e3 for name, us in split.items()}
+
+
+def short_kernel(name: str) -> str:
+    """A profiler's kernel name without its namespace and parameters."""
+    return name.replace("void ", "").replace("slimt::(anonymous namespace)::", "").split("(")[0]
+
+
+def digest(tensor) -> str:
+    """SHA-256 of a tensor's bytes, as the host holds them."""
+    return hashlib.sha256(tensor.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def attention_case(torch, gen, dev, b, t, e):
+    """Inputs of the decode attention (#3): random q, an int16 cache with
+    per-row scales, row 0 padded from T/2 and (B > 1) the last row fully
+    masked."""
+    q = torch.randn((b, e), device=dev, generator=gen)
+    k, v = (torch.randint(-32767, 32768, (b, t, e), device=dev,
+                          dtype=torch.int16, generator=gen) for _ in range(2))
+    kqi, vqi = ((torch.rand((b, t), device=dev, generator=gen) * 1.5 + 0.5)
+                / 32767.0 for _ in range(2))
+    mask = torch.zeros((b, t), device=dev)
+    mask[0, t // 2:] = MASK_MIN
+    if b > 1:
+        mask[-1] = MASK_MIN
+    return q, k, v, kqi, vqi, mask
+
+
+def layer_case(torch, gen, dev, b, t, e):
+    """Inputs of the encoder layer (#2): random x, row 1 padded from T/2
+    and (B > 3) row 3 a padding row."""
+    x = torch.randn((b, t, e), device=dev, generator=gen)
+    mask = torch.ones((b, t), device=dev)
+    if b > 1:
+        mask[1, t // 2:] = 0
+    if b > 3:
+        mask[3] = 0
+    return x, ((1.0 - mask) * MASK_MIN)[:, None, None, :]
 
 
 def layout_times(out: str, kernels=LAYOUT_KERNELS) -> None:
@@ -1536,7 +1600,9 @@ def layout_times(out: str, kernels=LAYOUT_KERNELS) -> None:
     from slimt_tpu_torch.io.synthetic import synthetic_model_bytes
     from slimt_tpu_torch.models import transformer as tfm
     from slimt_tpu_torch.ops import _build
+    from slimt_tpu_torch.ops import decode_attn as dattn
     from slimt_tpu_torch.ops import decoder_step as dstep
+    from slimt_tpu_torch.ops import encoder_layer as enc
     from slimt_tpu_torch.ops import fused_blocks as fblocks
     from slimt_tpu_torch.ops import logits_argmax as lam
 
@@ -1561,7 +1627,7 @@ def layout_times(out: str, kernels=LAYOUT_KERNELS) -> None:
             return
         try:
             fn, used = make()
-            fn()
+            out = fn()
         except RuntimeError as exc:  # a size the card cannot schedule
             if cs is None or "cannot schedule" not in str(exc):
                 raise
@@ -1572,14 +1638,47 @@ def layout_times(out: str, kernels=LAYOUT_KERNELS) -> None:
         entry = {"kernel": kernel, "b": b, "forced": cs, "cs": used, **labels,
                  "ms": ms, "graph_ms": graph}
         if split:
-            entry["split_ms"] = kernel_split(torch, fn)
+            counts = {}
+            entry["split_ms"] = kernel_split(torch, fn, counts=counts)
+            entry["launches_per_call"] = round(sum(counts.values()), 6)
+        if kernel in DIGESTED:
+            entry["sha256"] = digest(out)
         record["times"].append(entry)
         shown = "".join(f" {key}={value}" for key, value in labels.items())
         log(f"layouts {kernel} B={b}{shown} cs={'auto' if cs is None else cs} (runs {used}): "
             f"{ms:.4f} ms, {graph:.4f} ms in a CUDA graph"
-            + (f"; by kernel {entry['split_ms']}" if split else ""))
+            + (f"; {entry['launches_per_call']} launches a call, by kernel "
+               f"{entry['split_ms']}" if split else "")
+            + (f"; sha256 {entry['sha256']}" if "sha256" in entry else ""))
 
-    for b in LAYOUT_BATCHES:
+    # Fixed inputs from seeded generators, so that another tree's run
+    # digests the same inputs.
+    for emb, ffn in LAYER_WIDTHS if "encoder_layer" in kernels else ():
+        config = ModelConfig(encoder_layers=1, decoder_layers=1)
+        enc_layer = params_from_numpy(load_weights(load_items(synthetic_model_bytes(
+            config=config, vocab_size=64, emb_dim=emb, ffn_dim=ffn, seed=0)), config),
+            dev)["encoder"][0]
+        for b, t in LAYER_SHAPES:
+            gen.manual_seed(b * t + emb)
+            x, enc_mask = layer_case(torch, gen, dev, b, t, emb)
+            timed("encoder_layer", b, None,
+                  lambda: ((lambda: enc.layer_kernel(x, enc_layer, enc_mask, HEADS)), None),
+                  split=True, t=t, e=emb, f=ffn)
+    attn_kernels = (None,)
+    if "_kernel" in inspect.signature(dattn.decode_attention_kernel).parameters:
+        attn_kernels += ("block", "warp")
+    for b, t in ATTN_SHAPES if "decode_attention" in kernels else ():
+        gen.manual_seed(b * t)
+        attn_args = attention_case(torch, gen, dev, b, t, EMB)
+        for kern in attn_kernels:
+            extra = {} if kern is None else {"_kernel": kern}
+            timed("decode_attention", b, kern,
+                  lambda: ((lambda: dattn.decode_attention_kernel(*attn_args, HEADS, **extra)),
+                           kern),
+                  split=True, t=t, e=EMB)
+    gen.manual_seed(3)
+
+    for b in LAYOUT_BATCHES if set(kernels) & set(DECODER_LAYOUT_KERNELS) else ():
         args = step_case(torch, tfm, params, gen, b, 64, 0)
         x = torch.randn((b, EMB), device=dev, generator=gen)
         c = torch.randn((b, 1, EMB), device=dev, generator=gen)
@@ -1616,7 +1715,7 @@ def layout_times(out: str, kernels=LAYOUT_KERNELS) -> None:
             if cs is None or ssru_forced:
                 timed("ssru_block", b, cs, ssru)
     aq, inv = params["out"]["aq"], tfm.output_inv(params)
-    for width in ARGMAX_WIDTHS:
+    for width in ARGMAX_WIDTHS if "argmax_affine" in kernels else ():
         w, bias = tfm.prepare_output_projection(params, None if not width else torch.randperm(
             VOCAB, device=dev, generator=gen)[:width].sort().values)
         for b in ARGMAX_BATCHES:
@@ -1932,7 +2031,8 @@ def main() -> None:
          "max_abs_err": err, "ms": times["ms"],
          "plain_ms": times["plain_ms"], "bound_ms": bound_ms, "bound_by": by,
          "library_ms": times.get("library_ms"), "graph_ms": times["graph_ms"],
-         **{k: times[k] for k in ("cs1_ms", "cs1_graph_ms", "graph_ms_by_b", "split_ms_by_b")
+         **{k: times[k] for k in ("cs1_ms", "cs1_graph_ms", "graph_ms_by_b", "split_ms_by_b",
+                                  "launches_per_layer", "split_ms")
             if k in times},
          **({"shapes": affine_times} if key == "qmm_affine" else {})}
         for key, source, replaces, err, times, (bound_ms, by) in rows

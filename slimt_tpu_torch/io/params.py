@@ -10,7 +10,9 @@ Each int8 matrix dict also gains `inv` = np.float32(1) / (aq * bq),
 the epilogue multiplier, computed in float32 as the JAX package does
 (`1.0 / (aq * bq)` on float32 arrays). A Python-float (double)
 computation can land one ulp away and break bit-exactness. `emb` gains
-`inv` = np.float32(1) / scale for the embedding dequantization.
+`inv` = np.float32(1) / scale for the embedding dequantization. On the
+card each encoder layer's int8 matrices also gain their K-major copies,
+which the whole-layer kernel reads (ops.encoder_layer.add_k_major).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from slimt_tpu_torch.device import resolve_device
+from slimt_tpu_torch.ops.encoder_layer import add_k_major
 
 
 def _convert(node, device):
@@ -45,6 +48,10 @@ def params_from_numpy(host_params: dict, device) -> dict:
             "params_from_numpy takes per-layer lists (load_weights), "
             "not stacked layers"
         )
-    params = _convert(host_params, resolve_device(device))
+    device = resolve_device(device)
+    params = _convert(host_params, device)
     params["emb"]["inv"] = np.float32(1) / params["emb"]["scale"]
+    if device.type == "cuda":
+        for layer in params["encoder"]:
+            add_k_major(layer)
     return params

@@ -322,7 +322,8 @@ def encoder_layer_forward(
 ) -> torch.Tensor:
     """One post-LN encoder layer. The whole-layer kernel where
     `fused_layer` is on, `flash` off, the provider an int8 one, 1 < T <=
-    256, E % 128 == 0 and E % heads == 0 (the JAX gate); else the split
+    256, E % 128 == 0 and E % heads == 0 (the JAX gate) and E <= enc.MAX_E
+    (enc.width_ok: the widths the kernel's tiles hold); else the split
     layer: self-attention (attention_forward) then the FFN, under
     "fused" the FFN-block kernel at M = B·T."""
     resolved = provider if provider is not None else "xla_int8"
@@ -332,7 +333,7 @@ def encoder_layer_forward(
         and not flash
         and resolved in LAYER_KERNEL_PROVIDERS
         and 1 < t <= enc.MAX_T
-        and e % 128 == 0
+        and enc.width_ok(e)
         and e % num_heads == 0
     ):
         return enc.encoder_layer_fused(x, layer, mask_add, num_heads)

@@ -38,11 +38,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, w, bias, y, m, k, n, w_stride_k, w_stride_n, aq, inv, mode, stream
     "slimt_affine": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _F, _F, _I, _P),
-    # x, mask, out, scratch, weights[16], scales[12], b, t, e, f, heads,
-    # att_scale, stream
+    # x, mask, out, q, k, v, att, weights[16], scales[12], b, t, e, f,
+    # heads, att_scale, qkv_rows, post_rows, cs, stream
     "slimt_encoder_layer": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P
     ),
+    # rows, cs, e: clusters of the encoder layer's post-attention kernel
+    # the card holds at once (0: none)
+    "slimt_encoder_clusters": (_I, _I, _I),
     # ptrs, scales, layers, b, t, e, f, heads, s, w_stride_k, w_stride_n,
     # rows, cs, cache, x, c_in, c_out, attn0, choice, scratch, stream
     "slimt_whole_decode_step": (
@@ -80,9 +83,9 @@ _SIGNATURES = {
     ),
     # rows, cs, e, f: clusters of the FFN block the card holds at once
     "slimt_ffn_clusters": (_I, _I, _I, _I),
-    # q, k, v, kqi, vqi, mask, out, b, t, e, heads, scale, stream
+    # q, k, v, kqi, vqi, mask, out, b, t, e, heads, scale, kernel, stream
     "slimt_decode_attention": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P
     ),
     # q, k, v, mask, out, b, t, e, heads, scale, stream
     "slimt_fused_sdpa": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),

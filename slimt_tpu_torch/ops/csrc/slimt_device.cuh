@@ -221,32 +221,36 @@ __device__ void slice_product(const int8_t* xq, int ldq, int rows, const Slab& w
 }
 
 // out[r] = LN(a[r] + b[r]) * gamma + beta for r < rows, one warp per row
-// of e; out may alias a or b. Where q0 (q1) is given, q0[r * ldq + i] =
-// q8(out[r, i]) by aq0 (aq1) too: the next products' quantized input.
+// of e, the rows of a, b and out ld floats apart (0: e); with b null,
+// LN(a[r]), a holding sums formed beforehand. out may alias a or b. Where
+// q0 (q1) is given, q0[r * ldq + i] = q8(out[r, i]) by aq0 (aq1) too: the
+// next products' quantized input.
 __device__ void add_layer_norm(const float* a, const float* b,
                                const float* __restrict__ gamma,
                                const float* __restrict__ beta, float* out,
                                int rows, int e, int ldq = 0, float aq0 = 0.0f,
                                int8_t* q0 = nullptr, float aq1 = 0.0f,
-                               int8_t* q1 = nullptr) {
+                               int8_t* q1 = nullptr, int ld = 0) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  for (int r = warp; r < rows; r += kWarps) {
-    const float* pa = a + r * e;
-    const float* pb = b + r * e;
-    float* po = out + r * e;
+  const int pitch = ld > 0 ? ld : e;
+  for (int r = warp; r < rows; r += blockDim.x / 32) {
+    const float* pa = a + r * pitch;
+    const float* pb = b != nullptr ? b + r * pitch : nullptr;
+    float* po = out + r * pitch;
+    auto z = [&](int i) { return pb != nullptr ? __fadd_rn(pa[i], pb[i]) : pa[i]; };
     float sum = 0.0f;
-    for (int i = lane; i < e; i += 32) sum += __fadd_rn(pa[i], pb[i]);
+    for (int i = lane; i < e; i += 32) sum += z(i);
     const float mean = warp_sum(sum) / static_cast<float>(e);
     float sq = 0.0f;
     for (int i = lane; i < e; i += 32) {
-      const float c = __fadd_rn(pa[i], pb[i]) - mean;
+      const float c = z(i) - mean;
       sq = fmaf(c, c, sq);
     }
     const float var = warp_sum(sq) / static_cast<float>(e);
     const float inv = 1.0f / sqrtf(var + kLnEps);
     for (int i = lane; i < e; i += 32) {
-      const float c = __fadd_rn(pa[i], pb[i]) - mean;
+      const float c = z(i) - mean;
       const float v = __fadd_rn(__fmul_rn(__fmul_rn(c, inv), gamma[i]), beta[i]);
       po[i] = v;
       if (q0 != nullptr) q0[r * ldq + i] = quant8(v, aq0);

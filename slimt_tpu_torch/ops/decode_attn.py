@@ -61,11 +61,20 @@ def check_shapes(b: int, t: int, e: int, num_heads: int) -> None:
             f"decode attention: head dim {d} must be 8 * 2^i, at most 256")
 
 
-def decode_attention_kernel(q, k, v, kqi, vqi, mask, num_heads) -> torch.Tensor:
+# The kernels of csrc/decode_attn.cu a caller may force (`_kernel`): the
+# C entry's codes; None lets the entry choose.
+KERNELS = {None: 0, "block": 1, "warp": 2}
+
+
+def decode_attention_kernel(q, k, v, kqi, vqi, mask, num_heads, _kernel=None) -> torch.Tensor:
     """Launch csrc/decode_attn.cu on CUDA tensors. `launches` counts the
-    launches."""
+    launches; `_kernel` ("block" or "warp") forces one of its two kernels
+    (the card's timings compare them)."""
     b, t, e = k.shape
     check_shapes(b, t, e, num_heads)
+    if _kernel not in KERNELS:
+        raise ValueError(f"decode attention: no kernel {_kernel!r}; "
+                         f"choose from {sorted(k_ for k_ in KERNELS if k_)}")
     if not q.is_cuda:
         raise ValueError(f"the kernel takes CUDA tensors, got {q.device}")
     for name, tensor, shape, dtype in (
@@ -85,7 +94,7 @@ def decode_attention_kernel(q, k, v, kqi, vqi, mask, num_heads) -> torch.Tensor:
     code = lib.slimt_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kqi.data_ptr(), vqi.data_ptr(),
         mask.data_ptr(), out.data_ptr(), b, t, e, num_heads,
-        ctypes.c_float(np.float32(1.0 / math.sqrt(e // num_heads))),
+        ctypes.c_float(np.float32(1.0 / math.sqrt(e // num_heads))), KERNELS[_kernel],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, code, "slimt_decode_attention")

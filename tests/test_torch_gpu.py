@@ -774,3 +774,182 @@ def test_refused_ssru_cluster_launch_raises(card, monkeypatch):
     with pytest.raises(RuntimeError, match="slimt_ssru_block"):
         fused_blocks.ssru_kernel(x, torch.zeros_like(x), layer["rnn"])
     assert fused_blocks.ssru_kernel.launches == before
+
+
+def _encoder_case(card, emb, ffn, b, t, seed):
+    """An encoder layer of random int8 weights and inputs on the card: row
+    1 padded from T/2 and (B > 2) the last row fully masked."""
+    config = ModelConfig(encoder_layers=1, decoder_layers=1)
+    host = load_weights(load_items(synthetic_model_bytes(
+        config=config, vocab_size=64, emb_dim=emb, ffn_dim=ffn, seed=seed)), config)
+    layer = params_from_numpy(host, card)["encoder"][0]
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, t, emb)).astype(np.float32)).to(card)
+    mask = torch.ones((b, t), device=card)
+    if b > 1:
+        mask[1, t // 2:] = 0
+    if b > 2:
+        mask[-1] = 0
+    return layer, x, ((1.0 - mask) * -99999999.0)[:, None, None, :]
+
+
+def _close_positions(got, want, tol=2e-5, bound=0.25):
+    """>= 99% of positions within tol, every one within bound (an int8
+    rounding flip moves a position by up to ~0.06)."""
+    err = (got - want).abs().amax(-1).flatten()
+    assert torch.isfinite(got).all()
+    assert float((err <= tol).float().mean()) >= 0.99, float(err.max())
+    assert float(err.max()) <= bound
+
+
+@pytest.mark.parametrize("emb,ffn,b,t", [
+    (256, 1536, 64, 64), (256, 1536, 3, 17), (512, 2048, 3, 17), (512, 2048, 64, 64),
+    (256, 1536, 2, 256), (512, 2048, 1, 100), (128, 512, 64, 64), (128, 512, 3, 17),
+    (256, 1000, 16, 64)])
+def test_encoder_layer_kernel_tiles_match_plain(card, emb, ffn, b, t):
+    """Every tiling of the three launches (64-, 32- and 16-row QKV tiles,
+    ragged last tiles, clusters of 1-16, E=128 and a ragged last hidden
+    chunk) against plain; one launch counted a call."""
+    layer, x, mask_add = _encoder_case(card, emb, ffn, b, t, seed=b + t)
+    before = enc.layer_kernel.launches
+    got = enc.encoder_layer_fused(x, layer, mask_add, 8)
+    assert enc.layer_kernel.launches == before + 1
+    want = enc.layer_plain(x, layer, mask_add, 8)
+    torch.cuda.synchronize()
+    _close_positions(got, want)
+    if b * t <= 300:
+        assert float((got - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("emb,ffn,b,t", [(256, 1536, 3, 17), (512, 2048, 2, 64),
+                                         (256, 1536, 16, 64), (128, 512, 64, 64),
+                                         (128, 512, 3, 17)])
+def test_encoder_layer_every_cluster_size(card, emb, ffn, b, t):
+    """The post-attention kernel on every cluster size the card schedules,
+    bit-equal to one block a tile: its FFN2 partials are int32 sums."""
+    layer, x, mask_add = _encoder_case(card, emb, ffn, b, t, seed=7)
+    one = enc.layer_kernel(x, layer, mask_add, 8, _cluster=1)
+    sizes = 0
+    for cs in fused_blocks.CLUSTER_SIZES[1:]:
+        try:
+            got = enc.layer_kernel(x, layer, mask_add, 8, _cluster=cs)
+        except RuntimeError as exc:
+            assert "cannot schedule" in str(exc)
+            continue
+        sizes += 1
+        assert torch.equal(got, one), cs
+    assert sizes >= 3
+
+
+@pytest.mark.parametrize("cs", [1, 2, 4])
+def test_encoder_layer_narrow_width_clusters_match_plain(card, cs):
+    """E=128, where the two hidden chunks take more of a row than q8(att):
+    each forced cluster size against plain at B=64 T=64."""
+    layer, x, mask_add = _encoder_case(card, 128, 512, 64, 64, seed=cs)
+    got = enc.layer_kernel(x, layer, mask_add, 8, _cluster=cs)
+    want = enc.layer_plain(x, layer, mask_add, 8)
+    torch.cuda.synchronize()
+    _close_positions(got, want)
+
+
+def test_encoder_layer_kernel_launches_three_kernels(card):
+    """One layer is three device kernels (QKV, SDPA, post-attention) under
+    torch.profiler, at most four."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    layer, x, mask_add = _encoder_case(card, 256, 1536, 64, 64, seed=5)
+    enc.layer_kernel(x, layer, mask_add, 8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        enc.layer_kernel(x, layer, mask_add, 8)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 3, kernels
+
+
+@pytest.mark.parametrize("b", [1, 64, 512])
+def test_layer_plan_holds_every_cluster_at_once(card, b):
+    """The post-attention kernel's size: the largest splitting F, halved
+    only where the card cannot hold one cluster a tile at once."""
+    lib = _build.library()
+    dev = torch.cuda.current_device()
+    plan = enc.layer_plan(b, 64, 256, 1536, 8,
+                          lambda rows, cs, e: lib.slimt_encoder_clusters(rows, cs, e),
+                          enc.sm_count(dev))
+    assert plan.cs == 1 or lib.slimt_encoder_clusters(plan.post_rows, plan.cs, 256) >= plan.tiles
+    if plan.cs < 16:
+        assert lib.slimt_encoder_clusters(plan.post_rows, 2 * plan.cs, 256) < plan.tiles
+    assert lib.slimt_encoder_clusters(64, 1, 256) >= 1
+    assert lib.slimt_encoder_clusters(64, 1, 512) == 0  # 64 rows of 512 do not fit
+
+
+@pytest.mark.parametrize("e", [256, 512])
+@pytest.mark.parametrize("t", [1, 16, 64, 256, 1024])
+@pytest.mark.parametrize("b", [1, 3, 64, 130, 512])
+def test_decode_attention_kernel_shapes(card, b, t, e):
+    """#3 against plain at every batch, length and width of the records,
+    row 0 padded from T/2 and (B > 1) the last row fully masked."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(b * t + e)
+    q = torch.randn((b, e), device=card, generator=gen)
+    k, v = (torch.randint(-32767, 32768, (b, t, e), device=card,
+                          dtype=torch.int16, generator=gen) for _ in range(2))
+    kqi, vqi = ((torch.rand((b, t), device=card, generator=gen) * 1.5 + 0.5) / 32767.0
+                for _ in range(2))
+    mask = torch.zeros((b, t), device=card)
+    mask[0, t // 2:] = -99999999.0
+    if b > 1:
+        mask[-1] = -99999999.0
+    got = decode_attn.decode_attention_int16(q, k, v, kqi, vqi, mask, 8)
+    want = decode_attn.attention_plain(q, k, v, kqi, vqi, mask, 8)[0]
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("b", [5, 2048], ids=["block", "warp"])
+@pytest.mark.parametrize("heads", [1, 2, 32])
+def test_decode_attention_kernel_head_dims(card, heads, b):
+    """Head dims 256, 128 and 8 at E=256 (lanes of a position 32, 16, 1),
+    on a block a (row, head) and, from 1600 of them at T <= 128, a warp."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(heads)
+    t, e = 70, 256
+    q = torch.randn((b, e), device=card, generator=gen)
+    k, v = (torch.randint(-32767, 32768, (b, t, e), device=card,
+                          dtype=torch.int16, generator=gen) for _ in range(2))
+    kqi, vqi = ((torch.rand((b, t), device=card, generator=gen) + 0.5) / 32767.0
+                for _ in range(2))
+    mask = torch.zeros((b, t), device=card)
+    mask[2, 40:] = -99999999.0
+    got = decode_attn.decode_attention_int16(q, k, v, kqi, vqi, mask, heads)
+    want = decode_attn.attention_plain(q, k, v, kqi, vqi, mask, heads)[0]
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("kernel", ["block", "warp"])
+@pytest.mark.parametrize("b,t", [(3, 1), (3, 1024), (130, 64)])
+def test_decode_attention_forced_kernels_match_plain(card, kernel, b, t):
+    """Each of #3's two kernels, forced, against plain off the shapes the
+    wrapper would give it: padded and fully masked rows, one launch
+    counted a call."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(b + t)
+    e = 256
+    q = torch.randn((b, e), device=card, generator=gen)
+    k, v = (torch.randint(-32767, 32768, (b, t, e), device=card,
+                          dtype=torch.int16, generator=gen) for _ in range(2))
+    kqi, vqi = ((torch.rand((b, t), device=card, generator=gen) + 0.5) / 32767.0
+                for _ in range(2))
+    mask = torch.zeros((b, t), device=card)
+    mask[0, t // 2 + 1:] = -99999999.0
+    mask[-1] = -99999999.0
+    before = decode_attn.decode_attention_kernel.launches
+    got = decode_attn.decode_attention_kernel(q, k, v, kqi, vqi, mask, 8, _kernel=kernel)
+    assert decode_attn.decode_attention_kernel.launches == before + 1
+    want = decode_attn.attention_plain(q, k, v, kqi, vqi, mask, 8)[0]
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 2e-5
