@@ -72,8 +72,29 @@ without printing a result:
              int8 under "fused", bfloat16 under fused_step, whose whole
              step launches its bfloat16 branch); the launch counts are
              set to 0 before each path and read after it, and every
-             kernel of the path must have launched;
-5. check   — outputs well formed; CUDA tokens against the plain CPU
+             kernel of the path must have launched (a graph replay adds
+             the launches its capture recorded); after each serve and
+             long pass, the same traffic once more through the eager
+             loop and once more through the graph loop (serve: also
+             through a one-graph cache), each pass's wall and the
+             Model's graph-cache hits, captures and evictions;
+5. loop    — the decode loop runs as CUDA graphs of k steps: on every
+             serving path (both packages) and kv config, the graph
+             loop's tokens bit-equal to the eager loop's on the card
+             (on each path's full-vocabulary model with alignments too),
+             and equal across k in UNROLLS at an odd max_steps (41) and
+             a cap (29) no k divides; each path's graphs with their
+             capture time and memory, and its Model's cache counts over
+             every phase;
+6. continuous — ContinuousEngine at the tiny11 width with the JAX
+             engine's defaults (256 slots, chunks of 16, t_slot 64) over
+             2048 length-skewed segments (1 in 16 of 48-60 tokens, the
+             rest 4-20) on the declared path and under fused_step (the
+             counts reset and read around the engines' runs): each
+             segment's tokens against its decode alone through Model at
+             B=1 (every segment equal), segments/s and occupancy beside
+             Model.forward at B=256 on the same segments;
+7. check   — outputs well formed; CUDA tokens against the plain CPU
              path (>= 99% equal and none stopping short of the other;
              on the long path's arrays and the bfloat16 and int8 kv
              configs, one row may part instead where the plain logits
@@ -83,18 +104,21 @@ without printing a result:
              2 segments of ~900 tokens and the 4 forward_async_arrays
              rows at T=1024, the CPU's decode capped at 0.1 x T;
              forward wall time and tokens/s at B=64 and B=512 (T=64)
-             on each short-input path; the time forward_async takes to
+             on each short-input path, the graph and the eager loop in
+             turns; the time forward_async takes to
              return at B=512 T=64 against its batch's wall (it must
              return before half of it) and, in turns on one card, the
              forward walls through the Model's dispatch worker against
              an inline dispatch (fused_step and declared at B=1 T=32,
              declared at B=512 T=64); at B=512 the declared
-             float32 (exact) cache against int16; at B=1, T=32 the
-             fused_step and fused forwards against the declared one, and
-             fused_step over bfloat16 against int16 (median of 5 runs,
-             µs per step, device operations per step by
-             torch.profiler); the 6-layer encoder at 16,384 tokens a
-             call for T in (256, 512, 768, 1024, 2048), plain SDPA
+             float32 (exact) cache against int16; at B=1, T=32 each
+             path's forward through the graph and the eager loop in
+             turns, and fused_step over bfloat16 against int16 (median
+             of 5 runs, µs per step, the host's launch calls, graph
+             replays, device operations and busy µs per step by
+             torch.profiler, the device's idle share); the 6-layer
+             encoder at 16,384 tokens a call for T in (256, 512, 768,
+             1024, 2048), plain SDPA
              against blockwise (and at T=256 the whole-layer kernel and
              the fused SDPA): median of 5 by CUDA events, tokens/s;
              neither JAX nor any slimt_tpu module was imported.
@@ -111,6 +135,10 @@ torch.profiler, encoder_layer launches_per_layer and split_ms, its
 launches a layer and each one's device ms at B=512 T=64 from
 torch.profiler; qmm_affine also lists its times at the six timed shapes
 under "shapes"), the last line {"ok": true, "device": {...}}.
+
+`python3 chip_smoke.py --unroll` runs no check: the B=1 T=32 latency
+line and the B=64 and B=512 T=64 forward lines of the graph loop at k
+in UNROLL_SWEEP on the declared, fused_step and fused paths.
 
 `python3 chip_smoke.py --layouts OUT [KERNEL ...]` runs no check: it
 times #7 (the whole step, T=64, full vocabulary), #5 (the FFN block),
@@ -1126,41 +1154,59 @@ def check_blockwise(torch, att, dev):
     return worst, times
 
 
-def executed_steps(valid: int, limit: int, every: int) -> int:
-    """Decode steps a B=1 forward ran: the loop checks completion every
-    `every` steps, so a row that ended after `valid` steps ran to the
-    next check."""
-    if valid >= limit:
-        return limit
-    return min(limit, -(-valid // every) * every)
+# The host's CUDA calls that put work on a stream, as torch.profiler names
+# them: kernel launches, graph replays, copies and fills.
+HOST_CALLS = ("Launch", "Memcpy", "Memset")
 
 
-def latency(torch, model, every, whole_step):
-    """B=1, T=32: median wall of 5 forwards, µs per step, and device
-    operations and kernel time per step from one profiled forward."""
+@contextlib.contextmanager
+def eager_loop(model, eager: bool):
+    """Within the block, `model` decodes with the eager loop on the card
+    (its private `_eager_loop`) where `eager` is set, else its graphs."""
+    model._eager_loop = eager
+    try:
+        yield
+    finally:
+        model._eager_loop = False
+
+
+def latency(torch, model, whole_step, decode, loop_graph, eager=False):
+    """B=1, T=32 through the graph loop (or, with `eager`, the eager loop
+    on the card): the median wall of 5 forwards, the steps a forward runs
+    (chunks x k: decode.run_loop counts the chunks), the whole step's
+    launches held to those steps, and from one profiled forward the
+    host's launch calls, the graph replays, the device operations and
+    their busy time. The device's idle share is 1 - busy / median wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     eos = model.vocabulary.eos_id
     segment = [[3 + j for j in range(31)] + [eos]]
-    hyps = model.forward(segment, need_alignment=False)
-    launches = whole_step.launches
-    model.forward(segment, need_alignment=False)
-    launched = whole_step.launches - launches
-    walls = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
+    unroll = decode.resolve_unroll(model._loop_unroll)
+    with eager_loop(model, eager):
         model.forward(segment, need_alignment=False)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - start)
-    steps = executed_steps(len(hyps[0].target), int(1.5 * 32), every)
+        chunks, launches = decode.run_loop.chunks, whole_step.launches
+        model.forward(segment, need_alignment=False)
+        steps = (decode.run_loop.chunks - chunks) * unroll
+        launched = whole_step.launches - launches
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            model.forward(segment, need_alignment=False)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+        replays = loop_graph.ChunkGraph.replays
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.forward(segment, need_alignment=False)
+            torch.cuda.synchronize()
+        replays = loop_graph.ChunkGraph.replays - replays
     if launched and launched != steps:
         raise RuntimeError(f"whole step launched {launched} times for {steps} steps")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.forward(segment, need_alignment=False)
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = [e for e in events if e.device_type == DeviceType.CPU and e.name.startswith("cu")
+            and any(word in e.name for word in HOST_CALLS)]
     busy_us = sum(e.time_range.elapsed_us() for e in device)
     by_name = {}
     for e in device:
@@ -1168,7 +1214,21 @@ def latency(torch, model, every, whole_step):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     log("  device time per step by kernel: " + "; ".join(
         f"{name[:40]} {us / steps:.1f} us" for name, us in top))
-    return statistics.median(walls), walls, steps, len(device), busy_us
+    wall = statistics.median(walls)
+    return {"wall": wall, "walls": walls, "steps": steps, "ops": len(device),
+            "host_calls": len(host), "replays": replays, "busy_us": busy_us,
+            "idle": 1.0 - busy_us * 1e-6 / wall}
+
+
+def latency_line(label, got, name, smi) -> str:
+    steps = got["steps"]
+    return (f"latency {label} B=1 T=32 full vocab: median wall {got['wall'] * 1e3:.3f} ms "
+            f"of {[round(w * 1e3, 3) for w in got['walls']]}, {steps} steps, "
+            f"{got['wall'] / steps * 1e6:.1f} us/step, {got['host_calls'] / steps:.2f} host "
+            f"launch calls/step, {got['replays']} graph replays "
+            f"({got['replays'] / steps:.3f}/step), {got['ops'] / steps:.1f} device ops/step, "
+            f"device busy {got['busy_us'] / steps:.1f} us/step, idle {got['idle']:.1%} "
+            f"(profiled) on {name} ({smi})")
 
 
 def make_lines(rng, words, count, low, high):
@@ -1228,6 +1288,55 @@ def serve(model, lines):
     return segments, hyps, sample
 
 
+def cache_counts(model) -> dict:
+    """The Model's decode-graph cache counts (loop_graph.GraphCache)."""
+    return dict(model._graphs.counts)
+
+
+def counts_text(before, after, keys) -> str:
+    """A pass's cache lookups between two cache_counts: each batch is one
+    lookup, a hit replays a kept graph and a miss captures one."""
+    hits, misses, evictions = (after[k] - before[k] for k in ("hits", "misses", "evictions"))
+    share = hits / max(1, hits + misses)
+    return (f"{hits + misses} batches, {hits} hits, {misses} captures, {evictions} "
+            f"evictions, {share:.1%} of batches replayed a kept graph, {keys} graphs kept")
+
+
+def phase_turns(torch, label, model, run, cold, name, smi, thrash=False):
+    """`run(model)` once more with the eager loop and once more with the
+    graph loop, after its first (cold) graph pass `cold` = (wall s, cache
+    counts before it, after it): the walls, and per graph pass the
+    cache's lookups. With `thrash`, once more through a cache of one graph
+    (GraphCache(1)): each change of key captures anew, the cost of
+    traffic whose keys outnumber the cache."""
+    from slimt_tpu_torch.models.loop_graph import GraphCache
+
+    walls = {}
+    counts = {}
+    kept = model._graphs
+    for loop in ("eager", "graph") + (("thrash",) if thrash else ()):
+        if loop == "thrash":
+            model._graphs = GraphCache(1)
+        before = cache_counts(model)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        try:
+            with eager_loop(model, loop == "eager"):
+                run(model)
+            torch.cuda.synchronize()
+            walls[loop] = time.perf_counter() - start
+            counts[loop] = (before, cache_counts(model), len(model._graphs))
+        finally:
+            model._graphs = kept
+    wall, before, after = cold
+    thrashed = (f"; one-graph cache {walls['thrash']:.3f} s ({counts_text(*counts['thrash'])})"
+                if thrash else "")
+    log(f"{label} in turns: cold graph loop {wall:.3f} s "
+        f"({counts_text(before, after, len(kept))}); eager loop {walls['eager']:.3f} s; "
+        f"warm graph loop {walls['graph']:.3f} s ({counts_text(*counts['graph'])})"
+        f"{thrashed} on {name} ({smi})")
+
+
 LONG_T = 1024
 LONG_ROWS = 4
 
@@ -1274,9 +1383,10 @@ def recording_logits(tfm, dstep, qmm):
     logits = []
     real_argmax, real_step = tfm.output_argmax, dstep.argmax_affine_plain
 
-    def output_argmax(params, x, provider=None, projection=None, method="packed_int"):
+    def output_argmax(params, x, provider=None, projection=None, method="packed_int",
+                      packed_bias=None):
         logits.append(tfm.output_logits(params, x, projection=projection))
-        return real_argmax(params, x, provider, projection, method)
+        return real_argmax(params, x, provider, projection, method, packed_bias)
 
     def argmax_affine_plain(y, w, b, aq, inv, *rest):
         logits.append(qmm.affine_plain(y, w, b, aq, inv))
@@ -1467,6 +1577,97 @@ def dispatch_turns(torch, model, batch, t, turns=8):
     finally:
         model.__dict__.pop("_dispatch_worker", None)
     return walls
+
+
+def loop_segments(eos: int, count: int = 16):
+    """`count` segments of 11 to 23 tokens (T bucket 32)."""
+    return [[3 + (i * 13 + j) % 1000 for j in range(22 - i % 12)] + [eos]
+            for i in range(count)]
+
+
+def graph_against_eager(what, model, segments, aligned=False):
+    """The graph loop's hypotheses bit-equal to the eager loop's on the
+    card (tokens, and the alignments where asked for)."""
+    with eager_loop(model, True):
+        want = model.forward(segments, need_alignment=aligned)
+    got = model.forward(segments, need_alignment=aligned)
+    if [(h.target, h.alignment) for h in got] != [(h.target, h.alignment) for h in want]:
+        raise RuntimeError(f"loop {what}: the graph loop's tokens differ from the eager loop's")
+    return sum(len(h.target) for h in got)
+
+
+UNROLLS = (1, 3, 8)
+# With this limit factor, T bucket 32 and a longest segment of 23 tokens,
+# max_steps is 41 (odd) and the cap 29 (a multiple of no k in UNROLLS).
+ODD_LIMIT_FACTOR = 1.3
+
+
+def across_unrolls(what, model, segments):
+    """Tokens bit-equal across k in UNROLLS, with max_steps odd and the cap
+    not a multiple of k; each k a graph of its own."""
+    factor = model.limit_factor
+    model.limit_factor = ODD_LIMIT_FACTOR
+    got = {}
+    try:
+        for k in UNROLLS:
+            model._loop_unroll = k
+            got[k] = [h.target for h in model.forward(segments, need_alignment=False)]
+    finally:
+        model.limit_factor = factor
+        model._loop_unroll = None
+    if any(got[k] != got[UNROLLS[0]] for k in UNROLLS):
+        raise RuntimeError(f"loop {what}: tokens depend on loop_unroll")
+    return max(len(t) for t in got[UNROLLS[0]])
+
+
+def graph_lines(label, model, name, smi):
+    """Each of `model`'s decode graphs: its bucket, capture time and memory."""
+    for _, bucket in model._graphs.items():
+        stats, loop = bucket.stats(), bucket.state
+        pool = "not captured" if stats["pool_mb"] is None else f"{stats['pool_mb']:.1f} MB"
+        capture = ("not captured" if stats["capture_ms"] is None
+                   else f"{stats['capture_ms']:.1f} ms")
+        log(f"graph {label} B={loop.prev.shape[0]} T={loop.mask_add.shape[-1]} "
+            f"S={loop.projection[0].shape[1]} k={loop.unroll} steps={loop.max_steps} "
+            f"alignment={loop.with_alignment}: capture {capture}, pool {pool}, "
+            f"buffers {stats['buffers_mb']:.1f} MB on {name} ({smi})")
+
+
+def skewed_segments(rng, eos: int, count: int = 2048):
+    """`count` segments, 1 in 16 of 48-60 tokens and the rest of 4-20
+    (the last token EOS)."""
+    segments = []
+    for i in range(count):
+        length = int(rng.integers(48, 61) if i % 16 == 0 else rng.integers(4, 21))
+        segments.append(rng.integers(3, 1000, length - 1).tolist() + [eos])
+    return segments
+
+
+def continuous_run(torch, engine, segments):
+    """(wall s, token lists) of one translate on the card."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = engine.translate(segments)
+    torch.cuda.synchronize()
+    return time.perf_counter() - start, out
+
+
+def one_at_a_time(model, segments):
+    """Each segment decoded alone (B=1) through Model.forward_async, all
+    queued before the first finish."""
+    finishes = [model.forward_async([seg], need_alignment=False) for seg in segments]
+    return [finish()[0].target for finish in finishes]
+
+
+def continuous_agreement(what, got, want):
+    """Every segment's tokens equal: both sides run the same kernels on the
+    same card, so any parted or short row (a slot not reset, cross-talk
+    between admitted rows, a stale harvest) fails."""
+    unequal = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    log(f"{what}: {len(got) - len(unequal)} of {len(got)} segments equal")
+    if len(got) != len(want) or unequal:
+        raise RuntimeError(f"{what}: {len(unequal)} of {len(want)} segments differ "
+                           f"(the first at {unequal[:8]})")
 
 
 def longctx(torch, tfm, params, name, smi):
@@ -1730,6 +1931,46 @@ def layout_times(out: str, kernels=LAYOUT_KERNELS) -> None:
     log(f"layouts: {len(record['times'])} timings on {name} ({smi}) into {out}")
 
 
+UNROLL_SWEEP = (1, 2, 4, 8, 16)
+
+
+def unroll_times() -> None:
+    """The --unroll mode: the graph loop at k in UNROLL_SWEEP (ascending,
+    then descending) on the declared, fused_step and fused paths at the
+    tiny11 widths: the B=1 T=32 latency line and the B=64 and B=512 T=64
+    forward lines of each k."""
+    import torch
+
+    name, smi = probe(torch)
+    from slimt_tpu_torch import Model, ModelConfig, Package
+    from slimt_tpu_torch.io.synthetic import synthetic_model_bytes
+    from slimt_tpu_torch.models import decode, loop_graph
+    from slimt_tpu_torch.ops import decoder_step as dstep
+    from slimt_tpu_torch.text import spm_proto
+    from slimt_tpu_torch.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
+
+    config = ModelConfig(encoder_layers=ENC, decoder_layers=DEC, num_heads=HEADS)
+    package = Package(
+        synthetic_model_bytes(config=config, vocab_size=VOCAB, emb_dim=EMB, ffn_dim=FFN,
+                              seed=0),
+        spm_proto.serialize_model(build_spm_model(DEFAULT_WORDS, target_size=VOCAB)))
+    configs = {"declared": config,
+               "fused_step": dataclasses.replace(config, qmm_provider="fused_step"),
+               "fused": dataclasses.replace(config, qmm_provider="fused", attn_kernel="on")}
+    for path, path_config in configs.items():
+        model = Model(path_config, package, device="cuda")
+        for k in UNROLL_SWEEP + UNROLL_SWEEP[::-1]:
+            model._loop_unroll = k
+            got = latency(torch, model, dstep.whole_step_kernel, decode, loop_graph)
+            log(latency_line(f"{path} k={k}", got, name, smi))
+            for batch in (64, 512):
+                wall, tokens = forward_rate(torch, model, batch, 64)
+                log(f"forward {path} k={k} B={batch} T=64 full vocab: {wall * 1e3:.1f} ms, "
+                    f"{tokens} tokens, {tokens / wall:.0f} tok/s on {name} ({smi})")
+        graph_lines(path, model, name, smi)
+        del model
+
+
 def main() -> None:
     import torch
 
@@ -1742,7 +1983,8 @@ def main() -> None:
     from slimt_tpu_torch.io.shortlist import build_synthetic_shortlist
     from slimt_tpu_torch.io.synthetic import synthetic_model_bytes
     from slimt_tpu_torch.models import transformer as tfm
-    from slimt_tpu_torch.models.decode import CHECK_EVERY
+    from slimt_tpu_torch.models import decode, loop_graph
+    from slimt_tpu_torch.models.continuous import ContinuousEngine
     from slimt_tpu_torch.ops import _build
     from slimt_tpu_torch.ops import attention as att
     from slimt_tpu_torch.ops import decode_attn as dattn
@@ -1823,7 +2065,8 @@ def main() -> None:
                              "ssru_block", "ffn_block", "decode_attention",
                              "argmax_affine"),
                     "kv": ("qmm_affine", "encoder_layer", "whole_decode_step",
-                           "ssru_block", "ffn_block", "argmax_affine")}
+                           "ssru_block", "ffn_block", "argmax_affine"),
+                    "continuous": ("qmm_affine", "encoder_layer", "whole_decode_step")}
 
     def reset():
         for counter in counters.values():
@@ -1858,22 +2101,31 @@ def main() -> None:
 
     launches = {}
     paths = {}
+    path_models = {}
     for path, configs in path_configs.items():
         models = {label: Model(configs[label], pkg, device="cuda")
                   for label, pkg in packages.items()}
         reset()
         served = {}
+        cold = {}
         for label, model in models.items():
+            before = cache_counts(model)
             start = time.perf_counter()
             segments, hyps, sample = serve(model, lines)
             torch.cuda.synchronize()
+            wall = time.perf_counter() - start
             served[label] = segments
+            cold[label] = (wall, before, cache_counts(model))
             log(f"serve {path} {label}: {len(hyps)} segments in "
-                f"{time.perf_counter() - start:.3f} s; e.g. {sample[0][:60]!r}")
+                f"{wall:.3f} s; e.g. {sample[0][:60]!r}")
         read(path)
+        for label, model in models.items():
+            phase_turns(torch, f"serve {path} {label}", model,
+                        lambda m: serve(m, lines), cold[label], name, smi, thrash=True)
         for label, pkg in packages.items():
             compare(path, label, configs[label], pkg, served[label][:16])
         paths[path] = models["full vocab"]
+        path_models[path] = models
 
     # The long path: the default config past the blockwise crossover, on
     # each decode path, the full vocabulary.
@@ -1882,14 +2134,21 @@ def main() -> None:
                    for path in ("declared", "fused_step", "fused")}
     reset()
     long_rows = {}
+    cold = {}
     for path, model in long_models.items():
+        before = cache_counts(model)
         start = time.perf_counter()
         long_segments, long_rows[path] = serve_long(model, long_lines)
         torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        cold[path] = (wall, before, cache_counts(model))
         log(f"serve long {path}: {len(long_lines)} lines of "
             f"{[len(s) for s in long_segments]} tokens and 4 rows at T={LONG_T} in "
-            f"{time.perf_counter() - start:.3f} s")
+            f"{wall:.3f} s")
     read("long")
+    for path, model in long_models.items():
+        phase_turns(torch, f"serve long {path}", model,
+                    lambda m: serve_long(m, long_lines), cold[path], name, smi)
     for path in long_models:
         compare(f"long, {path}", "full vocab", path_configs[path]["full vocab"],
                 packages["full vocab"], long_segments[:2], limit_factor=0.1)
@@ -1935,11 +2194,32 @@ def main() -> None:
         compare("kv", f"{label}, {pkg_label}", kv_configs[label], packages[pkg_label],
                 segments[:16], limit_factor=0.5)
 
+    # The loop: on every serving path and kv config, the graph loop's
+    # tokens bit-equal to the eager loop's on the card (on the declared
+    # path with alignments too), and equal across loop_unroll.
+    start = time.perf_counter()
+    segments = loop_segments(paths["declared"].vocabulary.eos_id)
+    for path, models in path_models.items():
+        for label, model in models.items():
+            tokens = graph_against_eager(f"{path} {label}", model, segments)
+            log(f"loop {path} {label}: graph tokens bit-equal to eager ({tokens} tokens)")
+        graph_against_eager(f"{path} aligned", paths[path], segments, aligned=True)
+        longest = across_unrolls(path, paths[path], segments)
+        log(f"loop {path}: tokens bit-equal across k in {UNROLLS} at max_steps 41, "
+            f"cap 29 (longest hypothesis {longest})")
+    for label, model in kv_models.items():
+        tokens = graph_against_eager(f"kv {label}", model, segments)
+        log(f"loop kv {label}: graph tokens bit-equal to eager ({tokens} tokens)")
+    log(f"loop checks: {time.perf_counter() - start:.1f} s")
+
     for path in paths:
         for batch in (64, 512):
-            wall, tokens = forward_rate(torch, paths[path], batch, 64)
-            log(f"forward {path} B={batch} T=64 full vocab: {wall * 1e3:.1f} ms, "
-                f"{tokens} tokens, {tokens / wall:.0f} tok/s on {name} ({smi})")
+            for loop in ("graph", "eager", "eager", "graph"):
+                with eager_loop(paths[path], loop == "eager"):
+                    wall, tokens = forward_rate(torch, paths[path], batch, 64)
+                log(f"forward {path} {loop} loop B={batch} T=64 full vocab: "
+                    f"{wall * 1e3:.1f} ms, {tokens} tokens, {tokens / wall:.0f} tok/s "
+                    f"on {name} ({smi})")
 
     returned, wall = async_return(torch, paths["declared"], 512, 64)
     log(f"forward_async declared B=512 T=64 full vocab: returned after {returned:.3f} ms "
@@ -1954,13 +2234,16 @@ def main() -> None:
             f"{statistics.median(walls['inline']):.3f} ms of "
             f"{[round(w, 3) for w in walls['inline']]} on {name} ({smi})")
 
-    for path in ("declared", "fused_step", "fused", "fused", "fused_step", "declared"):
-        wall, walls, steps, ops, busy_us = latency(
-            torch, paths[path], CHECK_EVERY, dstep.whole_step_kernel)
-        log(f"latency {path} B=1 T=32 full vocab: median wall {wall * 1e3:.3f} ms "
-            f"of {[round(w * 1e3, 3) for w in walls]}, {steps} steps, "
-            f"{wall / steps * 1e6:.1f} us/step, {ops / steps:.1f} device ops/step, "
-            f"device busy {busy_us / steps:.1f} us/step (profiled) on {name} ({smi})")
+    for path in ("declared", "fused_step", "fused", "split"):
+        for loop in ("graph", "eager", "eager", "graph"):
+            got = latency(torch, paths[path], dstep.whole_step_kernel, decode, loop_graph,
+                          eager=loop == "eager")
+            log(latency_line(f"{path} {loop} loop", got, name, smi))
+    for path, model in paths.items():
+        graph_lines(path, model, name, smi)
+        log(f"graph cache {path} (every phase of its full-vocabulary Model): "
+            f"{cache_counts(model)}, {len(model._graphs)} graphs kept of "
+            f"{model._graphs.capacity}")
 
     # The exact float32 cache against the int16 default, and the whole
     # step's bfloat16 branch against its int16 one: in turns, one card.
@@ -1972,13 +2255,51 @@ def main() -> None:
     for label, model in (("int16", paths["fused_step"]), ("bfloat16", kv_models["fused_step bfloat16"]),
                          ("bfloat16", kv_models["fused_step bfloat16"]),
                          ("int16", paths["fused_step"])):
-        wall, walls, steps, ops, busy_us = latency(
-            torch, model, CHECK_EVERY, dstep.whole_step_kernel)
-        log(f"latency fused_step kv_cache_dtype={label} B=1 T=32 full vocab: median wall "
-            f"{wall * 1e3:.3f} ms of {[round(w * 1e3, 3) for w in walls]}, {steps} steps, "
-            f"{wall / steps * 1e6:.1f} us/step, {ops / steps:.1f} device ops/step, "
-            f"device busy {busy_us / steps:.1f} us/step (profiled) on {name} ({smi})")
+        got = latency(torch, model, dstep.whole_step_kernel, decode, loop_graph)
+        log(latency_line(f"fused_step kv_cache_dtype={label}", got, name, smi))
     del kv_models
+
+    # Continuous batching at the full tiny11 width: the JAX engine's
+    # defaults (256 slots, chunks of 16, t_slot 64) over 2048
+    # length-skewed segments, on the declared path and under fused_step;
+    # each segment's tokens against its decode alone through Model at
+    # B=1, and the rate against Model.forward at B=256.
+    rng = np.random.default_rng(7)
+    eos = paths["declared"].vocabulary.eos_id
+    segments = skewed_segments(rng, eos)
+    engines = {}
+    reset()
+    for path in ("declared", "fused_step"):
+        model = paths[path]
+        engines[path] = ContinuousEngine(
+            model.params, eos_id=eos, num_heads=HEADS, provider=model.config.qmm_provider,
+            kv_dtype=model.config.kv_cache_dtype, argmax_method=model.config.argmax_method)
+        continuous_run(torch, engines[path], segments[:300])  # captures the chunk
+        engines[path].stats.update(dict.fromkeys(engines[path].stats, 0))
+        wall, out = continuous_run(torch, engines[path], segments)
+        engines[path] = (engines[path], wall, out)
+    read("continuous")
+    for path, (engine, wall, out) in engines.items():
+        model = paths[path]
+        start = time.perf_counter()
+        want = one_at_a_time(model, segments)
+        alone = time.perf_counter() - start
+        continuous_agreement(f"continuous {path} against B=1", out, want)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        batched = [h.target for i in range(0, len(segments), 256)
+                   for h in model.forward(segments[i:i + 256], need_alignment=False)]
+        torch.cuda.synchronize()
+        batch_wall = time.perf_counter() - start
+        graph = next(iter(engine._graphs.items()))[1].stats()
+        log(f"continuous {path}: {len(segments)} segments in {wall:.3f} s, "
+            f"{len(segments) / wall:.1f} segments/s, {sum(map(len, out))} tokens, occupancy "
+            f"{engine.occupancy():.4f}, {engine.stats['chunks']} chunks; Model.forward at "
+            f"B=256: {batch_wall:.3f} s, {len(segments) / batch_wall:.1f} segments/s, "
+            f"{sum(map(len, batched))} tokens; B=1 one at a time: {alone:.3f} s; chunk graph "
+            f"capture {graph['capture_ms']:.1f} ms, pool {graph['pool_mb']:.1f} MB, buffers "
+            f"{graph['buffers_mb']:.1f} MB on {name} ({smi})")
+    del engines
 
     with torch.inference_mode():
         longctx(torch, tfm, paths["declared"].params, name, smi)
@@ -2046,6 +2367,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--layouts"]:
         layout_times(sys.argv[2], tuple(sys.argv[3:]) or LAYOUT_KERNELS)
+    elif sys.argv[1:2] == ["--unroll"]:
+        unroll_times()
     else:
         main()
     sys.exit(0)

@@ -1,14 +1,23 @@
 """Greedy decode on torch: the counterpart of slimt_tpu/models/decode.py.
 
-The JAX package runs the loop as one `lax.while_loop` on the device;
-here the loop runs on the host and launches each step's kernels. The
-semantics are the reference's, as in the JAX package:
+The JAX package runs the loop as one `lax.while_loop` on the device,
+`loop_unroll` steps an iteration. Here `DecodeLoop` holds a batch's
+decode state in fixed buffers and advances it k = `loop_unroll` steps a
+chunk (`run_chunk`, the JAX `one_step` k times): the step index is a
+device int32 tensor, so no step depends on the host. On CUDA the chunk
+is captured once per bucket as a CUDA graph (models/loop_graph.py) and
+replayed, and the host reads the all-complete flag one replay behind;
+on the CPU, and on the card behind the private `_eager`, the chunk runs
+eagerly and the flag is read at once. The semantics are the
+reference's, as in the JAX package:
   - step 0 feeds a zero embedding (no previous word);
   - the decoder's positional signal is position 0 at every step
-    (`decoder_position_zero`);
+    (`decoder_position_zero`), else the step's own position;
   - the EOS token is recorded, then the row is complete;
   - padding rows (fully masked) start complete;
-  - the trip count is min(max_steps, steps_cap);
+  - the trip count is min(max_steps, steps_cap); the steps of a chunk
+    past it are masked (`step < limit`), and the buffers are padded to
+    a whole number of chunks and sliced, as in the JAX package;
   - with alignment, each step records head 0 of the last decoder
     layer's cross-attention.
 
@@ -22,28 +31,38 @@ decode-attention kernel on alignment-free int16 requests (never under
 "fused_step", as in the JAX package); `argmax_method` picks the greedy
 argmax (transformer.output_argmax). Under provider "fused_step" each
 step is one call of the whole-step kernel (ops/decoder_step), whose
-argument block is built once per batch; the argmax is then the exact
-first maximum.
+argument block is built once per bucket over the loop's buffers; the
+argmax is then the exact first maximum.
 
-The loop asks the device whether every row is complete once every
-`check_every` steps (one `.item()`, which waits for the device). Rows
-that are already complete are masked out of tokens, valid and the
-alignment, so the result does not depend on `check_every`.
+The host reads the flag once every `check_every` steps, rounded up to
+whole chunks. Rows that are complete, and steps past the limit, are
+masked out of tokens, valid and the alignment, so the result depends
+on neither k nor `check_every`.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from slimt_tpu_torch.models import loop_graph
 from slimt_tpu_torch.models import transformer as tfm
 from slimt_tpu_torch.ops import decoder_step as dstep
 from slimt_tpu_torch.ops.qmm import _f32
 
 CHECK_EVERY = 8
+
+# Decode steps a chunk (a graph replay) runs where the caller passes no
+# `loop_unroll`; SLIMT_TPU_DECODE_UNROLL overrides it. Read once at
+# import, as in the JAX package: set it before the process imports
+# slimt_tpu_torch, or pass `loop_unroll`.
+DEFAULT_UNROLL = 8
+_ENV_DECODE_UNROLL = int(os.environ.get("SLIMT_TPU_DECODE_UNROLL", DEFAULT_UNROLL))
 
 
 # Providers of the declared path; "fused" runs the block kernels and
@@ -61,7 +80,7 @@ def check_options(provider: Optional[str], kv_dtype: Optional[str]) -> None:
     a cache dtype (transformer.KV_DTYPES)."""
     if provider not in PROVIDERS:
         raise NotImplementedError(
-            f"provider={provider!r} (ROADMAP Queue 1, item 12)"
+            f"provider={provider!r} (ROADMAP Queue 1, item 4)"
         )
     if kv_dtype not in tfm.KV_DTYPES:
         raise ValueError(f"kv_dtype={kv_dtype!r} not in {tfm.KV_DTYPES}")
@@ -77,12 +96,226 @@ def cache_dtype(provider: Optional[str], kv_dtype: Optional[str]) -> Optional[st
     return None if kv_dtype == "float32" else kv_dtype
 
 
+def resolve_unroll(loop_unroll: Optional[int]) -> int:
+    """Steps a chunk: `loop_unroll`, or SLIMT_TPU_DECODE_UNROLL's value
+    (DEFAULT_UNROLL where it is unset); at least 1."""
+    return max(1, int(_ENV_DECODE_UNROLL if loop_unroll is None else loop_unroll))
+
+
 class GreedyResult(NamedTuple):
     tokens: torch.Tensor  # [B, max_steps] int32
     valid: torch.Tensor  # [B, max_steps] bool — recorded positions
     alignment: torch.Tensor  # [B, max_steps, T_src or 0] f32
 
 
+def _load(dst, src) -> None:
+    """Copy `src` into the buffers `dst` (tensors, or tuples and dicts of
+    them); a tensor that already is the buffer (the full-vocabulary
+    projection, a view of the weights), and a CPU scalar, stay."""
+    if isinstance(dst, dict):
+        for key in dst:
+            _load(dst[key], src[key])
+    elif isinstance(dst, (tuple, list)):
+        for d, s in zip(dst, src):
+            _load(d, s)
+    elif isinstance(dst, torch.Tensor) and dst.dim() and not (
+            dst.data_ptr() == src.data_ptr() and dst.stride() == src.stride()):
+        dst.copy_(src)
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_nbytes(v) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.dim():
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+class StepContext:
+    """What each decode step of a loop reads besides its carried state,
+    built once over the loop's fixed buffers: the cross-KV caches, the
+    mask and the projection, the packed-int bias, the whole step's
+    argument block (fused_step on CUDA), the embedding scale and the
+    position-0 signal. `step` is one decoder step over them; DecodeLoop
+    and continuous.ChunkDecoder both run it."""
+
+    def __init__(self, params, kv_caches, mask_add, projection, *, num_heads, provider,
+                 argmax_method, attn_kernel=False):
+        self.params = params
+        self.kv, self.mask_add, self.projection = kv_caches, mask_add, projection
+        self.num_heads = num_heads
+        self.provider, self.argmax_method, self.attn_kernel = provider, argmax_method, attn_kernel
+        emb_dim = params["emb"]["q"].shape[1]
+        device = mask_add.device
+        self.packed_bias = None
+        if tfm.uses_packed_int(provider, argmax_method):
+            self.packed_bias = tfm.packed_int_bias(params, projection[1])
+        self.plan = None
+        if provider == "fused_step" and device.type == "cuda":
+            self.plan = dstep.StepPlan(
+                params["decoder"], kv_caches, mask_add, num_heads, projection,
+                params["out"]["aq"], tfm.output_inv(params),
+            )
+        self.sqrt_e = _f32(math.sqrt(emb_dim))
+        self.signal0 = tfm.sinusoidal_signal(0, 1, emb_dim, device=device)
+
+    def step(self, prev, states, fresh, position=None):
+        """One decoder step after the words `prev` [B]: the zero embedding
+        where `fresh` ([B] bool, or [1] for every row) is set, and the
+        sinusoid at `position` (a [1] device step; None: position 0).
+        Returns decoder_step's (choice, new states, attention)."""
+        embedded = tfm.embed(self.params, prev[:, None])
+        prev_embed = torch.where(fresh[:, None, None], 0.0, embedded)
+        if position is None:
+            signal = self.signal0
+        else:
+            signal = tfm.sinusoidal_signal(
+                0, 1, embedded.shape[-1], positions=position.to(torch.float32))
+        x = prev_embed * self.sqrt_e + signal
+        return tfm.decoder_step(
+            self.params, states, x, self.mask_add, self.kv, self.num_heads,
+            projection=self.projection, provider=self.provider, plan=self.plan,
+            argmax_method=self.argmax_method, attn_kernel=self.attn_kernel,
+            packed_bias=self.packed_bias,
+        )
+
+
+class DecodeLoop(StepContext):
+    """A batch's greedy decode in fixed buffers: the inputs it adopts (the
+    cross-KV caches, the mask, the projection and the shortlist; a later
+    batch of the bucket copies its own into them, `load`), the carried
+    state (step, limit, prev, states, complete) and the outputs (tokens,
+    valid, alignment, padded to whole chunks). `run_chunk` advances them
+    `unroll` steps in place; on CUDA it is what loop_graph captures."""
+
+    def __init__(self, params, kv_caches, mask_add, projection, shortlist, *,
+                 eos_id, num_heads, max_steps, unroll, provider, argmax_method,
+                 attn_kernel, with_alignment, decoder_position_zero):
+        super().__init__(params, kv_caches, mask_add, projection, num_heads=num_heads,
+                         provider=provider, argmax_method=argmax_method,
+                         attn_kernel=attn_kernel)
+        self.shortlist = shortlist
+        self.eos_id = eos_id
+        self.max_steps, self.unroll = max_steps, unroll
+        self.with_alignment = with_alignment
+        self.position_zero = decoder_position_zero
+        batch, t_src = mask_add.shape[0], mask_add.shape[-1]
+        layers = len(params["decoder"])
+        emb_dim = params["emb"]["q"].shape[1]
+        device = mask_add.device
+        steps_padded = -(-max_steps // unroll) * unroll
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.step_at, self.limit = zeros(1), zeros(1)
+        self.prev = zeros(batch)
+        # One [L, B, 1, E] block: the whole-step kernel reads it in place.
+        self.states = zeros(layers, batch, 1, emb_dim, dtype=torch.float32)
+        self.complete = zeros(batch, dtype=torch.bool)
+        self.done = zeros(1, dtype=torch.bool)
+        self.tokens = zeros(batch, steps_padded)
+        self.valid = zeros(batch, steps_padded, dtype=torch.bool)
+        self.align = zeros(batch, steps_padded, t_src if with_alignment else 0,
+                           dtype=torch.float32)
+
+    def load(self, kv_caches, mask_add, projection, shortlist) -> None:
+        """Copy a batch of this bucket's shapes into the input buffers."""
+        _load((self.kv, self.mask_add, self.projection, self.shortlist),
+              (kv_caches, mask_add, projection, shortlist))
+        if self.packed_bias is not None and projection[1] is not self.projection[1]:
+            self.packed_bias.copy_(tfm.packed_int_bias(self.params, projection[1]))
+
+    def reset(self, limit: int) -> None:
+        """The carried state and outputs of a new batch; padding rows
+        (fully masked) start complete."""
+        for buffer in (self.step_at, self.prev, self.states, self.done, self.tokens,
+                       self.valid, self.align):
+            buffer.zero_()
+        self.limit.fill_(limit)
+        self.complete.copy_(~(self.mask_add[:, 0, 0, :] == 0.0).any(-1))
+
+    def _one_step(self, step, prev, states, complete):
+        choice, new_states, attn = self.step(
+            prev, states, step == 0, None if self.position_zero else step)
+        if self.shortlist is not None:
+            choice = self.shortlist[choice.to(torch.long)]
+        word = choice.to(torch.int32)
+        # `step < limit` masks the steps of a chunk past the cap.
+        in_limit = step < self.limit
+        active = ~complete & in_limit
+        at = step.to(torch.long)
+        self.tokens.index_copy_(1, at, torch.where(active, word, 0)[:, None])
+        self.valid.index_copy_(1, at, active[:, None])
+        if self.with_alignment:
+            head0 = torch.where(active[:, None], attn[:, 0, 0, :], 0.0)
+            self.align.index_copy_(1, at, head0[:, None, :])
+        complete = complete | ((word == self.eos_id) & in_limit)
+        return step + 1, word, new_states, complete
+
+    def run_chunk(self) -> None:
+        """`unroll` steps from the carried state, written back in place,
+        and the all-complete flag `done`."""
+        step, prev, complete = self.step_at, self.prev, self.complete
+        states = tuple(self.states.unbind(0))
+        for _ in range(self.unroll):
+            step, prev, states, complete = self._one_step(step, prev, states, complete)
+        self.step_at.copy_(step)
+        self.prev.copy_(prev)
+        self.complete.copy_(complete)
+        torch.stack(states, out=self.states)
+        self.done.copy_(complete.all().reshape(1))
+
+    def result(self) -> GreedyResult:
+        n = self.max_steps
+        return GreedyResult(self.tokens[:, :n], self.valid[:, :n], self.align[:, :n])
+
+    def buffer_bytes(self) -> int:
+        return _nbytes((self.kv, self.mask_add, self.projection, self.shortlist,
+                        self.states, self.tokens, self.valid, self.align))
+
+
+def run_loop(loop: DecodeLoop, limit: int, check_every: int, chunk=None) -> int:
+    """Advance `loop` a chunk at a time until its step reaches `limit` or
+    a read of its all-complete flag says every row is done; the flag is
+    read once every `check_every` steps, rounded up to whole chunks.
+    `chunk` runs one chunk (a graph's `run`, whose flag is read one
+    replay behind); None runs `loop.run_chunk` eagerly and reads the flag
+    at once. Returns the chunks run (`run_loop.chunks` counts them all,
+    over every thread)."""
+    run = chunk if chunk is not None else loop.run_chunk
+    flag = loop_graph.FlagReader(loop.done, lag=1 if chunk is not None else 0)
+    every = -(-max(1, int(check_every)) // loop.unroll)
+    step = chunks = 0
+    while step < limit:
+        run()
+        chunks += 1
+        step += loop.unroll
+        if step < limit and chunks % every == 0 and flag.read():
+            break
+    with _chunks_lock:
+        run_loop.chunks += chunks
+    return chunks
+
+
+run_loop.chunks = 0
+_chunks_lock = threading.Lock()
+
+
+def loop_key(params, loop_args: dict, kv_caches, mask_add, projection, shortlist) -> tuple:
+    """What a capture fixes: the weights (and so their device and layer
+    count), the options (k and the steps among them), the cache type and
+    the shapes (B, T, the projection width)."""
+    first = kv_caches[0]
+    cache = (first["k"].dtype, first["v"].dtype) if isinstance(first, dict) else "split"
+    return ("greedy", id(params), tuple(mask_add.shape), cache,
+            tuple(projection[0].shape), shortlist is not None,
+            tuple(sorted(loop_args.items())))
+
+
+@torch.inference_mode()
 def greedy_decode(
     params: dict,
     encoder_out: torch.Tensor,
@@ -99,76 +332,51 @@ def greedy_decode(
     kv_dtype: Optional[str] = "int16",
     argmax_method: str = "packed_int",
     attn_kernel: bool = False,
+    loop_unroll: Optional[int] = None,
+    graphs: Optional[loop_graph.GraphCache] = None,
+    _eager: bool = False,
 ) -> GreedyResult:
+    """Greedy decode of `encoder_out` [B, T, E], `loop_unroll` steps a
+    chunk (None: resolve_unroll's default). On CUDA the chunk runs as a
+    CUDA graph of `graphs` (None: the process's cache), captured at the
+    bucket's first batch; `_eager` runs it eagerly instead, for the
+    checks that compare the two. On the CPU it runs eagerly."""
     check_options(provider, kv_dtype)
     # The decode-attention kernel serves the alignment-free int16 path
     # only (it returns no attention weights), as in the JAX package.
     attn_kernel = bool(attn_kernel) and not with_alignment and (
         kv_dtype == "int16") and provider != "fused_step"
-    batch, t_src, emb_dim = encoder_out.shape
-    device = encoder_out.device
     kv_caches = tfm.precompute_cross_kv(
         params, encoder_out, num_heads, cache_dtype(provider, kv_dtype))
     projection = tfm.prepare_output_projection(params, shortlist)
-    plan = None
-    if provider == "fused_step" and device.type == "cuda":
-        plan = dstep.StepPlan(
-            params["decoder"], kv_caches, mask_add, num_heads, projection,
-            params["out"]["aq"], tfm.output_inv(params),
-        )
-    # One [L, B, 1, E] block: the whole-step kernel reads it in place.
-    states = tuple(
-        torch.zeros(
-            (len(params["decoder"]), batch, 1, emb_dim),
-            dtype=torch.float32, device=device,
-        ).unbind(0)
-    )
-    tokens = torch.zeros((batch, max_steps), dtype=torch.int32, device=device)
-    valid = torch.zeros((batch, max_steps), dtype=torch.bool, device=device)
-    align = torch.zeros(
-        (batch, max_steps, t_src if with_alignment else 0),
-        dtype=torch.float32, device=device,
-    )
-    complete = ~(mask_add[:, 0, 0, :] == 0.0).any(-1)
-    prev = torch.zeros((batch,), dtype=torch.int32, device=device)
     limit = max_steps if steps_cap is None else min(max_steps, int(steps_cap))
-    sqrt_e = _f32(math.sqrt(emb_dim))
-    signal0 = tfm.sinusoidal_signal(0, 1, emb_dim, device=device)
-    zero = torch.zeros((), dtype=torch.int32, device=device)
-    every = max(1, int(check_every))
+    loop_args = dict(
+        eos_id=int(eos_id), num_heads=num_heads, max_steps=max_steps,
+        unroll=resolve_unroll(loop_unroll), provider=provider,
+        argmax_method=argmax_method, attn_kernel=attn_kernel,
+        with_alignment=bool(with_alignment),
+        decoder_position_zero=bool(decoder_position_zero),
+    )
 
-    for step in range(limit):
-        if step % every == 0 and bool(complete.all()):
-            break
-        if step == 0:
-            prev_embed = torch.zeros(
-                (batch, 1, emb_dim), dtype=torch.float32, device=device
-            )
-        else:
-            prev_embed = tfm.embed(params, prev[:, None])
-        if decoder_position_zero:
-            signal = signal0
-        else:
-            signal = tfm.sinusoidal_signal(
-                0, 1, emb_dim,
-                positions=torch.tensor([step], dtype=torch.float32, device=device),
-            )
-        x = prev_embed * sqrt_e + signal
-        choice, states, attn = tfm.decoder_step(
-            params, states, x, mask_add, kv_caches, num_heads,
-            projection=projection, provider=provider, plan=plan,
-            argmax_method=argmax_method, attn_kernel=attn_kernel,
-        )
-        word = shortlist[choice.to(torch.long)] if shortlist is not None else choice
-        word = word.to(torch.int32)
-        active = ~complete
-        tokens[:, step] = torch.where(active, word, zero)
-        valid[:, step] = active
-        if with_alignment:
-            align[:, step] = torch.where(active[:, None], attn[:, 0, 0, :], 0.0)
-        complete = complete | (word == eos_id)
-        prev = word
-    return GreedyResult(tokens, valid, align)
+    def make_loop():
+        return DecodeLoop(params, kv_caches, mask_add, projection, shortlist, **loop_args)
+
+    if not encoder_out.is_cuda or _eager:
+        loop = make_loop()
+        loop.reset(limit)
+        run_loop(loop, limit, check_every)
+        return loop.result()
+    if graphs is None:
+        raise ValueError("greedy_decode on CUDA replays its chunks from `graphs`, "
+                         "a loop_graph.GraphCache: pass one")
+    key = loop_key(params, loop_args, kv_caches, mask_add, projection, shortlist)
+    bucket = graphs.bucket(key, make_loop, encoder_out.device)
+    with bucket.use() as loop:
+        loop.load(kv_caches, mask_add, projection, shortlist)
+        loop.reset(limit)
+        run_loop(loop, limit, check_every, bucket.graph.run)
+        # The buffers serve the bucket's next batch: hand out copies.
+        return GreedyResult(*(t.clone() for t in loop.result()))
 
 
 def translate_batch(
@@ -190,13 +398,17 @@ def translate_batch(
     flash_attention: bool = False,
     fused_sdpa: bool = False,
     fused_layer: bool = False,
+    loop_unroll: Optional[int] = None,
+    graphs: Optional[loop_graph.GraphCache] = None,
+    _eager: bool = False,
 ) -> GreedyResult:
     """embed → encoder → greedy decode for a padded [B, T] batch.
     `provider` "fused" runs the decoder's SSRU and FFN block kernels (and
     the split encoder's FFN), "fused_step" each decode step as one
     whole-step call. The encoder takes `flash_attention`, `fused_sdpa`
     and `fused_layer` (transformer.encoder_layer_forward) and the
-    provider, which under "fused_step" is None, as in the JAX package."""
+    provider, which under "fused_step" is None, as in the JAX package.
+    `loop_unroll`, `graphs` and `_eager` go to greedy_decode."""
     word_embedding = tfm.transform_embedding(tfm.embed(params, indices))
     mask_add = tfm.make_additive_mask(mask)
     encoder_out = tfm.encoder_forward(
@@ -208,6 +420,7 @@ def translate_batch(
         params, encoder_out, mask_add, eos_id, max_steps, num_heads,
         shortlist, decoder_position_zero, steps_cap, with_alignment,
         check_every, provider, kv_dtype, argmax_method, attn_kernel,
+        loop_unroll, graphs, _eager,
     )
 
 
@@ -220,22 +433,44 @@ class CompactResult(NamedTuple):
     alignment: torch.Tensor
 
 
+# numpy packbits' bit order within a byte.
+BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def pack_bits16(bits: torch.Tensor, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """bits [B, n] bool as uint16 words in int32 [B, ceil(ceil(n/8)/2)]:
+    numpy packbits order, the bytes paired little-endian. `weights` is
+    BIT_WEIGHTS as an int32 tensor on the bits' device (made here if
+    None; a captured caller passes its own)."""
+    batch, n = bits.shape
+    nbytes = -(-n // 8)
+    nbytes += nbytes % 2
+    padded = torch.zeros((batch, nbytes * 8), dtype=torch.int32, device=bits.device)
+    padded[:, :n] = bits.to(torch.int32)
+    if weights is None:
+        weights = torch.tensor(BIT_WEIGHTS, dtype=torch.int32, device=bits.device)
+    byte = (padded.reshape(batch, nbytes, 8) * weights).sum(-1, dtype=torch.int32)
+    return byte[:, 0::2] | (byte[:, 1::2] << 8)
+
+
+def as_uint16(values: torch.Tensor) -> torch.Tensor:
+    """int32 values in [0, 65535] as int16 with the same 16 bits."""
+    return torch.where(values > 32767, values - 65536, values).to(torch.int16)
+
+
+def unpack_bits16(words: np.ndarray, n: int) -> np.ndarray:
+    """Host inverse of pack_bits16 on uint16 words: bool [B, n]."""
+    byte_pairs = np.empty((words.shape[0], 2 * words.shape[1]), np.uint8)
+    byte_pairs[:, 0::2] = words & 0xFF
+    byte_pairs[:, 1::2] = words >> 8
+    return np.unpackbits(byte_pairs[:, :(n + 7) // 8], axis=1, count=n).astype(bool)
+
+
 def compact_result(result: GreedyResult) -> CompactResult:
     """Lossless device-side compaction; inverse: `unpack_compact`."""
-    tokens, valid = result.tokens, result.valid
-    batch, steps = valid.shape
-    nbytes = -(-steps // 8)
-    nbytes += nbytes % 2
-    bits = torch.zeros((batch, nbytes * 8), dtype=torch.int32, device=valid.device)
-    bits[:, :steps] = valid.to(torch.int32)
-    weights = torch.tensor(
-        [128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=valid.device
-    )
-    byte = (bits.reshape(batch, nbytes, 8) * weights).sum(-1, dtype=torch.int32)
-    words = byte[:, 0::2] | (byte[:, 1::2] << 8)
-    packed = torch.cat([tokens.to(torch.int32), words], dim=1)
-    packed = torch.where(packed > 32767, packed - 65536, packed)
-    return CompactResult(packed.to(torch.int16), result.alignment)
+    words = pack_bits16(result.valid)
+    packed = torch.cat([result.tokens.to(torch.int32), words], dim=1)
+    return CompactResult(as_uint16(packed), result.alignment)
 
 
 def unpack_compact(packed, max_steps: int):
@@ -245,12 +480,4 @@ def unpack_compact(packed, max_steps: int):
         packed = packed.cpu().numpy()
     packed = np.asarray(packed).view(np.uint16)
     tokens = packed[:, :max_steps].astype(np.int32)
-    words = packed[:, max_steps:]
-    byte_pairs = np.empty((words.shape[0], 2 * words.shape[1]), np.uint8)
-    byte_pairs[:, 0::2] = words & 0xFF
-    byte_pairs[:, 1::2] = words >> 8
-    nbytes = (max_steps + 7) // 8
-    valid = np.unpackbits(
-        byte_pairs[:, :nbytes], axis=1, count=max_steps
-    ).astype(bool)
-    return tokens, valid
+    return tokens, unpack_bits16(packed[:, max_steps:], max_steps)

@@ -7,7 +7,9 @@ as the JAX Model, so the runtime (`runtime/service.py`,
 `runtime/bulk.py`) drives it unchanged through `forward_async` and
 `forward_async_arrays`. Those return once the batch is queued on the
 Model's dispatch worker (one thread, and on CUDA one side stream), which
-runs the batches in submission order, as the JAX device queue does.
+runs the batches in submission order, as the JAX device queue does. On
+CUDA the worker runs the decode loop as CUDA graphs, one per bucket,
+kept in the Model's own LRU (models/loop_graph.py).
 
 The port implements the declared serving config, the `fused` provider
 (SSRU and FFN block kernels per decoder layer), the decode-attention
@@ -49,6 +51,7 @@ from slimt_tpu_torch.models.decode import (
     translate_batch,
     unpack_compact,
 )
+from slimt_tpu_torch.models.loop_graph import GraphCache
 from slimt_tpu_torch.models.transformer import KV_DTYPES
 from slimt_tpu_torch.ops.encoder_layer import MAX_T
 from slimt_tpu_torch.runtime.request import Hypothesis
@@ -123,11 +126,11 @@ def _check_config(config: ModelConfig) -> None:
         unsupported.append(f"argmax_method={config.argmax_method!r} (not a method)")
     if config.qmm_provider not in ("xla_int8", "pallas", "fused", "fused_step"):
         unsupported.append(
-            f"qmm_provider={config.qmm_provider!r} (ROADMAP Queue 1, item 12)"
+            f"qmm_provider={config.qmm_provider!r} (ROADMAP Queue 1, item 4)"
         )
     if config.encoder_dtype is not None:
         unsupported.append(
-            f"encoder_dtype={config.encoder_dtype!r} (ROADMAP Queue 1, item 12)"
+            f"encoder_dtype={config.encoder_dtype!r} (ROADMAP Queue 1, item 4)"
         )
     for name, modes in (("encoder_layer_kernel", ("on", "auto", "off")),
                         ("encoder_sdpa", ("on", "auto", "off")),
@@ -244,6 +247,12 @@ class Model:
                 shortlist_bytes, vocab_size=self.vocab_size
             )
         self.shortlist_meter = ShortlistMeter()
+        # The decode loop's graphs (CUDA); private: the steps a chunk
+        # (None: the default) and the eager loop on the card, for the
+        # checks that compare them.
+        self._graphs = GraphCache() if self.device.type == "cuda" else None
+        self._loop_unroll = None
+        self._eager_loop = False
         self._worker: Optional[_DispatchWorker] = None
         self._worker_lock = threading.Lock()
 
@@ -379,6 +388,9 @@ class Model:
                 flash_attention=resolve_flash(self.config.flash_attention, t_pad),
                 fused_sdpa=self._on_card(self.config.encoder_sdpa, t_pad),
                 fused_layer=self._on_card(self.config.encoder_layer_kernel, t_pad),
+                loop_unroll=self._loop_unroll,
+                graphs=self._graphs,
+                _eager=self._eager_loop,
             )
             align = result.alignment.cpu().numpy() if need_alignment else None
             if compact:
@@ -427,8 +439,9 @@ class Model:
         seq_buckets: Sequence[int] = (16, 32, 64, 128),
         alignment: bool = False,
     ) -> int:
-        """Run each (B, T) bucket once (builds the kernels and fills the
-        allocator's cache). Returns the number of runs."""
+        """Run each (B, T) bucket once: builds the kernels, fills the
+        allocator's cache and, on CUDA, captures each bucket's decode
+        graph. Returns the number of runs."""
         runs = 0
         for b in batch_buckets:
             for t in seq_buckets:

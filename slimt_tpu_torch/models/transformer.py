@@ -392,6 +392,7 @@ def decoder_step(
     plan=None,
     argmax_method: str = "packed_int",
     attn_kernel: bool = False,
+    packed_bias: Optional[torch.Tensor] = None,
 ):
     """One greedy decode step over all decoder layers. prev_embed is
     the transformed [B, 1, E] input. Returns (choice [B] int32 — a
@@ -405,7 +406,8 @@ def decoder_step(
     ops/decoder_step.whole_decode_step (exact first-max argmax; the
     method and `attn_kernel` do not apply); `plan` is that call's
     loop-invariant argument block (StepPlan), built once per batch on
-    CUDA."""
+    CUDA; `packed_bias` the `packed_int` argmax's bias in accumulator
+    units (packed_int_bias), built once per batch by the decode loop."""
     if projection is None:
         projection = prepare_output_projection(params, shortlist)
     if provider == "fused_step":
@@ -425,7 +427,8 @@ def decoder_step(
             layer, state, x, mask_add, kv, num_heads, provider, attn_kernel
         )
         new_states.append(new_state)
-    choice = output_argmax(params, x[:, 0, :], provider, projection, argmax_method)
+    choice = output_argmax(params, x[:, 0, :], provider, projection, argmax_method,
+                           packed_bias)
     return choice, tuple(new_states), guided
 
 
@@ -487,12 +490,28 @@ def packed_argmax_bf16(logits: torch.Tensor) -> torch.Tensor:
     return packed_argmax_16(logits, torch.bfloat16)
 
 
+def uses_packed_int(provider: Optional[str], method: str) -> bool:
+    """Whether output_argmax takes the `packed_int` keys: under the
+    declared providers only (elsewhere "packed_int" is the exact argmax)."""
+    return method == "packed_int" and provider in (None, "xla_int8", "pallas")
+
+
+def packed_int_bias(params: dict, bias: torch.Tensor) -> torch.Tensor:
+    """The projection bias [S] in accumulator units, as int32 clamped to
+    the accumulator bound: the `b_i32` of packed_int_argmax."""
+    e_dim = params["emb"]["q"].shape[1]
+    cap = e_dim * 127 * 127
+    scale = _f32(params["out"]["aq"] * params["emb"]["scale"])
+    return torch.clamp(torch.round(bias * scale), -cap, cap).to(torch.int32)
+
+
 def output_argmax(
     params: dict,
     x: torch.Tensor,
     provider: Optional[str] = None,
     projection: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     method: str = "packed_int",
+    packed_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Greedy choice [B] int32 over the tied projection's columns.
 
@@ -503,19 +522,19 @@ def output_argmax(
     the JAX package's XLA argmax: "packed_fp16"/"packed_bf16" up to
     65536 columns, else the exact first maximum. So "fused" with
     "packed_int" takes the exact argmax, as in the JAX package
-    (transformer.py:1035, :1051-1057)."""
+    (transformer.py:1035, :1051-1057). `packed_bias` is packed_int_bias
+    of the projection's bias, where the caller has it."""
     if projection is None:
         projection = prepare_output_projection(params)
     w, b = projection
     aq = params["out"]["aq"]
-    if method == "packed_int" and provider in (None, "xla_int8", "pallas"):
-        bq = params["emb"]["scale"]
+    if uses_packed_int(provider, method):
         acc = qmm.int8_matmul(x, w, aq)
         e_dim, width = w.shape
         width_bits, shift = packed_int_params(width, e_dim)
-        cap = e_dim * 127 * 127
-        b_i32 = torch.clamp(torch.round(b * _f32(aq * bq)), -cap, cap).to(torch.int32)
-        return packed_int_argmax(acc, b_i32, width_bits, shift)
+        if packed_bias is None:
+            packed_bias = packed_int_bias(params, b)
+        return packed_int_argmax(acc, packed_bias, width_bits, shift)
     if method not in logits_argmax.PACKED_DTYPES or w.shape[1] > logits_argmax.MAX_PACKED_WIDTH:
         method = "exact"
     return logits_argmax.argmax_affine(x, w, b, aq, output_inv(params), method)

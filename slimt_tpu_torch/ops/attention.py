@@ -21,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from slimt_tpu_torch.ops import _build
+from slimt_tpu_torch.ops import _build, launches
 from slimt_tpu_torch.ops.encoder_layer import (
     HEAD_DIMS,
     MAX_T,
@@ -74,7 +74,7 @@ def fused_sdpa_kernel(q, k, v, mask_add, num_heads) -> torch.Tensor:
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, code, "slimt_fused_sdpa")
-    fused_sdpa_kernel.launches += 1
+    launches.count(fused_sdpa_kernel)
     return out
 
 
@@ -100,7 +100,7 @@ def blockwise_kernel(q, k, v, mask_add) -> torch.Tensor:
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, code, "slimt_blockwise_attention")
-    blockwise_kernel.launches += 1
+    launches.count(blockwise_kernel)
     return out
 
 

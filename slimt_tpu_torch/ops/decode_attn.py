@@ -22,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-from slimt_tpu_torch.ops import _build, qmm
+from slimt_tpu_torch.ops import _build, launches, qmm
 from slimt_tpu_torch.ops.encoder_layer import softmax
 
 
@@ -98,7 +98,7 @@ def decode_attention_kernel(q, k, v, kqi, vqi, mask, num_heads, _kernel=None) ->
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, code, "slimt_decode_attention")
-    decode_attention_kernel.launches += 1
+    launches.count(decode_attention_kernel)
     return out
 
 

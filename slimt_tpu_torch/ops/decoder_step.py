@@ -42,7 +42,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from slimt_tpu_torch.ops import _build, decode_attn, fused_blocks, qmm
+from slimt_tpu_torch.ops import _build, decode_attn, fused_blocks, launches, qmm
 from slimt_tpu_torch.ops.encoder_layer import layer_norm, softmax
 from slimt_tpu_torch.ops.fused_blocks import (
     EMB_DIMS,
@@ -374,7 +374,7 @@ def whole_step_kernel(
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, code, "slimt_whole_decode_step")
-    whole_step_kernel.launches += 1
+    launches.count(whole_step_kernel)
     return choice, tuple(c_out.unbind(0)), attn0
 
 
@@ -451,7 +451,7 @@ def decoder_layer_step_bte_kernel(layer, state, x, mask_add, kv, num_heads, _clu
     """Launch the joined-cache layer step on CUDA tensors. `launches`
     counts its launches."""
     out = _layer_step_kernel(layer, state, x, mask_add, kv, num_heads, False, _cluster)
-    decoder_layer_step_bte_kernel.launches += 1
+    launches.count(decoder_layer_step_bte_kernel)
     return out
 
 
@@ -462,7 +462,7 @@ def decoder_layer_step_kernel(layer, state, x, mask_add, kv, num_heads, _cluster
     """Launch the split-cache layer step on CUDA tensors. `launches`
     counts its launches."""
     out = _layer_step_kernel(layer, state, x, mask_add, kv, num_heads, True, _cluster)
-    decoder_layer_step_kernel.launches += 1
+    launches.count(decoder_layer_step_kernel)
     return out
 
 

@@ -24,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-from slimt_tpu_torch.ops import _build, qmm
+from slimt_tpu_torch.ops import _build, launches, qmm
 
 LN_EPS = 1e-6
 MAX_T = 256  # the gate of the TPU kernel (transformer.py:500-509)
@@ -249,7 +249,7 @@ def layer_kernel(x, layer, mask_add, num_heads, _cluster=None) -> torch.Tensor:
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, code, "slimt_encoder_layer")
-    layer_kernel.launches += 1
+    launches.count(layer_kernel)
     return out
 
 

@@ -26,7 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from slimt_tpu_torch.ops import _build, qmm
+from slimt_tpu_torch.ops import _build, launches, qmm
 from slimt_tpu_torch.ops.encoder_layer import layer_norm
 
 # Shapes the kernels take (and the whole decode step's).
@@ -176,7 +176,7 @@ def ssru_kernel(x, state, rnn, _cluster=None):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, code, "slimt_ssru_block")
-    ssru_kernel.launches += 1
+    launches.count(ssru_kernel)
     return h, c_t
 
 
@@ -205,7 +205,7 @@ def ffn_kernel(x, ffn, _cluster=None):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, code, "slimt_ffn_block")
-    ffn_kernel.launches += 1
+    launches.count(ffn_kernel)
     return out
 
 

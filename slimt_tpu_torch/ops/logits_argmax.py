@@ -21,7 +21,7 @@ import ctypes
 import numpy as np
 import torch
 
-from slimt_tpu_torch.ops import _build, qmm
+from slimt_tpu_torch.ops import _build, launches, qmm
 from slimt_tpu_torch.ops.fused_blocks import EMB_DIMS
 
 # Methods of the kernel, in csrc/slimt_kernels.cuh's ArgmaxMode order.
@@ -110,7 +110,7 @@ def argmax_affine_kernel(y, w, b, aq, inv, method: str = "exact") -> torch.Tenso
         METHODS.index(method), torch.cuda.current_stream(y.device).cuda_stream,
     )
     _build.check(lib, code, "slimt_argmax_affine")
-    argmax_affine_kernel.launches += 1
+    launches.count(argmax_affine_kernel)
     return choice
 
 

@@ -22,7 +22,7 @@ import ctypes
 import numpy as np
 import torch
 
-from slimt_tpu_torch.ops import _build
+from slimt_tpu_torch.ops import _build, launches
 
 # Output modes of the kernel (csrc/slimt_kernels.cuh).
 AFFINE, AFFINE_RELU, ACCUMULATOR = 0, 1, 2
@@ -96,7 +96,7 @@ def affine_kernel(x2, w_q, b, aq, inv, mode=AFFINE) -> torch.Tensor:
         torch.cuda.current_stream(x2.device).cuda_stream,
     )
     _build.check(lib, code, "slimt_affine")
-    affine_kernel.launches += 1
+    launches.count(affine_kernel)
     return y
 
 

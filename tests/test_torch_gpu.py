@@ -953,3 +953,245 @@ def test_decode_attention_forced_kernels_match_plain(card, kernel, b, t):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 2e-5
+
+
+# The decode loop as CUDA graphs (models/decode.py, models/loop_graph.py)
+# and continuous batching on them (models/continuous.py).
+LOOP_VOCAB = 700
+
+
+def _loop_params(card, seed=3, dec_layers=2):
+    config = ModelConfig(encoder_layers=1, decoder_layers=dec_layers, num_heads=8)
+    host = load_weights(load_items(synthetic_model_bytes(
+        config=config, vocab_size=LOOP_VOCAB, emb_dim=256, ffn_dim=1536, seed=seed)), config)
+    return params_from_numpy(host, card)
+
+
+def _loop_batch(card, b=5, t=16, seed=0):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, LOOP_VOCAB, (b, t)).astype(np.int32)
+    mask = np.ones((b, t), np.float32)
+    mask[1, t // 2:] = 0
+    mask[-1] = 0  # a padding row
+    ids[mask == 0] = 0
+    return torch.from_numpy(ids).to(card), torch.from_numpy(mask).to(card)
+
+
+def _decode(params, ids, mask, **kwargs):
+    from slimt_tpu_torch.models import decode
+
+    args = dict(eos_id=2, max_steps=21, num_heads=8, steps_cap=17)
+    args.update(kwargs)
+    return decode.translate_batch(params, ids, mask, **args)
+
+
+def _same(a, b):
+    return (torch.equal(a.tokens, b.tokens) and torch.equal(a.valid, b.valid)
+            and torch.equal(a.alignment, b.alignment))
+
+
+# (provider, kv_dtype, with_alignment, attn_kernel) over the serving paths.
+LOOP_CASES = [
+    (None, "int16", True, False), (None, "float32", False, False),
+    (None, "bfloat16", False, False), ("fused", "int16", False, True),
+    ("fused", "float32", True, False), ("fused_step", "int16", True, False),
+    ("fused_step", "float32", False, False), ("fused_step", "bfloat16", False, False),
+]
+
+
+@pytest.mark.parametrize("provider,kv,aligned,attn", LOOP_CASES)
+def test_graph_loop_bit_equal_to_eager_loop(card, provider, kv, aligned, attn):
+    """The graph loop's tokens, valid masks and alignments equal the eager
+    loop's on the card, for k in {1, 3, 8} (max_steps 21, cap 17), with a
+    shortlist on the declared path."""
+    from slimt_tpu_torch.models.loop_graph import GraphCache
+
+    params = _loop_params(card)
+    ids, mask = _loop_batch(card)
+    shortlist = None
+    if provider is None and kv == "int16":
+        shortlist = torch.arange(0, LOOP_VOCAB, 3, dtype=torch.int32, device=card)
+    kwargs = dict(provider=provider, kv_dtype=kv, with_alignment=aligned,
+                  attn_kernel=attn, shortlist=shortlist,
+                  argmax_method="packed_int" if provider is None else "exact")
+    graphs = GraphCache()
+    eager = _decode(params, ids, mask, loop_unroll=1, _eager=True, **kwargs)
+    for k in (1, 3, 8):
+        got = _decode(params, ids, mask, loop_unroll=k, graphs=graphs, **kwargs)
+        again = _decode(params, ids, mask, loop_unroll=k, graphs=graphs, **kwargs)
+        assert _same(got, eager), k
+        assert _same(again, eager), k
+    assert len(graphs) == 3
+    assert eager.valid.any() and not eager.valid[-1].any()
+
+
+def test_one_graph_serves_two_batches_of_a_bucket(card):
+    """Batches A, B, A through one bucket: each equals its eager decode,
+    nothing of A stays in B's result, and the graph replays."""
+    from slimt_tpu_torch.models.loop_graph import ChunkGraph, GraphCache
+
+    params = _loop_params(card)
+    graphs = GraphCache()
+    batches = [_loop_batch(card, seed=s) for s in (0, 1, 0)]
+    want = [_decode(params, *batch, _eager=True) for batch in batches]
+    replays = ChunkGraph.replays
+    got = [_decode(params, *batch, graphs=graphs, loop_unroll=4) for batch in batches]
+    assert len(graphs) == 1
+    assert ChunkGraph.replays > replays
+    for g, w in zip(got, want):
+        assert _same(g, w)
+    assert not torch.equal(got[0].tokens, got[1].tokens)
+
+
+def test_replays_count_the_kernels_they_launch(card):
+    """A replay adds its chunk's launches to the counters: one whole step
+    a decode step under fused_step."""
+    from slimt_tpu_torch.models import decode
+    from slimt_tpu_torch.models.loop_graph import GraphCache
+
+    params = _loop_params(card)
+    ids, mask = _loop_batch(card)
+    graphs = GraphCache()
+    for _ in range(2):  # the first captures, the second only replays
+        chunks = decode.run_loop.chunks
+        launches = dstep.whole_step_kernel.launches
+        _decode(params, ids, mask, provider="fused_step", loop_unroll=4, graphs=graphs,
+                eos_id=-1)
+        ran = decode.run_loop.chunks - chunks
+        assert ran == 5  # 17 steps in chunks of 4
+        assert dstep.whole_step_kernel.launches - launches == 4 * ran
+
+
+def test_a_failed_capture_raises(card):
+    """A chunk that waits on the host cannot be captured: it raises, and
+    nothing falls back to an eager loop."""
+    from slimt_tpu_torch.models.loop_graph import ChunkGraph
+
+    x = torch.ones(4, device=card)
+    graph = ChunkGraph(lambda: x.add_(x.sum().item()), card)
+    with pytest.raises(RuntimeError):
+        graph.run()
+    assert graph.graph is None
+
+
+def test_two_models_capture_on_two_threads_at_once(card):
+    """Two Models (a pivot pair's shape), each forwarding on its own thread
+    while the other captures; each equals its eager loop."""
+    import threading
+
+    from slimt_tpu_torch import Model, Package
+    from slimt_tpu_torch.text import spm_proto
+    from slimt_tpu_torch.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
+
+    config = ModelConfig(encoder_layers=2, decoder_layers=2, num_heads=8)
+    spm = spm_proto.serialize_model(build_spm_model(DEFAULT_WORDS, target_size=512))
+    models = [Model(config, Package(synthetic_model_bytes(
+        config=config, vocab_size=512, emb_dim=256, ffn_dim=1536, seed=seed), spm))
+        for seed in (1, 2)]
+    segments = [[3 + (i * 7 + j) % 400 for j in range(20 + i)] + [models[0].vocabulary.eos_id]
+                for i in range(6)]
+    want = []
+    for model in models:
+        model._eager_loop = True
+        want.append([h.target for h in model.forward(segments, need_alignment=False)])
+        model._eager_loop = False
+    start = threading.Barrier(2)
+    got = [None, None]
+
+    def serve(i):
+        start.wait()
+        for _ in range(3):
+            got[i] = [h.target for h in models[i].forward(segments, need_alignment=False)]
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in (0, 1)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    assert got == want
+    assert all(len(model._graphs) == 1 for model in models)
+
+
+def test_launch_counts_hold_while_two_models_capture(card):
+    """Two fused_step Models forwarding on two threads at once, each
+    capturing while the other launches or replays: the whole step's
+    launches equal both Models' chunks times k (one launch a step), so no
+    thread's launches are lost to, or added to, the other's capture."""
+    import threading
+
+    from slimt_tpu_torch import Model, Package
+    from slimt_tpu_torch.models import decode
+    from slimt_tpu_torch.text import spm_proto
+    from slimt_tpu_torch.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
+
+    config = ModelConfig(encoder_layers=2, decoder_layers=2, num_heads=8,
+                         qmm_provider="fused_step")
+    spm = spm_proto.serialize_model(build_spm_model(DEFAULT_WORDS, target_size=512))
+    models = [Model(config, Package(synthetic_model_bytes(
+        config=config, vocab_size=512, emb_dim=256, ffn_dim=1536, seed=seed), spm))
+        for seed in (1, 2)]
+    eos = models[0].vocabulary.eos_id
+    batches = [[[3 + (i * 7 + j) % 400 for j in range(12 + 9 * i + n)] + [eos]
+                for n in range(4)] for i in (0, 1)]
+    start = threading.Barrier(2)
+    errors = []
+
+    def serve(i):
+        try:
+            start.wait()
+            for _ in range(4):
+                models[i].forward(batches[i], need_alignment=False)
+        except Exception as exc:  # noqa: BLE001 -- reported below
+            errors.append(exc)
+
+    chunks, launches = decode.run_loop.chunks, dstep.whole_step_kernel.launches
+    threads = [threading.Thread(target=serve, args=(i,)) for i in (0, 1)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    assert not errors
+    ran = decode.run_loop.chunks - chunks
+    assert ran >= 8
+    assert dstep.whole_step_kernel.launches - launches == ran * decode.resolve_unroll(None)
+    assert all(model._graphs.counts == {"hits": 3, "misses": 1, "evictions": 0}
+               for model in models)
+
+
+def test_greedy_decode_on_the_card_needs_a_graph_cache(card):
+    """On CUDA the loop replays graphs from the caller's cache: none given
+    raises, and nothing falls back to the eager loop."""
+    params = _loop_params(card)
+    ids, mask = _loop_batch(card)
+    with pytest.raises(ValueError, match="GraphCache"):
+        _decode(params, ids, mask)
+
+
+@pytest.mark.parametrize("provider", [None, "fused_step"], ids=["declared", "fused_step"])
+def test_continuous_engine_matches_batch_at_a_time(card, provider):
+    """The engine's tokens on the card equal its eager chunks' and each
+    segment's batch-at-a-time decode at B=1 (T = the pool's, cap
+    floor(1.5 * length))."""
+    from slimt_tpu_torch.models.continuous import ContinuousEngine
+    from slimt_tpu_torch.models.loop_graph import GraphCache
+
+    params = _loop_params(card)
+    graphs = GraphCache()
+    rng = np.random.default_rng(4)
+    segments = [rng.integers(3, LOOP_VOCAB, rng.integers(3, 30)).astype(int).tolist()
+                for _ in range(24)]
+    kw = dict(eos_id=5, num_heads=8, slots=8, chunk=4, t_slot=32, admit_bucket=8,
+              provider=provider)
+    got = ContinuousEngine(params, **kw).translate(segments)
+    assert got == ContinuousEngine(params, _eager=True, **kw).translate(segments)
+    want = []
+    for seg in segments:
+        ids = torch.zeros((1, 32), dtype=torch.int32, device=card)
+        mask = torch.zeros((1, 32), device=card)
+        ids[0, :len(seg)] = torch.tensor(seg, dtype=torch.int32)
+        mask[0, :len(seg)] = 1.0
+        out = _decode(params, ids, mask, eos_id=5, max_steps=48, provider=provider,
+                      steps_cap=max(1, int(1.5 * len(seg))), with_alignment=False,
+                      fused_layer=True, fused_sdpa=True, graphs=graphs)
+        want.append(out.tokens[0][out.valid[0]].tolist())
+    assert got == want

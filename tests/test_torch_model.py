@@ -216,7 +216,7 @@ def test_import_loads_neither_jax_nor_regex():
         block = Block()
         sys.meta_path.insert(0, block)
         import slimt_tpu_torch
-        from slimt_tpu_torch.models import decode, transformer
+        from slimt_tpu_torch.models import continuous, decode, loop_graph, transformer
         from slimt_tpu_torch.ops import (attention, decode_attn, decoder_step,
                                          encoder_layer, fused_blocks,
                                          logits_argmax, qmm)
