@@ -94,7 +94,22 @@ without printing a result:
              segment's tokens against its decode alone through Model at
              B=1 (every segment equal), segments/s and occupancy beside
              Model.forward at B=256 on the same segments;
-7. check   — outputs well formed; CUDA tokens against the plain CPU
+7. doors   — the front doors a user starts, on the card, with the serve
+             phase's package written to a directory (and converted to
+             model.npz by the CLI's `convert`): the CLI in-process
+             (slimt_tpu_torch.cli.main: blocking, --shortlist, --html,
+             --async --workers 2, pivot, on model.npz), one `python -m
+             slimt_tpu_torch translate` subprocess (rc 0, the in-process
+             text, no JAX among its imports), TranslationServer behind
+             make_httpd (/health, /health/devices, /translate with a text
+             and with 40 texts on the bulk lane, /submit and /job,
+             /stats) and the C ABI (built with g++, loaded with ctypes,
+             slimt_translate); every answer equal to the port's Blocking
+             or Async answer for the same Model on the card, the launch
+             counts reset before each door and qmm_affine and
+             encoder_layer launched in each; each door's first and warm
+             wall beside the card's name and power limit;
+8. check   — outputs well formed; CUDA tokens against the plain CPU
              path (>= 99% equal and none stopping short of the other;
              on the long path's arrays and the bfloat16 and int8 kv
              configs, one row may part instead where the plain logits
@@ -1707,6 +1722,266 @@ def longctx(torch, tfm, params, name, smi):
                 f"on {name} ({smi})")
 
 
+DOOR_KERNELS = ("qmm_affine", "encoder_layer")  # the declared path's kernels
+
+
+def in_process_cli(argv, stdin=""):
+    """(exit code, stdout) of slimt_tpu_torch.cli.main(argv) with stdin
+    replaced, in this process."""
+    import io
+
+    from slimt_tpu_torch import cli
+
+    out = io.StringIO()
+    saved = sys.stdin
+    sys.stdin = io.StringIO(stdin)
+    try:
+        with contextlib.redirect_stdout(out):
+            code = cli.main(list(argv))
+    finally:
+        sys.stdin = saved
+    return code, out.getvalue()
+
+
+def front_doors(torch, counted, model_bytes, spm, shortlist, lines, name, smi):
+    """The doors phase: the port's front doors on the card at the tiny11
+    width (the serve phase's package, written to a directory): the CLI
+    in-process (blocking, --shortlist, --html, --async --workers 2, pivot
+    and on model.npz from its `convert`), one `python -m slimt_tpu_torch
+    translate` subprocess, TranslationServer behind make_httpd, and the C
+    ABI through ctypes. Each answer must equal the port's Blocking or
+    Async answer for the same Model on the card; `counted(label, fn)`
+    resets the launch counts, runs fn and requires DOOR_KERNELS to have
+    launched. Prints each door's first and warm wall."""
+    import ctypes
+    import os
+    import tempfile
+    import threading
+    import urllib.request
+
+    from slimt_tpu_torch import Async, Model, Package, capi
+    from slimt_tpu_torch.bindings import Service
+    from slimt_tpu_torch.config import preset
+    from slimt_tpu_torch.ops import _capi_build
+    from slimt_tpu_torch.server import TranslationServer, make_httpd
+
+    def wall(label, first, warm):
+        log(f"doors {label}: first {first:.3f} s, warm {warm:.3f} s on {name} ({smi})")
+
+    def timed(fn):
+        start = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - start
+
+    def same(what, got, want):
+        if got != want:
+            raise RuntimeError(f"doors {what}: {repr(got)[:300]} != {repr(want)[:300]}")
+
+    with tempfile.TemporaryDirectory(prefix="slimt_doors_") as root:
+        for file, blob in (("model.bin", model_bytes), ("vocab.spm", spm),
+                           ("shortlist.bin", shortlist)):
+            with open(os.path.join(root, file), "wb") as f:
+                f.write(blob)
+        code, out = in_process_cli(["convert", os.path.join(root, "model.bin"),
+                                    os.path.join(root, "model.npz")])
+        if code != 0:
+            raise RuntimeError(f"doors: convert failed ({code}): {out}")
+        log(f"doors convert: {out.strip()}")
+        join = lambda f: os.path.join(root, f)  # noqa: E731
+        model = Model(preset.tiny(), Package(join("model.bin"), join("vocab.spm")))
+        listed = Model(preset.tiny(), Package(join("model.bin"), join("vocab.spm"),
+                                              join("shortlist.bin")))
+        if model.device.type != "cuda":
+            raise RuntimeError(f"doors: Model's default device is {model.device}")
+        text = "\n".join(lines[:6]) + "\n"
+        html = f"<p><b>{lines[0]}</b> {lines[1]}</p><p>{lines[2]}</p>"
+        config = Config()  # the CLI's defaults
+
+        def blocking(m, texts, options=Options(), pivot=None):
+            with Blocking(config) as service:
+                if pivot is not None:
+                    return [r.target.text for r in service.pivot(m, pivot, texts, options)]
+                return [r.target.text for r in service.translate_bulk(m, texts, options)]
+
+        with Async(dataclasses.replace(config, workers=2)) as service:
+            async_text = service.translate(model, text).result().target.text
+        html_options = Options(html=True, alignment=True)
+        follow = ["--follow-root", root, "--follow-model", "model.bin",
+                  "--follow-vocabulary", "vocab.spm"]
+        cases = {
+            "blocking": ([], blocking(model, [text])[0]),
+            "shortlist": (["--shortlist", "shortlist.bin"], blocking(listed, [text])[0]),
+            "html": (["--html"], blocking(model, [html], html_options)[0]),
+            "async": (["--async", "--workers", "2"], async_text),
+            "pivot": (follow, blocking(model, [text], pivot=model)[0]),
+            "npz": (["--model", "model.npz"], blocking(model, [text])[0]),
+        }
+        cli_walls = []
+        for label, (extra, want) in cases.items():
+            stdin = html if label == "html" else text
+            argv = ["translate", "--root", root, *extra]
+            for turn in (1, 2) if label == "blocking" else (1,):
+                (code, out), seconds = timed(lambda: counted(
+                    f"cli {label}", lambda: in_process_cli(argv, stdin)))
+                if code != 0:
+                    raise RuntimeError(f"doors cli {label}: exit code {code}")
+                same(f"cli {label}", out, want + "\n")
+                cli_walls.append(seconds)
+            log(f"doors cli {label}: stdout equals the port's "
+                f"{'Async' if label == 'async' else 'Blocking'} on the card "
+                f"({len(out)} characters, {seconds:.3f} s)")
+        wall("cli in-process (blocking)", cli_walls[0], cli_walls[1])
+
+        # The real entry point alone: it builds (or finds) and runs the
+        # kernels in its own process, and imports no JAX.
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=repo)
+        argv = ["translate", "--root", root, "--text", lines[0]]
+        _, want = in_process_cli(argv)
+        seconds = []
+        for _ in range(2):
+            start = time.perf_counter()
+            result = subprocess.run(
+                [sys.executable, "-X", "importtime", "-m", "slimt_tpu_torch", *argv],
+                capture_output=True, text=True, env=env, cwd=repo, timeout=300)
+            seconds.append(time.perf_counter() - start)
+            if result.returncode != 0:
+                raise RuntimeError(f"doors subprocess: rc {result.returncode}\n"
+                                   f"{result.stderr[-3000:]}")
+            same("cli subprocess", result.stdout, want)
+            imported = [line.rsplit("|", 1)[-1].strip() for line in result.stderr.splitlines()
+                        if line.startswith("import time:") and "|" in line]
+            banned = [m for m in imported if m.split(".")[0] in ("jax", "jaxlib", "slimt_tpu")]
+            if banned or "slimt_tpu_torch.cli" not in imported:
+                raise RuntimeError(f"doors subprocess imported {banned[:8]}")
+            # `import time: self | cumulative | name`, in µs: torch's share.
+            torch_us = [int(line.split("|")[1]) for line in result.stderr.splitlines()
+                        if line.startswith("import time:")
+                        and line.rsplit("|", 1)[-1].strip() == "torch"]
+            log(f"doors cli subprocess: {seconds[-1]:.3f} s, of which import torch "
+                f"{torch_us[0] / 1e6:.3f} s")
+        log("doors cli subprocess: rc 0, stdout equals the in-process CLI's, no JAX imported")
+        wall("cli subprocess", *seconds)
+
+        # The HTTP server: the Async streaming lane for single texts and
+        # jobs, the bulk lane for 32+ texts.
+        # No translation cache: every request reaches the card.
+        server = TranslationServer(Config(workers=2, cache_size=0))
+        server.add_model("tiny11", model)
+        httpd = make_httpd(server, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+        def call(path, payload=None):
+            data = None if payload is None else json.dumps(payload).encode()
+            request = urllib.request.Request(url + path, data=data,
+                                             headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(request, timeout=300) as resp:
+                return resp.status, json.loads(resp.read())
+
+        try:
+            status, health = call("/health")
+            if status != 200 or health["models"] != ["tiny11"]:
+                raise RuntimeError(f"doors /health: {status} {health}")
+            status, probe = call("/health/devices")
+            if status != 200 or not probe["ok"] or "cuda:0" not in probe["devices"]:
+                raise RuntimeError(f"doors /health/devices: {status} {probe}")
+            with Async(Config(workers=2)) as service:
+                single = service.translate(model, lines[3]).result().target.text
+                job_want = service.translate(model, lines[4]).result().target.text
+            bulk = lines[8:48]
+            bulk_want = blocking(model, bulk)
+            single_walls, bulk_walls = [], []
+            for _ in range(2):
+                (status, body), seconds = timed(lambda: counted(
+                    "server /translate", lambda: call("/translate", {"text": lines[3]})))
+                same("server /translate", body["target"], single)
+                single_walls.append(seconds)
+                (status, body), seconds = timed(lambda: counted(
+                    "server /translate texts", lambda: call("/translate", {"texts": bulk})))
+                same("server /translate texts", body["targets"], bulk_want)
+                bulk_walls.append(seconds)
+            status, body = call("/submit", {"text": lines[4]})
+            for _ in range(6000):
+                status, polled = call(f"/job/{body['job']}")
+                if polled["done"]:
+                    break
+                time.sleep(0.01)
+            same("server /job", polled.get("target"), job_want)
+            status, stats = call("/stats")
+            if stats["bulk"]["batches"] < 1 or stats["streaming"]["batches"] < 1:
+                raise RuntimeError(f"doors /stats: {stats}")
+            log(f"doors server: /health, /health/devices {probe}, /translate (a text; "
+                f"{len(bulk)} texts on the bulk lane), /submit and /job, /stats "
+                f"{ {k: stats[k] for k in ('requests', 'lines', 'errors')} }: answers equal "
+                f"the port's Async and Blocking on the card")
+        finally:
+            httpd.shutdown()
+            thread.join(timeout=60)
+            server.close()
+        wall("server single request", *single_walls)
+        wall(f"server bulk request ({len(bulk)} texts)", *bulk_walls)
+
+        # The C ABI, built here with g++ against this Python, loaded into
+        # this process; its model runs on the card (no "device" in the spec).
+        start = time.perf_counter()
+        path = _capi_build.library_path()
+        log(f"doors C ABI: built {path.name} in {time.perf_counter() - start:.2f} s")
+        lib = ctypes.CDLL(str(path))
+        lib.slimt_init.argtypes = [ctypes.c_char_p]
+        lib.slimt_last_error.restype = ctypes.c_char_p
+        lib.slimt_service_create.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.slimt_service_create.restype = ctypes.c_longlong
+        lib.slimt_model_create.argtypes = [ctypes.c_char_p]
+        lib.slimt_model_create.restype = ctypes.c_longlong
+        strings = ctypes.POINTER(ctypes.c_char_p)
+        lib.slimt_translate.argtypes = [ctypes.c_longlong, ctypes.c_longlong, strings,
+                                        ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.slimt_translate.restype = strings
+        lib.slimt_free_strings.argtypes = [strings]
+        lib.slimt_release.argtypes = [ctypes.c_longlong]
+        if lib.slimt_init(repo.encode()) != 0:
+            raise RuntimeError(f"doors slimt_init: {lib.slimt_last_error().decode()}")
+        handle = lib.slimt_model_create(json.dumps(
+            {"preset": "tiny", "model": join("model.bin"), "vocabulary": join("vocab.spm")}
+        ).encode())
+        service = lib.slimt_service_create(1, 0)
+        if not handle or not service:
+            raise RuntimeError(f"doors C ABI: {lib.slimt_last_error().decode()}")
+        texts = lines[48:52]
+        array = (ctypes.c_char_p * len(texts))(*[t.encode() for t in texts])
+
+        def translate():
+            out = lib.slimt_translate(service, handle, array, len(texts), 0, 0)
+            if not out:
+                raise RuntimeError(f"doors slimt_translate: {lib.slimt_last_error().decode()}")
+            try:
+                return [out[i].decode() for i in range(len(texts))]
+            finally:
+                lib.slimt_free_strings(out)
+
+        held = capi._get(handle)
+        if held.device.type != "cuda":
+            raise RuntimeError(f"doors C ABI: the model is on {held.device}")
+        reference = Service(workers=1, cache_size=0)
+        try:
+            want = [r.target.text for r in reference.translate(held, texts)]
+        finally:
+            reference.close()
+        capi_walls = []
+        for _ in range(2):
+            got, seconds = timed(lambda: counted("C ABI", translate))
+            same("C ABI slimt_translate", got, want)
+            capi_walls.append(seconds)
+        lib.slimt_release(handle)
+        lib.slimt_release(service)
+        log(f"doors C ABI: slimt_translate of {len(texts)} texts equals bindings.Service on "
+            f"the card")
+        wall(f"C ABI slimt_translate ({len(texts)} texts)", *capi_walls)
+
+
 LAYOUT_BATCHES = (1, 8, 64, 130, 200, 512)
 LAYOUT_KERNELS = ("whole_decode_step", "ffn_block", "decoder_layer_step", "ssru_block",
                   "argmax_affine", "encoder_layer", "decode_attention")
@@ -2300,6 +2575,22 @@ def main() -> None:
             f"capture {graph['capture_ms']:.1f} ms, pool {graph['pool_mb']:.1f} MB, buffers "
             f"{graph['buffers_mb']:.1f} MB on {name} ({smi})")
     del engines
+
+    # The doors phase: the front doors a user starts, on the card.
+    def counted(label, fn):
+        reset()
+        result = fn()
+        torch.cuda.synchronize()
+        counts = {key: counters[key].launches for key in DOOR_KERNELS}
+        log(f"launches through the {label} door: {counts}")
+        missing = [key for key, n in counts.items() if not n]
+        if missing:
+            raise RuntimeError(f"doors {label}: kernels never launched: {missing}")
+        return result
+
+    start = time.perf_counter()
+    front_doors(torch, counted, model_bytes, spm, shortlist, lines, name, smi)
+    log(f"doors phase: {time.perf_counter() - start:.1f} s")
 
     with torch.inference_mode():
         longctx(torch, tfm, paths["declared"].params, name, smi)

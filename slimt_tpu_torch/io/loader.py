@@ -230,3 +230,49 @@ def model_dims(params: dict) -> tuple:
         ffn = encoder["ffn"]["w1"]["q"].shape[-1]
     return vocab, emb, ffn
 
+
+def _stack(layers: List[dict]) -> dict:
+    """Stack equal-shaped layer dicts leaf by leaf (numpy alone): each
+    leaf gains a leading layer axis, a scalar scale becomes a float32 [L]
+    array, as the JAX package's jax.tree.map over np.stack gives."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {key: _stack([layer[key] for layer in layers]) for key in first}
+    return np.stack(layers)
+
+
+def _unstack(stacked, index: int):
+    if isinstance(stacked, dict):
+        return {key: _unstack(value, index) for key, value in stacked.items()}
+    return stacked[index]
+
+
+def _layer_count(stacked) -> int:
+    while isinstance(stacked, dict):
+        stacked = next(iter(stacked.values()))
+    return stacked.shape[0]
+
+
+def stack_layers(params: dict, decoder: bool = True) -> dict:
+    """The per-layer lists as stacked pytrees (a leading layer axis): the
+    layout of the native .npz checkpoint (io/checkpoint.py), which the JAX
+    package scans over. `decoder=False` stacks only the encoder, as the
+    JAX function does."""
+    out = dict(params)
+    out["encoder"] = _stack(params["encoder"])
+    if decoder:
+        out["decoder"] = _stack(params["decoder"])
+    return out
+
+
+def unstack_layers(params: dict) -> dict:
+    """Inverse of stack_layers: stacked encoder and decoder back to
+    per-layer lists (a list stays as it is). Indexing a float32 [L] scale
+    gives an np.float32 scalar of the same bits, the type load_weights
+    gives, so io/params.py's epilogue multipliers come out bit-equal."""
+    out = dict(params)
+    for key in ("encoder", "decoder"):
+        stacked = params[key]
+        if not isinstance(stacked, list):
+            out[key] = [_unstack(stacked, i) for i in range(_layer_count(stacked))]
+    return out

@@ -21,15 +21,17 @@ bfloat16 and int16 run as they are and the others as int16, as in the
 JAX Model), and the encoder's three gates: the whole-layer kernel
 (`encoder_layer_kernel`), the fused SDPA (`encoder_sdpa`) and blockwise
 attention (`flash_attention`), so inputs of any length are served.
-`qmm_provider="f32"`, `encoder_dtype` and native checkpoints raise
-NotImplementedError naming the ROADMAP item that ports them; nothing is
-substituted silently.
+It loads marian .bin models and the JAX package's native .npz
+checkpoints (io/checkpoint.py). `qmm_provider="f32"` and `encoder_dtype`
+raise NotImplementedError naming the ROADMAP item that ports them;
+nothing is substituted silently.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import itertools
 import queue
 import threading
@@ -42,8 +44,8 @@ import torch
 
 from slimt_tpu_torch.config import ModelConfig
 from slimt_tpu_torch.device import resolve_device
-from slimt_tpu_torch.io import load_items
-from slimt_tpu_torch.io.loader import load_weights, model_dims
+from slimt_tpu_torch.io import checkpoint, load_items
+from slimt_tpu_torch.io.loader import load_weights, model_dims, unstack_layers
 from slimt_tpu_torch.io.shortlist import ShortlistGenerator
 from slimt_tpu_torch.io.params import params_from_numpy
 from slimt_tpu_torch.models.decode import (
@@ -225,15 +227,16 @@ class Model:
         self.limit_factor = tgt_length_limit_factor
 
         model_bytes = Package._bytes(package.model)
-        from slimt_tpu_torch.io import checkpoint
-
         if checkpoint.is_native(model_bytes):
-            raise NotImplementedError(
-                "native (.npz) checkpoints hold stacked layers; the port "
-                "loads marian .bin models (ROADMAP Queue 1, item 1)"
-            )
-        host_params = load_weights(load_items(model_bytes), config)
-        self.vocab_size, self.emb_dim, self.ffn_dim = model_dims(host_params)
+            # The JAX package's .npz: stacked layers and the dims in meta.
+            stacked, meta = checkpoint.load_native(io.BytesIO(model_bytes))
+            host_params = unstack_layers(stacked)
+            self.vocab_size = meta["vocab_size"]
+            self.emb_dim = meta["emb_dim"]
+            self.ffn_dim = meta["ffn_dim"]
+        else:
+            host_params = load_weights(load_items(model_bytes), config)
+            self.vocab_size, self.emb_dim, self.ffn_dim = model_dims(host_params)
         self.params = params_from_numpy(host_params, self.device)
 
         self.vocabulary = Vocabulary(Package._bytes(package.vocabulary))

@@ -90,3 +90,4 @@ class ServiceMeters:
             self.wps.record(words / elapsed)
         if capacity > 0:
             self.occupancy.record(used / capacity)
+

@@ -1195,3 +1195,138 @@ def test_continuous_engine_matches_batch_at_a_time(card, provider):
                       fused_layer=True, fused_sdpa=True, graphs=graphs)
         want.append(out.tokens[0][out.valid[0]].tolist())
     assert got == want
+
+
+# -- The front doors on the card --------------------------------------------
+
+
+@pytest.fixture
+def door_package(card, tmp_path):
+    """A synth package wide enough for the encoder layer kernel (E=128)."""
+    from slimt_tpu_torch import cli
+
+    root = str(tmp_path / "pkg")
+    assert cli.main(["synth", "--out", root, "--emb-dim", "128", "--ffn-dim", "256"]) == 0
+    return root
+
+
+def _door_model(root, device="cuda"):
+    import os
+
+    from slimt_tpu_torch import Model, Package
+    from slimt_tpu_torch.config import preset
+
+    return Model(preset.tiny(), Package(os.path.join(root, "model.bin"),
+                                        os.path.join(root, "vocab.spm")), device=device)
+
+
+def _blocking_text(model, text):
+    from slimt_tpu_torch import Blocking, Config
+
+    with Blocking(Config()) as service:
+        return service.translate_bulk(model, [text])[0].target.text
+
+
+def test_cli_translates_on_the_card_by_default(door_package, capsys):
+    from slimt_tpu_torch import cli
+
+    capsys.readouterr()
+    before = (qmm.affine_kernel.launches, enc.layer_kernel.launches)
+    assert cli.main(["translate", "--root", door_package, "--text", "hello world ."]) == 0
+    out = capsys.readouterr().out
+    assert qmm.affine_kernel.launches > before[0] and enc.layer_kernel.launches > before[1]
+    model = _door_model(door_package)
+    assert model.device.type == "cuda"
+    assert out == _blocking_text(model, "hello world .") + "\n"
+    npz = f"{door_package}/model.npz"
+    assert cli.main(["convert", f"{door_package}/model.bin", npz]) == 0
+    capsys.readouterr()
+    assert cli.main(["translate", "--root", door_package, "--model", "model.npz",
+                     "--text", "hello world ."]) == 0
+    assert capsys.readouterr().out == out
+
+
+def test_server_answers_on_the_card(door_package):
+    import json
+    import threading
+    import urllib.request
+
+    from slimt_tpu_torch.config import Config
+    from slimt_tpu_torch.server import TranslationServer, make_httpd
+
+    model = _door_model(door_package)
+    server = TranslationServer(Config(workers=1))
+    server.add_model("m", model)
+    httpd = make_httpd(server, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/health/devices", timeout=60) as resp:
+            probe = json.loads(resp.read())
+        assert resp.status == 200 and probe["ok"] and "cuda:0" in probe["devices"]
+        assert "cpu" not in probe["devices"]
+        request = urllib.request.Request(
+            url + "/translate", data=json.dumps({"text": "hello world ."}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(request, timeout=300) as resp:
+            body = json.loads(resp.read())
+        assert body["target"] == _blocking_text(model, "hello world .")
+    finally:
+        httpd.shutdown()
+        thread.join(timeout=30)
+        server.close()
+
+
+def test_probe_devices_runs_on_every_card(card):
+    from slimt_tpu_torch.runtime.health import probe_devices
+
+    probe = probe_devices(timeout=60)
+    assert probe["ok"]
+    assert sorted(probe["devices"]) == sorted(
+        f"cuda:{i}" for i in range(torch.cuda.device_count()))
+    both = probe_devices(timeout=60, kinds=("cpu", "cuda"))
+    assert both["ok"] and "cpu" in both["devices"]
+
+
+def test_capi_translates_on_the_card(door_package):
+    import ctypes
+    import json
+    import os
+
+    from slimt_tpu_torch import capi
+    from slimt_tpu_torch.bindings import Service
+    from slimt_tpu_torch.ops import _capi_build
+
+    lib = ctypes.CDLL(str(_capi_build.library_path()))
+    lib.slimt_init.argtypes = [ctypes.c_char_p]
+    lib.slimt_last_error.restype = ctypes.c_char_p
+    lib.slimt_service_create.restype = ctypes.c_longlong
+    lib.slimt_model_create.argtypes = [ctypes.c_char_p]
+    lib.slimt_model_create.restype = ctypes.c_longlong
+    strings = ctypes.POINTER(ctypes.c_char_p)
+    lib.slimt_translate.argtypes = [ctypes.c_longlong, ctypes.c_longlong, strings,
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.slimt_translate.restype = strings
+    lib.slimt_free_strings.argtypes = [strings]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert lib.slimt_init(repo.encode()) == 0, lib.slimt_last_error()
+    service = lib.slimt_service_create(1, 0)
+    spec = {"model": f"{door_package}/model.bin", "vocabulary": f"{door_package}/vocab.spm"}
+    handle = lib.slimt_model_create(json.dumps(spec).encode())  # no "device": the card
+    assert service and handle, lib.slimt_last_error()
+    model = capi._get(handle)
+    assert model.device.type == "cuda"
+    texts = ["hello world .", "the cat sat ."]
+    out = lib.slimt_translate(service, handle, (ctypes.c_char_p * 2)(*[t.encode() for t in texts]),
+                              2, 0, 0)
+    assert out, lib.slimt_last_error()
+    got = [out[i].decode() for i in range(2)]
+    lib.slimt_free_strings(out)
+    reference = Service(workers=1, cache_size=0)
+    try:
+        assert got == [r.target.text for r in reference.translate(model, texts)]
+    finally:
+        reference.close()
+        capi.release(handle)
+        capi.release(service)

@@ -184,19 +184,38 @@ def test_plain_transport_and_warmup_match_compact():
     assert plain.warmup(batch_buckets=(1, 2), seq_buckets=(16,)) == 2
 
 
-def test_native_checkpoint_raises():
+def test_native_checkpoint_serves_the_bin_tokens():
+    """A native checkpoint from the JAX package serves the tokens of the
+    marian .bin it was converted from."""
     from slimt_tpu.io.checkpoint import convert_marian
 
     pkg = make_package()
     blob = convert_marian(pkg.model, TINY_TEST_CONFIG)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        Model(TINY_TEST_CONFIG, Package(blob, pkg.vocabulary), device="cpu")
+    on_npz = Model(TINY_TEST_CONFIG, Package(blob, pkg.vocabulary), device="cpu")
+    on_bin = Model(TINY_TEST_CONFIG, Package(pkg.model, pkg.vocabulary), device="cpu")
+    assert [h.target for h in on_npz.forward(SEGMENTS)] == [
+        h.target for h in on_bin.forward(SEGMENTS)]
+
+
+def test_native_checkpoint_raises():
+    """A native checkpoint whose meta lacks the model dims raises."""
+    import io
+
+    from slimt_tpu.io.checkpoint import convert_marian, load_native, save_native
+
+    pkg = make_package()
+    stacked, _ = load_native(io.BytesIO(convert_marian(pkg.model, TINY_TEST_CONFIG)))
+    buffer = io.BytesIO()
+    save_native(buffer, stacked, meta={})
+    with pytest.raises(KeyError, match="vocab_size"):
+        Model(TINY_TEST_CONFIG, Package(buffer.getvalue(), pkg.vocabulary), device="cpu")
 
 
 def test_import_loads_neither_jax_nor_regex():
-    """Importing the port loads no jax, regex or slimt_tpu module; then a
-    CPU Model built from the port's own synthetic package serves through
-    the port's own Blocking, on both lanes, still with no jax or
+    """Importing the port, its front doors included, loads no jax, regex or
+    slimt_tpu module; then a CPU Model built from the port's own synthetic
+    package serves through the port's own Blocking, on both lanes, and its
+    native checkpoint serves the same tokens, still with no jax or
     slimt_tpu module loaded."""
     code = textwrap.dedent(
         """
@@ -220,6 +239,12 @@ def test_import_loads_neither_jax_nor_regex():
         from slimt_tpu_torch.ops import (attention, decode_attn, decoder_step,
                                          encoder_layer, fused_blocks,
                                          logits_argmax, qmm)
+        # The front doors and the native checkpoints.
+        from slimt_tpu_torch import (__main__, bindings, capi, cli, repository,
+                                     server, utils)
+        from slimt_tpu_torch.io import checkpoint
+        from slimt_tpu_torch.ops import _capi_build
+        from slimt_tpu_torch.runtime import health, router
         assert not loaded(block.names), loaded(block.names)
 
         # Serving splits sentences, and the splitter needs regex.
@@ -232,14 +257,19 @@ def test_import_loads_neither_jax_nor_regex():
 
         config = ModelConfig(encoder_layers=1, decoder_layers=1, num_heads=4)
         spm = build_spm_model(DEFAULT_WORDS, target_size=64)
-        model = Model(config, Package(
-            synthetic_model_bytes(config=config, vocab_size=len(spm.pieces),
-                                  emb_dim=32, ffn_dim=64, seed=0),
-            spm_proto.serialize_model(spm)), device="cpu")
+        model_bytes = synthetic_model_bytes(config=config, vocab_size=len(spm.pieces),
+                                            emb_dim=32, ffn_dim=64, seed=0)
+        model = Model(config, Package(model_bytes, spm_proto.serialize_model(spm)),
+                      device="cpu")
         for prefer_bulk in (False, True):
             with Blocking(Config(prefer_bulk=prefer_bulk)) as service:
                 responses = service.translate(model, ["hello world", "a b c"])
             assert len(responses) == 2 and all(r.target.text for r in responses)
+        # A native checkpoint serves the marian model's tokens.
+        npz = Model(config, Package(checkpoint.convert_marian(
+            model_bytes, config), spm_proto.serialize_model(spm)), device="cpu")
+        segment = [[5, 9, 4, 7, 0]]
+        assert npz.forward(segment)[0].target == model.forward(segment)[0].target
         assert not loaded(block.names), loaded(block.names)
         print("ok")
         """
