@@ -109,7 +109,23 @@ without printing a result:
              counts reset before each door and qmm_affine and
              encoder_layer launched in each; each door's first and warm
              wall beside the card's name and power limit;
-8. check   — outputs well formed; CUDA tokens against the plain CPU
+8. knobs   — qmm_provider "f32" and encoder_dtype float16 and bfloat16
+             on the declared config through Model on the card (graph
+             loop): the launch counts reset before each knob and read
+             after it (f32 must launch no int8 kernel: its products are
+             f32 matmuls against weights dequantized at load; the half
+             encoders must launch qmm_affine and no encoder_layer, whose
+             gate needs an f32 encoder), one B=64 T=64 forward, the B=1
+             T=32 latency line and 16 segments against the plain CPU
+             path (one row may part at a near tie); then one cell of the
+             crosscheck serving sweep (crosscheck.SMOKE_CELL: narrow
+             2/2/2, 64 lines at B=8, full vocabulary and shortlist) on
+             the card for the exact, declared, enc=float16 and
+             kv=bfloat16 rows against the reference harness's tokens
+             (recorded in crosscheck/reference_tokens.json where the
+             harness cannot start): the exact row must keep >= 98% of
+             sentences;
+9. check   — outputs well formed; CUDA tokens against the plain CPU
              path (>= 99% equal and none stopping short of the other;
              on the long path's arrays and the bfloat16 and int8 kv
              configs, one row may part instead where the plain logits
@@ -149,7 +165,8 @@ split_ms_by_b, its projection and pick kernels' device ms from
 torch.profiler, encoder_layer launches_per_layer and split_ms, its
 launches a layer and each one's device ms at B=512 T=64 from
 torch.profiler; qmm_affine also lists its times at the six timed shapes
-under "shapes"), the last line {"ok": true, "device": {...}}.
+under "shapes"; every kernel lists knobs_launches, its launches under
+each knob), the last line {"ok": true, "device": {...}}.
 
 `python3 chip_smoke.py --unroll` runs no check: the B=1 T=32 latency
 line and the B=64 and B=512 T=64 forward lines of the graph loop at k
@@ -1400,7 +1417,8 @@ def recording_logits(tfm, dstep, qmm):
 
     def output_argmax(params, x, provider=None, projection=None, method="packed_int",
                       packed_bias=None):
-        logits.append(tfm.output_logits(params, x, projection=projection))
+        logits.append(tfm.output_logits(params, x, projection=projection,
+                                        provider="f32" if provider == "f32" else None))
         return real_argmax(params, x, provider, projection, method, packed_bias)
 
     def argmax_affine_plain(y, w, b, aq, inv, *rest):
@@ -1720,6 +1738,109 @@ def longctx(torch, tfm, params, name, smi):
             log(f"longctx T={t} B={b} {label}: median {median:.3f} ms of "
                 f"{[round(v, 3) for v in times]}, {b * t / median * 1e3:.0f} tokens/s "
                 f"on {name} ({smi})")
+
+
+# The knobs phase: the two numerics knobs on the declared config, and the
+# kernels each may launch (f32 launches none of the int8 kernels: its
+# products are f32 matmuls, as the JAX provider's are jnp.dot).
+KNOBS = {"f32": {"qmm_provider": "f32"},
+         "encoder float16": {"encoder_dtype": "float16"},
+         "encoder bfloat16": {"encoder_dtype": "bfloat16"}}
+INT8_KERNELS = ("qmm_affine", "encoder_layer", "whole_decode_step", "ssru_block",
+                "ffn_block", "argmax_affine")
+# The reference cell: configs of crosscheck.SERVING_CONFIGS on its
+# SMOKE_CELL, and the exact row's floor (% of sentences).
+REFERENCE_ROWS = ("exact", "packedint+int16+noalign", "enc=float16", "kv=bfloat16")
+REFERENCE_EXACT_MIN = 98.0
+
+
+def knobs(torch, counters, reset, compare, config, package, segments, name, smi):
+    """qmm_provider="f32" and encoder_dtype float16/bfloat16 on the
+    declared config at the tiny11 width through Model on the card with
+    the graph loop: the launch counts reset before each knob and read
+    after its runs (f32: no int8 kernel; the half encoders: qmm_affine
+    and no encoder_layer, whose gate needs an f32 encoder); one B=64 T=64
+    forward, the B=1 T=32 latency line, the tokens of 16 segments against
+    the plain CPU path (compare). Returns {knob: counts}."""
+    from slimt_tpu_torch import Model
+    from slimt_tpu_torch.io.params import dequantized_bytes
+    from slimt_tpu_torch.models import decode, loop_graph
+
+    counted = {}
+    for label, change in KNOBS.items():
+        knob_config = dataclasses.replace(config, **change)
+        start = time.perf_counter()
+        model = Model(knob_config, package, device="cuda")
+        load = time.perf_counter() - start
+        reset()
+        wall, tokens = forward_rate(torch, model, 64, 64)
+        got = latency(torch, model, counters["whole_decode_step"], decode, loop_graph)
+        torch.cuda.synchronize()
+        counts = {key: counter.launches for key, counter in counters.items()}
+        counted[label] = counts
+        log(f"knobs {label}: Model loaded in {load:.3f} s, f32 weights "
+            f"{dequantized_bytes(model.params) / 1e6:.1f} MB; forward B=64 T=64 full vocab: "
+            f"{wall * 1e3:.1f} ms, {tokens} tokens, {tokens / wall:.0f} tok/s on {name} ({smi})")
+        log(latency_line(f"knobs {label} graph loop", got, name, smi))
+        log(f"launches in the knobs {label} phase: {counts}")
+        if label == "f32":
+            launched = [key for key in INT8_KERNELS if counts[key]]
+            if launched:
+                raise RuntimeError(f"knobs f32 launched int8 kernels: {launched}")
+        elif not counts["qmm_affine"] or counts["encoder_layer"]:
+            raise RuntimeError(f"knobs {label}: qmm_affine {counts['qmm_affine']}, "
+                               f"encoder_layer {counts['encoder_layer']} launches")
+        compare("knobs", label, knob_config, package, segments)
+        del model
+    return counted
+
+
+def reference_cell(torch, counters, reset, name, smi):
+    """crosscheck.SMOKE_CELL (narrow 2/2/2, 64 serving lines at B=8, full
+    vocabulary and shortlist) on the card against the reference harness
+    (or, where it cannot start, its recorded tokens): REFERENCE_ROWS'
+    sentences exact and tokens agreeing; the exact row needs
+    REFERENCE_EXACT_MIN % of sentences."""
+    import tempfile
+
+    from slimt_tpu_torch import crosscheck as cc
+    from slimt_tpu_torch.io import load_items
+    from slimt_tpu_torch.io.loader import load_weights
+    from slimt_tpu_torch.io.params import params_from_numpy
+
+    rows = {label: [0, 0, 0, 0] for label in REFERENCE_ROWS}
+    options = dict(cc.SERVING_CONFIGS)
+    start = time.perf_counter()
+    reset()
+    log(f"reference cell: the harness {'starts' if cc.harness_runs() else 'does not start'} "
+        f"here; {'it runs' if cc.harness_runs() else 'its recorded tokens are read'}")
+    with tempfile.TemporaryDirectory(prefix="slimt_reference_") as tmp:
+        for leg in cc.serving_legs(tmp, cc.SMOKE_LINES, [cc.SMOKE_CELL]):
+            ref = cc.run_reference(leg.paths, leg.config, leg.sentences, leg.batch,
+                                   leg.shortlist)
+            params = params_from_numpy(load_weights(load_items(leg.model_bytes), leg.config),
+                                       "cuda")
+            for label in REFERENCE_ROWS:
+                got = cc.run_port(leg.model_bytes, leg.config, leg.sentences, leg.batch,
+                                  leg.eos, leg.pad, leg.generator if leg.shortlist else None,
+                                  device="cuda", params=params, **options[label])
+                counts = cc.agreement(ref, got)
+                rows[label] = [a + n for a, n in zip(rows[label], counts)]
+                se, st, ta, tt = counts
+                log(f"reference {leg.what} {label}: {se}/{st} sentences exact, "
+                    f"{ta}/{tt} tokens ({100.0 * ta / max(1, tt):.2f}%)")
+    torch.cuda.synchronize()
+    log(f"launches in the reference cell: "
+        f"{ {key: counter.launches for key, counter in counters.items()} }")
+    for label, (se, st, ta, tt) in rows.items():
+        log(f"reference cell {label}: {se}/{st} sentences exact ({100.0 * se / st:.2f}%), "
+            f"{100.0 * ta / max(1, tt):.2f}% tokens on {name} ({smi})")
+    se, st = rows["exact"][:2]
+    if 100.0 * se / st < REFERENCE_EXACT_MIN:
+        raise RuntimeError(f"reference cell: the exact row keeps {se}/{st} sentences, "
+                           f"under {REFERENCE_EXACT_MIN}%")
+    log(f"reference cell: {time.perf_counter() - start:.1f} s")
+    return rows
 
 
 DOOR_KERNELS = ("qmm_affine", "encoder_layer")  # the declared path's kernels
@@ -2359,7 +2480,9 @@ def main() -> None:
 
     def compare(path, label, config, pkg, segments, limit_factor=1.5):
         """CUDA tokens against the plain CPU path (check_agreement): a near
-        tie is allowed on the kv configs of TIE_CACHES only."""
+        tie is allowed on the kv configs of TIE_CACHES and on the knobs,
+        whose f32 sums (every product under f32; the half encoders' LN
+        and softmax ahead of a rounding) run in another order on the card."""
         start = time.perf_counter()
         got = Model(config, pkg, limit_factor, device="cuda").forward(
             segments, need_alignment=False)
@@ -2372,7 +2495,8 @@ def main() -> None:
             f"T up to {max(len(s) for s in segments)}): {share:.6f}; plain logit gaps "
             f"where segments part: {gaps} ({time.perf_counter() - start:.1f} s)")
         check_agreement(f"{path}, {label}", share, gaps,
-                        ties=path == "kv" and config.kv_cache_dtype in TIE_CACHES)
+                        ties=path == "knobs" or (
+                            path == "kv" and config.kv_cache_dtype in TIE_CACHES))
 
     launches = {}
     paths = {}
@@ -2592,6 +2716,18 @@ def main() -> None:
     front_doors(torch, counted, model_bytes, spm, shortlist, lines, name, smi)
     log(f"doors phase: {time.perf_counter() - start:.1f} s")
 
+    # The knobs phase: f32 and the half encoders through Model, then one
+    # crosscheck cell against the reference.
+    start = time.perf_counter()
+    vocabulary = paths["declared"].vocabulary
+    knob_segments = [vocabulary.encode(line, add_eos=True)[0][:128] for line in lines[:16]]
+    for seg in knob_segments:
+        seg[-1] = vocabulary.eos_id
+    knob_counts = knobs(torch, counters, reset, compare, config, packages["full vocab"],
+                        knob_segments, name, smi)
+    reference_cell(torch, counters, reset, name, smi)
+    log(f"knobs phase: {time.perf_counter() - start:.1f} s")
+
     with torch.inference_mode():
         longctx(torch, tfm, paths["declared"].params, name, smi)
 
@@ -2646,7 +2782,8 @@ def main() -> None:
          **{k: times[k] for k in ("cs1_ms", "cs1_graph_ms", "graph_ms_by_b", "split_ms_by_b",
                                   "launches_per_layer", "split_ms")
             if k in times},
-         **({"shapes": affine_times} if key == "qmm_affine" else {})}
+         **({"shapes": affine_times} if key == "qmm_affine" else {}),
+         "knobs_launches": {label: counts.get(key, 0) for label, counts in knob_counts.items()}}
         for key, source, replaces, err, times, (bound_ms, by) in rows
     ]}
     log(json.dumps(record))

@@ -31,7 +31,8 @@ class ModelConfig:
     # drives either package.
     # Quantized-matmul provider: "xla_int8" and "pallas" (the int8
     # affine), "fused" (SSRU and FFN block kernels in the decoder),
-    # "f32" (dequantized float reference path; not ported), or
+    # "f32" (the weights dequantized once, every product in f32: the
+    # reference-numerics debug path, no int8 kernel), or
     # "fused_step" (the whole decode step — all layers, the
     # shortlisted logits and the argmax — as one call; the small-batch
     # latency path). Mirrors the reference's compile-time QMM provider
@@ -94,8 +95,9 @@ class ModelConfig:
     # residual stream and SDPA operands between encoder blocks ride this
     # dtype. Any reduced dtype upstream of an int8 activation quantize
     # flips rint() by one step on a few entries, and six layers amplify
-    # it, so agreement drops to the int8 class. None = exact f32
-    # encoder. Not ported yet.
+    # it, so agreement drops to the int8 class. The whole-layer kernel
+    # takes exact f32 activations only, so the split layer runs. None =
+    # exact f32 encoder.
     encoder_dtype: "str | None" = None
 
 

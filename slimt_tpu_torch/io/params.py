@@ -13,6 +13,12 @@ computation can land one ulp away and break bit-exactness. `emb` gains
 `inv` = np.float32(1) / scale for the embedding dequantization. On the
 card each encoder layer's int8 matrices also gain their K-major copies,
 which the whole-layer kernel reads (ops.encoder_layer.add_k_major).
+
+The `f32` provider multiplies by dequantized weights: `add_dequantized`
+gives each int8 matrix dict `w` = q / bq and the embedding `w` = q /
+scale, in float32 by division (the JAX provider's `w_q / bq`; a
+reciprocal multiply can round differently), once per params, about four
+times the int8 bytes.
 """
 
 from __future__ import annotations
@@ -41,8 +47,58 @@ def _convert(node, device):
     return torch.from_numpy(np.array(array, order="C")).to(device)
 
 
-def params_from_numpy(host_params: dict, device) -> dict:
-    """Loader pytree (numpy, per-layer lists) → the port's params."""
+def _dequantize(q: torch.Tensor, scale) -> torch.Tensor:
+    """q / scale in float32, divided on the host (numpy's IEEE division)."""
+    w = q.cpu().numpy().astype(np.float32) / np.float32(scale)
+    return torch.from_numpy(w).to(q.device)
+
+
+def _add_w(node) -> None:
+    if isinstance(node, dict):
+        if "q" in node and "bq" in node and "w" not in node:
+            node["w"] = _dequantize(node["q"], node["bq"])
+        for value in list(node.values()):
+            if isinstance(value, (dict, list, tuple)):
+                _add_w(value)
+    elif isinstance(node, (list, tuple)):
+        for value in node:
+            _add_w(value)
+
+
+def add_dequantized(params: dict) -> dict:
+    """Give the port's params the f32 provider's weights, in place, where
+    they lack them: `w` = q / bq beside each int8 matrix, and `emb.w` =
+    emb.q / emb.scale (the tied projection's). Returns params."""
+    _add_w(params["encoder"])
+    _add_w(params["decoder"])
+    if "w" not in params["emb"]:
+        params["emb"]["w"] = _dequantize(params["emb"]["q"], params["emb"]["scale"])
+    return params
+
+
+def dequantized_bytes(params: dict) -> int:
+    """The bytes of the f32 provider's weights in `params`."""
+    total = 0
+
+    def walk(node):
+        nonlocal total
+        if isinstance(node, dict):
+            for key, value in node.items():
+                if key == "w" and isinstance(value, torch.Tensor):
+                    total += value.numel() * value.element_size()
+                else:
+                    walk(value)
+        elif isinstance(node, (list, tuple)):
+            for value in node:
+                walk(value)
+
+    walk(params)
+    return total
+
+
+def params_from_numpy(host_params: dict, device, dequantize: bool = False) -> dict:
+    """Loader pytree (numpy, per-layer lists) → the port's params; with
+    `dequantize`, also the f32 provider's weights (add_dequantized)."""
     if not isinstance(host_params["encoder"], list):
         raise ValueError(
             "params_from_numpy takes per-layer lists (load_weights), "
@@ -54,4 +110,6 @@ def params_from_numpy(host_params: dict, device) -> dict:
     if device.type == "cuda":
         for layer in params["encoder"]:
             add_k_major(layer)
+    if dequantize:
+        add_dequantized(params)
     return params

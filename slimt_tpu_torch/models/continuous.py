@@ -43,6 +43,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from slimt_tpu_torch.io.params import add_dequantized
 from slimt_tpu_torch.models import loop_graph
 from slimt_tpu_torch.models import transformer as tfm
 from slimt_tpu_torch.models.decode import (
@@ -75,12 +76,6 @@ class SlotPool(NamedTuple):
     complete: torch.Tensor  # [B] bool
 
 
-def _check_encoder_dtype(encoder_dtype) -> None:
-    if encoder_dtype is not None:
-        raise NotImplementedError(
-            f"encoder_dtype={encoder_dtype!r} (ROADMAP Queue 1, item 4)")
-
-
 @torch.inference_mode()
 def encode_segments(
     params,
@@ -96,17 +91,18 @@ def encode_segments(
 ):
     """Encoder and cross-KV projection of an admission batch: the
     translate_batch prefix (models/decode.py) on A rows, with its encoder
-    gates (`fused_layer`, `fused_sdpa`). Returns (kv rows, mask_add
-    [A, 1, 1, T], cap [A] int32 = max(1, floor(1.5 * length)))."""
-    _check_encoder_dtype(encoder_dtype)
-    x = tfm.transform_embedding(tfm.embed(params, indices))
+    gates (`fused_layer`, `fused_sdpa`) and `encoder_dtype`. Returns (kv
+    rows, mask_add [A, 1, 1, T], cap [A] int32 = max(1, floor(1.5 *
+    length)))."""
+    act = tfm.act_dtype(encoder_dtype)
+    base = None if provider == "fused_step" else provider
+    x = tfm.transform_embedding(tfm.embed(params, indices, act))
     mask_add = tfm.make_additive_mask(mask)
     encoder_out = tfm.encoder_forward(
-        params, x, mask_add, num_heads,
-        None if provider == "fused_step" else provider,
-        fused_sdpa=fused_sdpa, fused_layer=fused_layer,
+        params, x, mask_add, num_heads, base,
+        fused_sdpa=fused_sdpa, fused_layer=fused_layer, act_dtype=act,
     )
-    kv = tfm.precompute_cross_kv(params, encoder_out, num_heads, kv_dtype)
+    kv = tfm.precompute_cross_kv(params, encoder_out, num_heads, kv_dtype, base)
     lengths = mask.to(torch.float32).sum(-1)
     # floor() matches the batch path's int(limit_factor * len): per ROW
     # here, since a row in a pool has no batch whose longest row caps it.
@@ -195,8 +191,9 @@ class ChunkDecoder(StepContext):
                  num_heads: int, provider: Optional[str] = None,
                  argmax_method: str = "packed_int"):
         super().__init__(params, pool.kv, pool.mask_add,
-                         tfm.prepare_output_projection(params, None), num_heads=num_heads,
-                         provider=provider, argmax_method=argmax_method)
+                         tfm.prepare_output_projection(params, None, provider),
+                         num_heads=num_heads, provider=provider,
+                         argmax_method=argmax_method)
         self.pool, self.chunk, self.eos_id = pool, chunk, eos_id
         slots = pool.prev.shape[0]
         device = pool.prev.device
@@ -320,9 +317,11 @@ class ContinuousEngine:
         admit_order: str = "shortest",  # "shortest" | "fifo" (online)
         _eager: bool = False,
     ):
-        _check_encoder_dtype(encoder_dtype)
+        tfm.act_dtype(encoder_dtype)  # raises on a value that is not a dtype
         if provider not in PROVIDERS:
-            raise NotImplementedError(f"provider={provider!r} (ROADMAP Queue 1, item 4)")
+            raise ValueError(f"provider={provider!r} not in {PROVIDERS}")
+        if provider == "f32":
+            add_dequantized(params)
         if provider == "fused_step" and kv_dtype not in FUSED_STEP_POOL_CACHES:
             raise ValueError(f"fused_step reads the {FUSED_STEP_POOL_CACHES} caches, "
                              f"not {kv_dtype!r}")

@@ -32,7 +32,11 @@ decode-attention kernel on alignment-free int16 requests (never under
 argmax (transformer.output_argmax). Under provider "fused_step" each
 step is one call of the whole-step kernel (ops/decoder_step), whose
 argument block is built once per bucket over the loop's buffers; the
-argmax is then the exact first maximum.
+argmax is then the exact first maximum. Under provider "f32" every
+product is an f32 product against the dequantized weights
+(io/params.add_dequantized, added to the params once where they lack
+them) and the argmax runs over f32 logits; `encoder_dtype` runs the
+encoder in float16 or bfloat16 (transformer.act_dtype).
 
 The host reads the flag once every `check_every` steps, rounded up to
 whole chunks. Rows that are complete, and steps past the limit, are
@@ -50,6 +54,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from slimt_tpu_torch.io.params import add_dequantized
 from slimt_tpu_torch.models import loop_graph
 from slimt_tpu_torch.models import transformer as tfm
 from slimt_tpu_torch.ops import decoder_step as dstep
@@ -65,23 +70,20 @@ DEFAULT_UNROLL = 8
 _ENV_DECODE_UNROLL = int(os.environ.get("SLIMT_TPU_DECODE_UNROLL", DEFAULT_UNROLL))
 
 
-# Providers of the declared path; "fused" runs the block kernels and
-# "fused_step" is the latency path.
+# Providers of the declared path; "fused" runs the block kernels,
+# "fused_step" is the latency path and "f32" the reference-numerics path.
 DECLARED_PROVIDERS = (None, "xla_int8", "pallas")
-PROVIDERS = DECLARED_PROVIDERS + ("fused", "fused_step")
+PROVIDERS = DECLARED_PROVIDERS + ("fused", "fused_step", "f32")
 # The joined caches the whole-step kernel reads; under fused_step every
 # other kv_dtype becomes int16 (slimt_tpu/models/decode.py:98-106).
 FUSED_STEP_CACHES = ("bfloat16", "float32", "int16")
 
 
 def check_options(provider: Optional[str], kv_dtype: Optional[str]) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, on a provider
-    the port does not implement, and ValueError on a kv_dtype that is not
-    a cache dtype (transformer.KV_DTYPES)."""
+    """Raise ValueError on a provider that is not one (PROVIDERS) and on
+    a kv_dtype that is not a cache dtype (transformer.KV_DTYPES)."""
     if provider not in PROVIDERS:
-        raise NotImplementedError(
-            f"provider={provider!r} (ROADMAP Queue 1, item 4)"
-        )
+        raise ValueError(f"provider={provider!r} not in {PROVIDERS}")
     if kv_dtype not in tfm.KV_DTYPES:
         raise ValueError(f"kv_dtype={kv_dtype!r} not in {tfm.KV_DTYPES}")
 
@@ -346,9 +348,12 @@ def greedy_decode(
     # only (it returns no attention weights), as in the JAX package.
     attn_kernel = bool(attn_kernel) and not with_alignment and (
         kv_dtype == "int16") and provider != "fused_step"
+    if provider == "f32":
+        add_dequantized(params)
     kv_caches = tfm.precompute_cross_kv(
-        params, encoder_out, num_heads, cache_dtype(provider, kv_dtype))
-    projection = tfm.prepare_output_projection(params, shortlist)
+        params, encoder_out, num_heads, cache_dtype(provider, kv_dtype),
+        None if provider == "fused_step" else provider)
+    projection = tfm.prepare_output_projection(params, shortlist, provider)
     limit = max_steps if steps_cap is None else min(max_steps, int(steps_cap))
     loop_args = dict(
         eos_id=int(eos_id), num_heads=num_heads, max_steps=max_steps,
@@ -401,20 +406,27 @@ def translate_batch(
     loop_unroll: Optional[int] = None,
     graphs: Optional[loop_graph.GraphCache] = None,
     _eager: bool = False,
+    encoder_dtype: Optional[str] = None,
 ) -> GreedyResult:
     """embed → encoder → greedy decode for a padded [B, T] batch.
     `provider` "fused" runs the decoder's SSRU and FFN block kernels (and
     the split encoder's FFN), "fused_step" each decode step as one
     whole-step call. The encoder takes `flash_attention`, `fused_sdpa`
     and `fused_layer` (transformer.encoder_layer_forward) and the
-    provider, which under "fused_step" is None, as in the JAX package.
-    `loop_unroll`, `graphs` and `_eager` go to greedy_decode."""
-    word_embedding = tfm.transform_embedding(tfm.embed(params, indices))
+    provider, which under "fused_step" is None, as in the JAX package;
+    `encoder_dtype` ("float16"/"bfloat16") runs the embedding and the
+    encoder in that dtype. `loop_unroll`, `graphs` and `_eager` go to
+    greedy_decode."""
+    if provider == "f32":
+        add_dequantized(params)
+    act = tfm.act_dtype(encoder_dtype)
+    word_embedding = tfm.transform_embedding(tfm.embed(params, indices, act))
     mask_add = tfm.make_additive_mask(mask)
     encoder_out = tfm.encoder_forward(
         params, word_embedding, mask_add, num_heads,
         None if provider == "fused_step" else provider,
         flash=flash_attention, fused_sdpa=fused_sdpa, fused_layer=fused_layer,
+        act_dtype=act,
     )
     return greedy_decode(
         params, encoder_out, mask_add, eos_id, max_steps, num_heads,

@@ -20,11 +20,13 @@ float16, int8, k8v16, k16v8 and int16 joined caches; under fused_step
 bfloat16 and int16 run as they are and the others as int16, as in the
 JAX Model), and the encoder's three gates: the whole-layer kernel
 (`encoder_layer_kernel`), the fused SDPA (`encoder_sdpa`) and blockwise
-attention (`flash_attention`), so inputs of any length are served.
-It loads marian .bin models and the JAX package's native .npz
-checkpoints (io/checkpoint.py). `qmm_provider="f32"` and `encoder_dtype`
-raise NotImplementedError naming the ROADMAP item that ports them;
-nothing is substituted silently.
+attention (`flash_attention`), so inputs of any length are served,
+and the two numerics knobs: `qmm_provider="f32"` (every product in f32
+against weights dequantized once at load, the argmax over f32 logits)
+and `encoder_dtype` "float16"/"bfloat16" (the split encoder in that
+dtype). It loads marian .bin models and the JAX package's native .npz
+checkpoints (io/checkpoint.py). A config value that is none of these
+raises ValueError; nothing is substituted silently.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ from slimt_tpu_torch.models.decode import (
     unpack_compact,
 )
 from slimt_tpu_torch.models.loop_graph import GraphCache
-from slimt_tpu_torch.models.transformer import KV_DTYPES
+from slimt_tpu_torch.models.transformer import ACT_DTYPES, KV_DTYPES
 from slimt_tpu_torch.ops.encoder_layer import MAX_T
 from slimt_tpu_torch.runtime.request import Hypothesis
 from slimt_tpu_torch.text.vocabulary import Vocabulary
@@ -115,10 +117,12 @@ class Package:
 
 ARGMAX_METHODS = ("packed_int", "exact", "packed_fp16", "packed_bf16")
 KV_CACHE_DTYPES = tuple(d for d in KV_DTYPES if d is not None)
+QMM_PROVIDERS = ("xla_int8", "pallas", "fused", "fused_step", "f32")
 
 
 def _check_config(config: ModelConfig) -> None:
-    """Raise on every config value this port does not implement."""
+    """Raise ValueError on every config value that is not one of the
+    JAX package's."""
     unsupported = []
     if config.kv_cache_dtype not in KV_CACHE_DTYPES:
         unsupported.append(f"kv_cache_dtype={config.kv_cache_dtype!r} (not a cache dtype)")
@@ -126,14 +130,10 @@ def _check_config(config: ModelConfig) -> None:
     # ignored, as in the JAX package.
     if config.argmax_method not in ARGMAX_METHODS:
         unsupported.append(f"argmax_method={config.argmax_method!r} (not a method)")
-    if config.qmm_provider not in ("xla_int8", "pallas", "fused", "fused_step"):
-        unsupported.append(
-            f"qmm_provider={config.qmm_provider!r} (ROADMAP Queue 1, item 4)"
-        )
-    if config.encoder_dtype is not None:
-        unsupported.append(
-            f"encoder_dtype={config.encoder_dtype!r} (ROADMAP Queue 1, item 4)"
-        )
+    if config.qmm_provider not in QMM_PROVIDERS:
+        unsupported.append(f"qmm_provider={config.qmm_provider!r} (not a provider)")
+    if config.encoder_dtype is not None and config.encoder_dtype not in ACT_DTYPES:
+        unsupported.append(f"encoder_dtype={config.encoder_dtype!r} (not a dtype)")
     for name, modes in (("encoder_layer_kernel", ("on", "auto", "off")),
                         ("encoder_sdpa", ("on", "auto", "off")),
                         ("flash_attention", (True, False, "auto"))):
@@ -141,9 +141,7 @@ def _check_config(config: ModelConfig) -> None:
         if value not in modes:
             unsupported.append(f"{name}={value!r} (not a mode)")
     if unsupported:
-        raise NotImplementedError(
-            "not ported yet: " + "; ".join(unsupported)
-        )
+        raise ValueError("unsupported config: " + "; ".join(unsupported))
 
 
 def _run_job(stream, fn, ready, future: Future) -> None:
@@ -237,7 +235,9 @@ class Model:
         else:
             host_params = load_weights(load_items(model_bytes), config)
             self.vocab_size, self.emb_dim, self.ffn_dim = model_dims(host_params)
-        self.params = params_from_numpy(host_params, self.device)
+        # Under "f32" the weights are dequantized here, once.
+        self.params = params_from_numpy(host_params, self.device,
+                                        dequantize=config.qmm_provider == "f32")
 
         self.vocabulary = Vocabulary(Package._bytes(package.vocabulary))
         self._ssplit = Package._bytes(package.ssplit)
@@ -394,6 +394,7 @@ class Model:
                 loop_unroll=self._loop_unroll,
                 graphs=self._graphs,
                 _eager=self._eager_loop,
+                encoder_dtype=self.config.encoder_dtype,
             )
             align = result.alignment.cpu().numpy() if need_alignment else None
             if compact:

@@ -11,7 +11,13 @@ int8, int16, k8v16 and k16v8 per-row caches; the float32, bfloat16 and
 float16 joined caches) with each branch of its decode attention, the
 SSRU decoder and the greedy argmax over the (optionally shortlisted)
 tied projection (`packed_int`, or the argmax kernel's
-exact/packed_fp16/packed_bf16, ops/logits_argmax). Under the `fused`
+exact/packed_fp16/packed_bf16, ops/logits_argmax). Under the `f32`
+provider every int8 product is an f32 product against the dequantized
+weights of io/params.add_dequantized, and the argmax runs over the f32
+logits (qmm.affine_f32; no int8 kernel). `act_dtype` (ModelConfig.
+encoder_dtype) runs the split encoder's residual stream and SDPA
+operands in float16 or bfloat16, with the JAX package's rounding
+points. Under the `fused`
 provider each decoder layer runs the SSRU-block and FFN-block kernels
 (ops/fused_blocks); `attn_kernel` routes the int16 cache through the
 decode-attention kernel (ops/decode_attn); the `fused_step` latency
@@ -42,16 +48,44 @@ MASK_MIN = -99999999.0
 INT16_MAX = 32767.0
 
 
+# ModelConfig.encoder_dtype → the encoder's activation dtype.
+ACT_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16}
+
+
+def act_dtype(encoder_dtype: Optional[str]) -> Optional[torch.dtype]:
+    """The encoder's activation dtype for ModelConfig.encoder_dtype (None:
+    the exact f32 encoder)."""
+    if encoder_dtype is None:
+        return None
+    if encoder_dtype not in ACT_DTYPES:
+        raise ValueError(f"encoder_dtype={encoder_dtype!r} not in {tuple(ACT_DTYPES)}")
+    return ACT_DTYPES[encoder_dtype]
+
+
+def _constant(value: float, dtype: torch.dtype) -> torch.Tensor:
+    """A Python float as a 0-dim CPU tensor of `dtype`, rounded once from
+    the double (numpy's conversion, as JAX's weak-typed constants; for
+    bfloat16 through float32, as ml_dtypes converts)."""
+    if dtype == torch.float16:
+        return torch.from_numpy(np.array(value, dtype=np.float16))
+    return _f32(value).to(dtype)
+
+
 def layer_norm(x: torch.Tensor, ln: dict) -> torch.Tensor:
-    return enc.layer_norm(x, ln["scale"], ln["bias"])
+    """Statistics in f32; the output carries x's dtype."""
+    return enc.layer_norm(x.float(), ln["scale"], ln["bias"]).to(x.dtype)
 
 
-def embed(params: dict, indices: torch.Tensor) -> torch.Tensor:
-    """Token ids → f32 embeddings [.., E] from the int8 table."""
+def embed(params: dict, indices: torch.Tensor,
+          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Token ids → embeddings [.., E] from the int8 table: f32, or the
+    rows cast to `dtype` times 1/scale cast to it."""
     emb_q = params["emb"]["q"]
     rows = emb_q.index_select(0, indices.reshape(-1).to(torch.long))
     rows = rows.reshape(*indices.shape, emb_q.shape[1])
-    return rows.to(torch.float32) * _f32(params["emb"]["inv"])
+    if dtype is None or dtype == torch.float32:
+        return rows.to(torch.float32) * _f32(params["emb"]["inv"])
+    return rows.to(dtype) * _f32(params["emb"]["inv"]).to(dtype)
 
 
 def sinusoidal_signal(
@@ -76,10 +110,13 @@ def sinusoidal_signal(
 
 
 def transform_embedding(x: torch.Tensor, start: int = 0) -> torch.Tensor:
-    """x * sqrt(E) + positional signal."""
+    """x * sqrt(E) + positional signal, in x's dtype: sqrt(E) and the
+    signal are rounded to it (a no-op for f32)."""
     emb_dim = x.shape[-1]
     signal = sinusoidal_signal(start, x.shape[-2], emb_dim, device=x.device)
-    return x * _f32(math.sqrt(emb_dim)) + signal
+    if x.dtype == torch.float32:
+        return x * _f32(math.sqrt(emb_dim)) + signal
+    return x * _constant(math.sqrt(emb_dim), x.dtype) + signal.to(x.dtype)
 
 
 def make_additive_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -87,8 +124,24 @@ def make_additive_mask(mask: torch.Tensor) -> torch.Tensor:
     return ((1.0 - mask) * _f32(MASK_MIN))[:, None, None, :]
 
 
-def _affine(p: dict, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
-    return qmm.affine(x, p["q"], p["b"], p["aq"], p["inv"], relu=relu)
+def _affine(p: dict, x: torch.Tensor, relu: bool = False, provider: Optional[str] = None,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The affine of matrix dict `p` (its bias where it has one) on x
+    upcast to f32: the int8 product (qmm.affine), or under "f32" the
+    product against the dequantized weight `w` (qmm.affine_f32); the
+    output rounded to `out_dtype` where one is given. The relu runs
+    before that rounding, which it commutes with (rounding keeps the
+    sign; at most a zero's sign differs, which the next product's
+    quantization or sum erases)."""
+    x = x.to(torch.float32)
+    if provider == "f32":
+        if "w" not in p:
+            raise ValueError("provider 'f32' needs the dequantized weights: "
+                             "io/params.add_dequantized(params)")
+        y = qmm.affine_f32(x, p["w"], p.get("b"), relu=relu)
+    else:
+        y = qmm.affine(x, p["q"], p.get("b"), p["aq"], p["inv"], relu=relu)
+    return y if out_dtype is None else y.to(out_dtype)
 
 
 def ssru_forward(
@@ -99,8 +152,8 @@ def ssru_forward(
     Provider "fused" runs the whole cell as the SSRU-block kernel."""
     if provider == "fused":
         return fused_blocks.ssru_block(x, state, rnn)
-    f = torch.sigmoid(_affine(rnn["wf"], x))
-    wx = qmm.dot(x, rnn["w"]["q"], rnn["w"]["aq"], rnn["w"]["inv"])
+    f = torch.sigmoid(_affine(rnn["wf"], x, provider=provider))
+    wx = _affine(rnn["w"], x, provider=provider)  # bias-free
     c_t = f * state + (1.0 - f) * wx
     h = layer_norm(x + torch.relu(c_t), rnn["ln"])
     return h, c_t
@@ -128,10 +181,11 @@ def _per_row(a: torch.Tensor, wide: bool):
 
 def precompute_cross_kv(
     params: dict, encoder_out: torch.Tensor, num_heads: int,
-    dtype: Optional[str] = "int16",
+    dtype: Optional[str] = "int16", provider: Optional[str] = None,
 ) -> Tuple:
-    """Per decoder layer, the cross-attention cache of encoder_out, as the
-    JAX function builds it for `dtype`:
+    """Per decoder layer, the cross-attention cache of encoder_out (of any
+    float dtype; the K/V affines take it upcast and give f32, by
+    `provider`), as the JAX function builds it for `dtype`:
       None: the exact (K, V) pair of split [B, H, T, D] f32 tensors;
       "int8", "int16": the joined [B, T, E] cache quantized per row (b, t)
         against its absmax, {"k", "v", "kqi", "vqi"} with the inverse scales
@@ -145,8 +199,8 @@ def precompute_cross_kv(
     caches = []
     for layer in params["decoder"]:
         att = layer["att"]
-        k = _affine(att["k"], encoder_out)  # [B, T, E]
-        v = _affine(att["v"], encoder_out)
+        k = _affine(att["k"], encoder_out, provider=provider)  # [B, T, E]
+        v = _affine(att["v"], encoder_out, provider=provider)
         if dtype is None:
             caches.append((_split_heads(k, num_heads), _split_heads(v, num_heads)))
         elif dtype in FLOAT_CACHES:
@@ -245,10 +299,24 @@ def _join_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * d)
 
 
+def sdpa_act(q, k, v, mask_add):
+    """The plain SDPA on operands of a half dtype, as the JAX einsum
+    branch computes it: the products of the upcast operands summed in
+    f32, the scale and the mask, an f32 softmax, the probabilities
+    rounded to v's dtype, the output rounded to q's. (No half operand
+    reaches torch.matmul: cuBLAS may reduce those in half precision.)"""
+    scale = _f32(1.0 / math.sqrt(q.shape[-1]))
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    attn = enc.softmax(scores + mask_add)
+    out = torch.matmul(attn.to(v.dtype).float(), v.float())
+    return out.to(q.dtype), attn
+
+
 def attention_forward(
     att: dict, q_in: torch.Tensor, mask_add: torch.Tensor, num_heads: int,
     kv_cache=None, attn_kernel: bool = False,
     flash: bool = False, fused_sdpa: bool = False,
+    provider: Optional[str] = None, act_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Attention block incl. residual + post-LN. Returns (out,
     attn_weights).
@@ -263,12 +331,16 @@ def attention_forward(
     returned), else the blockwise kernel where `flash` is on (weights not
     returned), else the plain SDPA (`encoder_layer.sdpa_heads`:
     torch.matmul products, as the JAX einsum branch, the scale on QK^T and
-    then the mask)."""
+    then the mask). `provider` picks the affines (qmm or, under "f32",
+    the dequantized weights). `act_dtype` (the encoder's) rounds q, k, v,
+    the joined heads, the O affine and the residual to it (sdpa_act; the
+    blockwise kernel takes its operands upcast); it needs a float32 q_in
+    for the fused SDPA, as the JAX gate."""
     if isinstance(kv_cache, dict):
-        yq = _affine(att["q"], q_in)
+        yq = _affine(att["q"], q_in, provider=provider)
         attn_out, attn = _decode_attention_joined(
             yq, kv_cache, mask_add, num_heads, attn_kernel)
-        out = _affine(att["o"], attn_out)
+        out = _affine(att["o"], attn_out, provider=provider)
         return layer_norm(q_in + out, att["ln"]), attn
     t, e = q_in.shape[-2], q_in.shape[-1]
     if (
@@ -279,34 +351,46 @@ def attention_forward(
         and e % 128 == 0
         and e % num_heads == 0
     ):
-        yq, yk, yv = (_affine(att[n], q_in) for n in ("q", "k", "v"))
+        yq, yk, yv = (_affine(att[n], q_in, provider=provider) for n in ("q", "k", "v"))
         attn_out = attention.fused_sdpa_joined(yq, yk, yv, mask_add, num_heads)
-        out = _affine(att["o"], attn_out)
+        out = _affine(att["o"], attn_out, provider=provider)
         return layer_norm(q_in + out, att["ln"]), None
-    yq = _split_heads(_affine(att["q"], q_in), num_heads)
+    act = act_dtype or torch.float32
+
+    def project(name):
+        return _split_heads(
+            _affine(att[name], q_in, provider=provider, out_dtype=act_dtype), num_heads)
+
+    yq = project("q")
     if kv_cache is None:
-        yk, yv = (_split_heads(_affine(att[n], q_in), num_heads) for n in ("k", "v"))
+        yk, yv = project("k"), project("v")
     else:
         yk, yv = kv_cache
     if flash:
-        attn_out = attention.blockwise_attention(yq, yk, yv, mask_add)
+        attn_out = attention.blockwise_attention(yq.float(), yk.float(), yv.float(), mask_add)
         attn = None
-    else:
+    elif yq.dtype == torch.float32:
         attn_out, attn = enc.sdpa_heads(yq, yk, yv, mask_add)
-    out = _affine(att["o"], _join_heads(attn_out))
-    return layer_norm(q_in + out, att["ln"]), attn
+    else:
+        attn_out, attn = sdpa_act(yq, yk, yv, mask_add)
+    out = _affine(att["o"], _join_heads(attn_out).to(act), provider=provider,
+                  out_dtype=act_dtype)
+    return layer_norm(q_in.to(act) + out, att["ln"]), attn
 
 
 def _ffn_block(
-    layer: dict, x: torch.Tensor, provider: Optional[str] = None
+    layer: dict, x: torch.Tensor, provider: Optional[str] = None,
+    act_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """FFN1 → relu → FFN2 → residual → post-LN. Provider "fused" runs
-    the whole block as the FFN-block kernel."""
+    """FFN1 → relu → FFN2 → residual → post-LN, the affines' outputs and
+    the residual in `act_dtype` where one is given. Provider "fused" runs
+    the whole block as the FFN-block kernel, on x upcast (an f32 output,
+    as the JAX kernel's)."""
     if provider == "fused":
-        return fused_blocks.ffn_block(x, layer["ffn"])
-    h = _affine(layer["ffn"]["w1"], x, relu=True)
-    y = _affine(layer["ffn"]["w2"], h)
-    return layer_norm(y + x, layer["ffn"]["ln"])
+        return fused_blocks.ffn_block(x.to(torch.float32), layer["ffn"])
+    h = _affine(layer["ffn"]["w1"], x, relu=True, provider=provider, out_dtype=act_dtype)
+    y = _affine(layer["ffn"]["w2"], h, provider=provider, out_dtype=act_dtype)
+    return layer_norm(y + x.to(act_dtype or torch.float32), layer["ffn"]["ln"])
 
 
 # The int8 providers the whole-layer kernel serves. The port has no
@@ -319,9 +403,10 @@ def encoder_layer_forward(
     layer: dict, x: torch.Tensor, mask_add: torch.Tensor, num_heads: int,
     provider: Optional[str] = None, flash: bool = False,
     fused_sdpa: bool = False, fused_layer: bool = False,
+    act_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """One post-LN encoder layer. The whole-layer kernel where
-    `fused_layer` is on, `flash` off, the provider an int8 one, 1 < T <=
+    `fused_layer` is on, `flash` off, no `act_dtype`, the provider an int8 one, 1 < T <=
     256, E % 128 == 0 and E % heads == 0 (the JAX gate) and E <= enc.MAX_E
     (enc.width_ok: the widths the kernel's tiles hold); else the split
     layer: self-attention (attention_forward) then the FFN, under
@@ -331,6 +416,7 @@ def encoder_layer_forward(
     if (
         fused_layer
         and not flash
+        and act_dtype is None
         and resolved in LAYER_KERNEL_PROVIDERS
         and 1 < t <= enc.MAX_T
         and enc.width_ok(e)
@@ -338,22 +424,25 @@ def encoder_layer_forward(
     ):
         return enc.encoder_layer_fused(x, layer, mask_add, num_heads)
     out, _ = attention_forward(
-        layer["att"], x, mask_add, num_heads, flash=flash, fused_sdpa=fused_sdpa)
-    return _ffn_block(layer, out, provider)
+        layer["att"], x, mask_add, num_heads, flash=flash, fused_sdpa=fused_sdpa,
+        provider=provider, act_dtype=act_dtype)
+    return _ffn_block(layer, out, provider, act_dtype)
 
 
 def encoder_forward(
     params: dict, word_embedding: torch.Tensor, mask_add: torch.Tensor,
     num_heads: int, provider: Optional[str] = None, flash: bool = False,
     fused_sdpa: bool = False, fused_layer: bool = False,
+    act_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """[B,T,E] → [B,T,E] through every encoder layer
-    (encoder_layer_forward, gates as in the JAX package)."""
+    (encoder_layer_forward, gates as in the JAX package); with
+    `act_dtype` the output stays in it."""
     x = word_embedding
     for layer in params["encoder"]:
         x = encoder_layer_forward(
             layer, x, mask_add, num_heads, provider, flash=flash,
-            fused_sdpa=fused_sdpa, fused_layer=fused_layer)
+            fused_sdpa=fused_sdpa, fused_layer=fused_layer, act_dtype=act_dtype)
     return x
 
 
@@ -366,7 +455,8 @@ def decoder_layer_forward(
     Returns (out, new_state, attn)."""
     decoder_out, new_state = ssru_forward(layer["rnn"], state, x, provider)
     out, attn = attention_forward(
-        layer["att"], decoder_out, mask_add, num_heads, kv_cache, attn_kernel
+        layer["att"], decoder_out, mask_add, num_heads, kv_cache, attn_kernel,
+        provider=provider,
     )
     return _ffn_block(layer, out, provider), new_state, attn
 
@@ -409,7 +499,7 @@ def decoder_step(
     CUDA; `packed_bias` the `packed_int` argmax's bias in accumulator
     units (packed_int_bias), built once per batch by the decode loop."""
     if projection is None:
-        projection = prepare_output_projection(params, shortlist)
+        projection = prepare_output_projection(params, shortlist, provider)
     if provider == "fused_step":
         from slimt_tpu_torch.ops import decoder_step as dstep
 
@@ -433,12 +523,14 @@ def decoder_step(
 
 
 def prepare_output_projection(
-    params: dict, shortlist: Optional[torch.Tensor] = None
+    params: dict, shortlist: Optional[torch.Tensor] = None,
+    provider: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(W [E, V or S], b) of the tied logit projection. W is a
-    transposed view of the int8 embedding (or of its shortlisted rows,
-    gathered once per batch); nothing is copied per step."""
-    emb_q = params["emb"]["q"]  # [V, E]
+    transposed view of the int8 embedding (under "f32", of its
+    dequantized copy `emb.w`), or of its shortlisted rows, gathered once
+    per batch; nothing is copied per step."""
+    emb_q = params["emb"]["w" if provider == "f32" else "q"]  # [V, E]
     bias = params["out"]["b"]
     if shortlist is not None:
         ids = shortlist.to(torch.long)
@@ -476,12 +568,16 @@ def output_logits(
     x: torch.Tensor,
     shortlist: Optional[torch.Tensor] = None,
     projection: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    provider: Optional[str] = None,
 ) -> torch.Tensor:
     """Tied-embedding logits x [B, E] → [B, V or S]: the int8 projection
-    acc * (1 / (out.aq * emb.scale)) + b."""
+    acc * (1 / (out.aq * emb.scale)) + b; under "f32" x @ W + b on the
+    dequantized projection (prepare_output_projection's)."""
     if projection is None:
-        projection = prepare_output_projection(params, shortlist)
+        projection = prepare_output_projection(params, shortlist, provider)
     w, b = projection
+    if provider == "f32":
+        return qmm.affine_f32(x, w, b)
     return qmm.affine(x, w, b, params["out"]["aq"], output_inv(params))
 
 
@@ -515,19 +611,30 @@ def output_argmax(
 ) -> torch.Tensor:
     """Greedy choice [B] int32 over the tied projection's columns.
 
+    Under "f32" (the projection prepare_output_projection gives it): the
+    f32 logits, then packed_argmax_16 for "packed_fp16"/"packed_bf16" up
+    to 65536 columns and the exact first maximum for every other method
+    (the JAX function's f32 branch; no int8 kernel).
     "packed_int" under the providers None, "xla_int8" and "pallas": the
     int8 projection's int32 accumulators plus the bias folded into
     accumulator units, compared as packed integer keys. Every other
     case goes to the argmax kernel (ops/logits_argmax), whose index is
     the JAX package's XLA argmax: "packed_fp16"/"packed_bf16" up to
-    65536 columns, else the exact first maximum. So "fused" with
+    65536 columns, else the exact first maximum; at an E its tiles do
+    not hold (logits_argmax.EMB_DIMS) the int8 logits of ops/qmm and the
+    same argmax over them. So "fused" with
     "packed_int" takes the exact argmax, as in the JAX package
     (transformer.py:1035, :1051-1057). `packed_bias` is packed_int_bias
     of the projection's bias, where the caller has it."""
     if projection is None:
-        projection = prepare_output_projection(params)
+        projection = prepare_output_projection(params, provider=provider)
     w, b = projection
     aq = params["out"]["aq"]
+    if provider == "f32":
+        logits = qmm.affine_f32(x, w, b)
+        if method in logits_argmax.PACKED_DTYPES and w.shape[1] <= logits_argmax.MAX_PACKED_WIDTH:
+            return packed_argmax_16(logits, logits_argmax.PACKED_DTYPES[method])
+        return first_max(logits)
     if uses_packed_int(provider, method):
         acc = qmm.int8_matmul(x, w, aq)
         e_dim, width = w.shape
@@ -537,4 +644,12 @@ def output_argmax(
         return packed_int_argmax(acc, packed_bias, width_bits, shift)
     if method not in logits_argmax.PACKED_DTYPES or w.shape[1] > logits_argmax.MAX_PACKED_WIDTH:
         method = "exact"
+    if w.shape[0] not in logits_argmax.EMB_DIMS:
+        # A width the kernel's tiles do not hold: the int8 logits through
+        # ops/qmm, then the method's argmax over them (the kernel's plain
+        # version, as the JAX package's XLA path computes it).
+        logits = qmm.affine(x, w, b, aq, output_inv(params))
+        if method == "exact":
+            return first_max(logits)
+        return packed_argmax_16(logits, logits_argmax.PACKED_DTYPES[method])
     return logits_argmax.argmax_affine(x, w, b, aq, output_inv(params), method)

@@ -8,10 +8,14 @@ slimt_tpu/ops/qmm_pallas.py.
 `inv` = np.float32(1) / (aq * bq) is precomputed on the host
 (io/params.py), so the kernel takes both scales by value.
 
-On a CUDA tensor every product launches the hand-written kernel in
+On a CUDA tensor every int8 product launches the hand-written kernel in
 csrc/qmm_affine.cu (it replaces qmm_pallas._affine_kernel) or raises;
-on a CPU tensor it runs the plain version below. There is no other
-route. `w_q` may be any strided int8 [K, N] view: the tied output
+on a CPU tensor it runs the plain version below. The `f32` provider
+(`affine_f32`) is the JAX package's reference-numerics path, which that
+package computes with jnp.dot outside any Pallas kernel: an f32
+product against the weights dequantized once by
+io/params.add_dequantized, by torch.matmul, with TF32 off on the card
+(device.py). `w_q` may be any strided int8 [K, N] view: the tied output
 projection passes the [V, E] embedding's transpose without a copy.
 """
 
@@ -128,3 +132,12 @@ def dot(x, w_q, aq, inv) -> torch.Tensor:
 def int8_matmul(x, w_q, aq) -> torch.Tensor:
     """quant(x) @ w_q as the raw int32 accumulator [..., N]."""
     return _run(x, w_q, None, aq, 1.0, ACCUMULATOR)
+
+
+def affine_f32(x, w, b=None, relu: bool = False) -> torch.Tensor:
+    """The "f32" provider's affine: x @ w [+ b] [relu] in f32, w [K, N]
+    the dequantized weight w_q / bq (io/params.add_dequantized)."""
+    y = torch.matmul(x.to(torch.float32), w)
+    if b is not None:
+        y = y + b
+    return torch.relu(y) if relu else y

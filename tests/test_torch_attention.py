@@ -22,7 +22,7 @@ from slimt_tpu.io.loader import load_weights  # noqa: E402
 from slimt_tpu.io.synthetic import synthetic_model_bytes  # noqa: E402
 from slimt_tpu.models import transformer as jtfm  # noqa: E402
 from slimt_tpu.ops import attention as jattention  # noqa: E402
-from slimt_tpu_torch.io.params import params_from_numpy  # noqa: E402
+from slimt_tpu_torch.io.params import add_dequantized, params_from_numpy  # noqa: E402
 from slimt_tpu_torch.models import transformer as tfm  # noqa: E402
 from slimt_tpu_torch.ops import attention  # noqa: E402
 from slimt_tpu_torch.ops import encoder_layer as enc  # noqa: E402
@@ -211,6 +211,8 @@ def test_gates_pick_the_kernels_of_the_jax_package(weights, monkeypatch):
     ]
     for kwargs, want in cases:
         calls.clear()
+        if kwargs.get("provider") == "f32":  # its dequantized weights
+            add_dequantized(tp)
         tfm.encoder_layer_forward(layer, x, mask, heads, **kwargs)
         assert calls == ([want] if want else []), kwargs
     calls.clear()

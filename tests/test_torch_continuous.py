@@ -194,12 +194,19 @@ def test_vocab_bound_guard():
 
 
 def test_refusals(weights):
+    """encoder_dtype and provider "f32", which once raised, give the JAX
+    engine's tokens (encoder_dtype against the JAX engine run op by op:
+    XLA's fused CPU code skips half-precision roundings the JAX functions
+    make); a fused_step pool cache it cannot read and an unknown admission
+    order still raise."""
     _, tp = weights
     kw = dict(eos_id=1, num_heads=CONFIG.num_heads, slots=2, chunk=2, t_slot=8)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        cont.ContinuousEngine(tp, encoder_dtype="bfloat16", **kw)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        cont.ContinuousEngine(tp, provider="f32", **kw)
+    segments = segments_fixture(n=3, seed=21)
+    for change in ({"encoder_dtype": "bfloat16"}, {"provider": "f32"}):
+        want_engine, engine = _engines(weights, eos_id=1, slots=2, chunk=2, **change)
+        with jax.disable_jit():
+            want = want_engine.translate(segments)
+        assert engine.translate(segments) == want
     with pytest.raises(ValueError, match="fused_step"):
         cont.ContinuousEngine(tp, provider="fused_step", kv_dtype="int8", **kw)
     with pytest.raises(ValueError, match="admit_order"):

@@ -208,18 +208,12 @@ def test_fused_step_coerces_reduced_kv(weights):
      ("f32", "int16")],
 )
 def test_unported_decode_options_raise(weights, provider, kv_dtype):
-    """Provider "f32" raises, naming its ROADMAP item; the float caches
-    under fused_step and the int8 cache, which once raised too, give the
-    JAX package's tokens."""
+    """Provider "f32", the float caches under fused_step and the int8
+    cache, which once raised, give the JAX package's tokens."""
     jp, tp = weights
     indices, mask = _batch(seed=7, b=2)
     args = dict(eos_id=2, max_steps=4, num_heads=HEADS, provider=provider,
                 kv_dtype=kv_dtype)
-    if provider == "f32":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            decode.translate_batch(
-                tp, torch.from_numpy(indices), torch.from_numpy(mask), **args)
-        return
     got = decode.translate_batch(tp, torch.from_numpy(indices), torch.from_numpy(mask), **args)
     want = jdecode.translate_batch(jp, jnp.asarray(indices), jnp.asarray(mask), **args)
     np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))

@@ -1197,6 +1197,93 @@ def test_continuous_engine_matches_batch_at_a_time(card, provider):
     assert got == want
 
 
+# -- The numerics knobs on the card ------------------------------------------
+INT8_COUNTERS = (qmm.affine_kernel, enc.layer_kernel, logits_argmax.argmax_affine_kernel,
+                 dstep.whole_step_kernel, fused_blocks.ssru_kernel, fused_blocks.ffn_kernel)
+
+
+def _launches(counters):
+    return [counter.launches for counter in counters]
+
+
+@pytest.mark.parametrize("kv", ["int16", "float32"])
+def test_f32_provider_launches_no_int8_kernel(card, kv):
+    """qmm_provider "f32" on the card: the graph loop bit-equal to the
+    eager loop, no int8 kernel launched (its products are f32 matmuls
+    against the dequantized weights), and >= 99% of the tokens equal to
+    the CPU's f32 path (f32 sums in another order)."""
+    from slimt_tpu_torch.io.params import add_dequantized
+    from slimt_tpu_torch.models.loop_graph import GraphCache
+
+    params = add_dequantized(_loop_params(card))
+    ids, mask = _loop_batch(card)
+    kwargs = dict(provider="f32", kv_dtype=kv, fused_layer=True, fused_sdpa=False)
+    before = _launches(INT8_COUNTERS)
+    eager = _decode(params, ids, mask, _eager=True, **kwargs)
+    got = _decode(params, ids, mask, graphs=GraphCache(), **kwargs)
+    torch.cuda.synchronize()
+    assert _launches(INT8_COUNTERS) == before
+    assert _same(got, eager)
+    cpu = _decode(add_dequantized(_loop_params("cpu")), ids.cpu(), mask.cpu(), **kwargs)
+    equal = (got.tokens.cpu() == cpu.tokens) & cpu.valid
+    assert int(equal.sum()) >= 0.99 * int(cpu.valid.sum())
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_half_encoder_on_the_card(card, dtype):
+    """encoder_dtype on the card: the encoder within one unit in the last
+    place of the CPU's on >= 99% of the real positions (the card sums LN,
+    softmax and the f32 epilogues in another order), qmm_affine launched
+    and the whole-layer kernel not (its gate needs an f32 encoder), and
+    the graph loop bit-equal to the eager loop."""
+    from slimt_tpu_torch.models.loop_graph import GraphCache
+
+    act = tfm.act_dtype(dtype)
+    params, cpu_params = _loop_params(card), _loop_params("cpu")
+    ids, mask = _loop_batch(card)
+    outs = []
+    for p, i, m in ((params, ids, mask), (cpu_params, ids.cpu(), mask.cpu())):
+        x = tfm.transform_embedding(tfm.embed(p, i, act))
+        outs.append(tfm.encoder_forward(p, x, tfm.make_additive_mask(m), 8,
+                                        fused_layer=True, act_dtype=act).float().cpu())
+    real = mask.cpu().bool()
+    got, want = outs[0][real], outs[1][real]
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want)[1] - 1 - (10 if dtype == "float16"
+                                                                         else 7))
+    assert float(((got - want).abs() <= ulp).float().mean()) >= 0.99
+    kwargs = dict(encoder_dtype=dtype, fused_layer=True)
+    affine, layer = qmm.affine_kernel.launches, enc.layer_kernel.launches
+    eager = _decode(params, ids, mask, _eager=True, **kwargs)
+    got = _decode(params, ids, mask, graphs=GraphCache(), **kwargs)
+    torch.cuda.synchronize()
+    assert qmm.affine_kernel.launches > affine and enc.layer_kernel.launches == layer
+    assert _same(got, eager)
+
+
+@pytest.mark.parametrize("method", ["exact", "packed_fp16"])
+def test_argmax_at_a_narrow_width_on_the_card(card, method):
+    """At E=64 (the crosscheck cells' width; the argmax kernel's tiles
+    hold 256 and 512) the greedy argmax runs over #1's int8 logits: no
+    argmax kernel launch, the graph loop bit-equal to the eager loop, the
+    real rows decoding."""
+    from slimt_tpu_torch.models.loop_graph import GraphCache
+
+    config = ModelConfig(encoder_layers=2, decoder_layers=2, num_heads=4)
+    host = load_weights(load_items(synthetic_model_bytes(
+        config=config, vocab_size=512, emb_dim=64, ffn_dim=128, seed=0)), config)
+    ids, mask = _loop_batch(card)
+    ids = ids % 512
+    kwargs = dict(num_heads=4, kv_dtype="float32", argmax_method=method, fused_layer=True)
+    before = logits_argmax.argmax_affine_kernel.launches
+    params = params_from_numpy(host, card)
+    eager = _decode(params, ids, mask, _eager=True, **kwargs)
+    got = _decode(params, ids, mask, graphs=GraphCache(), **kwargs)
+    torch.cuda.synchronize()
+    assert logits_argmax.argmax_affine_kernel.launches == before
+    assert _same(got, eager)
+    assert bool(got.valid[:-1].any(-1).all()) and not got.valid[-1].any()
+
+
 # -- The front doors on the card --------------------------------------------
 
 
