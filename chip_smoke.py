@@ -30,7 +30,8 @@ without printing a result:
              bit-equal in its three methods (exact, packed_fp16,
              packed_bf16; a tie across vocab tiles at two row-tile
              heights, a partial last tile of negative logits), at tiny
-             and base widths; the split encoder's fused SDPA within
+             and base widths and at E in (32, 40, 64) (the crosscheck
+             cells' widths, and one that is no multiple of 16); the split encoder's fused SDPA within
              2e-5 at B in (1, 33, 512), T in (16, 17, 64, 100, 256), E in
              (256, 512), and its blockwise attention within 2e-5 abs + 1e-5
              rel at T in (272, 1000, 1024, 2048) (ragged pads), padding
@@ -992,7 +993,9 @@ def check_attention(torch, dattn, dev):
 
 def check_argmax(torch, lam, tfm, widths):
     """The argmax kernel bit-equal to plain in every method, at each
-    width's params (tiny first), full vocab and shortlists of 1024, 3072
+    width's params (tiny first; the narrow ones take the strided path at
+    32 and 40 and the tensor-core path at 64), full vocab and shortlists
+    of 1024, 3072
     and 1000 (a partial last tile, also with every logit negative), B in
     {1, 8, 33, 64, 512}; times at tiny width, B in {1, 64, 512}, with the
     projection and pick kernels' device times. Returns (most differing
@@ -1025,7 +1028,8 @@ def check_argmax(torch, lam, tfm, widths):
                         raise RuntimeError(
                             f"argmax {method} E={emb} {label} B={rows}: not bit-equal")
                     cases += 1
-    log(f"argmax: {cases} cases at E in (256, 512) bit-equal to plain "
+    embs = tuple(params["emb"]["q"].shape[1] for params in widths)
+    log(f"argmax: {cases} cases at E in {embs} bit-equal to plain "
         f"({', '.join(lam.METHODS)})")
     timing = None
     params = widths[0]
@@ -1830,8 +1834,12 @@ def reference_cell(torch, counters, reset, name, smi):
                 log(f"reference {leg.what} {label}: {se}/{st} sentences exact, "
                     f"{ta}/{tt} tokens ({100.0 * ta / max(1, tt):.2f}%)")
     torch.cuda.synchronize()
-    log(f"launches in the reference cell: "
-        f"{ {key: counter.launches for key, counter in counters.items()} }")
+    counts = {key: counter.launches for key, counter in counters.items()}
+    log(f"launches in the reference cell: {counts}")
+    # The exact and packed rows take the argmax kernel at the cell's E=32.
+    if not counts["qmm_affine"] or not counts["argmax_affine"]:
+        raise RuntimeError(f"reference cell: qmm_affine {counts['qmm_affine']}, "
+                           f"argmax_affine {counts['argmax_affine']} launches")
     for label, (se, st, ta, tt) in rows.items():
         log(f"reference cell {label}: {se}/{st} sentences exact ({100.0 * se / st:.2f}%), "
             f"{100.0 * ta / max(1, tt):.2f}% tokens on {name} ({smi})")
@@ -2411,7 +2419,12 @@ def main() -> None:
     attn_err, attn_ms = check_attention(torch, dattn, dev)
     widths = [params_from_numpy(load_host(emb, ffn, 1, DEC, vocab=VOCAB), dev)
               for emb, ffn in ((EMB, FFN), (512, 2048))]
-    argmax_err, argmax_ms = check_argmax(torch, lam, tfm, widths)
+    # The crosscheck cells' widths too (32, 64), and one of neither path's
+    # multiples (40).
+    narrow = [params_from_numpy(load_host(emb, 2 * emb, 1, DEC, vocab=VOCAB), dev)
+              for emb in (32, 40, 64)]
+    argmax_err, argmax_ms = check_argmax(torch, lam, tfm, widths + narrow)
+    del narrow
     sdpa_err, sdpa_ms = check_fused_sdpa(torch, att, enc, dev)
     blockwise_err, blockwise_ms = check_blockwise(torch, att, dev)
     layer_step_launches, layer_step_err, layer_step_ms = check_layer_steps(

@@ -26,7 +26,9 @@ Modes:
             vocabulary only) at B=8 and --lines sentences a cell; writes
             crosscheck/serving_agreement_torch.json in the layout of
             crosscheck/serving_agreement.json, with the device's name and
-            power limit. --configs filters the rows ("exact" always
+            power limit, the digest of the port's sources it ran
+            (source_digest) and where the reference's tokens came from
+            (the harness, or RECORDED and its digest). --configs filters the rows ("exact" always
             runs) and then writes nothing. Exit status 1 below 98% of
             sentences on the exact row.
   shortlist ShortlistGenerator.generate against the reference's
@@ -529,6 +531,37 @@ def device_record(device) -> dict:
     return record
 
 
+# The port's sources whose bytes source_digest covers.
+SOURCE_SUFFIXES = (".py", ".cu", ".cuh", ".cpp", ".h")
+
+
+def source_digest() -> str:
+    """SHA-256 over the relative path and bytes of every source file of
+    the port (slimt_tpu_torch/, SOURCE_SUFFIXES, build outputs and caches
+    left out), in path order: the same sources give the same digest on
+    any machine, with or without git."""
+    package = os.path.join(ROOT, "slimt_tpu_torch")
+    digest = hashlib.sha256()
+    paths = []
+    for folder, dirs, files in os.walk(package):
+        dirs[:] = [d for d in dirs if d not in ("build", "__pycache__")]
+        paths += [os.path.join(folder, name) for name in files
+                  if name.endswith(SOURCE_SUFFIXES)]
+    for path in sorted(paths, key=lambda p: os.path.relpath(p, ROOT)):
+        with open(path, "rb") as f:
+            digest.update(os.path.relpath(path, ROOT).encode() + b"\0" + f.read())
+    return digest.hexdigest()
+
+
+def reference_record() -> str:
+    """Where run_reference takes the reference's tokens from here."""
+    if harness_runs():
+        return "harness"
+    with open(RECORDED, "rb") as f:
+        recorded = hashlib.sha256(f.read()).hexdigest()
+    return f"recorded: {os.path.relpath(RECORDED, ROOT)} (sha256 {recorded})"
+
+
 def select_configs(patterns: Optional[str]):
     """SERVING_CONFIGS, or the rows whose label holds one of the
     comma-separated `patterns` ("exact" always)."""
@@ -622,6 +655,8 @@ def mode_serving(args) -> float:
                              "(verbatim reference core, Ruy provider)",
                 "port": "slimt_tpu_torch.models.decode.translate_batch",
                 "device": device_record(args.device),
+                "port_source_sha256": source_digest(),
+                "reference_tokens": reference_record(),
                 "configs": report,
             }, f, indent=1)
         print(f"wrote {SERVING_OUT}")

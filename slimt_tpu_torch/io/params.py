@@ -14,7 +14,9 @@ computation can land one ulp away and break bit-exactness. `emb` gains
 card each encoder layer's int8 matrices also gain their K-major copies,
 which the whole-layer kernel reads (ops.encoder_layer.add_k_major).
 
-The `f32` provider multiplies by dequantized weights: `add_dequantized`
+The `f32` provider multiplies by dequantized weights, which the loader
+adds where it is asked (`params_from_numpy(..., dequantize=True)`, as a
+Model under "f32" does; nothing downstream adds them): `add_dequantized`
 gives each int8 matrix dict `w` = q / bq and the embedding `w` = q /
 scale, in float32 by division (the JAX provider's `w_q / bq`; a
 reciprocal multiply can round differently), once per params, about four

@@ -43,7 +43,6 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from slimt_tpu_torch.io.params import add_dequantized
 from slimt_tpu_torch.models import loop_graph
 from slimt_tpu_torch.models import transformer as tfm
 from slimt_tpu_torch.models.decode import (
@@ -320,8 +319,6 @@ class ContinuousEngine:
         tfm.act_dtype(encoder_dtype)  # raises on a value that is not a dtype
         if provider not in PROVIDERS:
             raise ValueError(f"provider={provider!r} not in {PROVIDERS}")
-        if provider == "f32":
-            add_dequantized(params)
         if provider == "fused_step" and kv_dtype not in FUSED_STEP_POOL_CACHES:
             raise ValueError(f"fused_step reads the {FUSED_STEP_POOL_CACHES} caches, "
                              f"not {kv_dtype!r}")

@@ -33,9 +33,9 @@ argmax (transformer.output_argmax). Under provider "fused_step" each
 step is one call of the whole-step kernel (ops/decoder_step), whose
 argument block is built once per bucket over the loop's buffers; the
 argmax is then the exact first maximum. Under provider "f32" every
-product is an f32 product against the dequantized weights
-(io/params.add_dequantized, added to the params once where they lack
-them) and the argmax runs over f32 logits; `encoder_dtype` runs the
+product is an f32 product against the dequantized weights, which the
+params must carry (io/params.params_from_numpy(..., dequantize=True),
+as a Model loads them) and the argmax runs over f32 logits; `encoder_dtype` runs the
 encoder in float16 or bfloat16 (transformer.act_dtype).
 
 The host reads the flag once every `check_every` steps, rounded up to
@@ -54,7 +54,6 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from slimt_tpu_torch.io.params import add_dequantized
 from slimt_tpu_torch.models import loop_graph
 from slimt_tpu_torch.models import transformer as tfm
 from slimt_tpu_torch.ops import decoder_step as dstep
@@ -348,8 +347,6 @@ def greedy_decode(
     # only (it returns no attention weights), as in the JAX package.
     attn_kernel = bool(attn_kernel) and not with_alignment and (
         kv_dtype == "int16") and provider != "fused_step"
-    if provider == "f32":
-        add_dequantized(params)
     kv_caches = tfm.precompute_cross_kv(
         params, encoder_out, num_heads, cache_dtype(provider, kv_dtype),
         None if provider == "fused_step" else provider)
@@ -417,8 +414,6 @@ def translate_batch(
     `encoder_dtype` ("float16"/"bfloat16") runs the embedding and the
     encoder in that dtype. `loop_unroll`, `graphs` and `_eager` go to
     greedy_decode."""
-    if provider == "f32":
-        add_dequantized(params)
     act = tfm.act_dtype(encoder_dtype)
     word_embedding = tfm.transform_embedding(tfm.embed(params, indices, act))
     mask_add = tfm.make_additive_mask(mask)

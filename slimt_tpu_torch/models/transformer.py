@@ -13,7 +13,8 @@ SSRU decoder and the greedy argmax over the (optionally shortlisted)
 tied projection (`packed_int`, or the argmax kernel's
 exact/packed_fp16/packed_bf16, ops/logits_argmax). Under the `f32`
 provider every int8 product is an f32 product against the dequantized
-weights of io/params.add_dequantized, and the argmax runs over the f32
+weights that io/params.params_from_numpy(..., dequantize=True) loads,
+and the argmax runs over the f32
 logits (qmm.affine_f32; no int8 kernel). `act_dtype` (ModelConfig.
 encoder_dtype) runs the split encoder's residual stream and SDPA
 operands in float16 or bfloat16, with the JAX package's rounding
@@ -136,8 +137,8 @@ def _affine(p: dict, x: torch.Tensor, relu: bool = False, provider: Optional[str
     x = x.to(torch.float32)
     if provider == "f32":
         if "w" not in p:
-            raise ValueError("provider 'f32' needs the dequantized weights: "
-                             "io/params.add_dequantized(params)")
+            raise ValueError("provider 'f32' needs the dequantized weights: load the "
+                             "params with io.params.params_from_numpy(..., dequantize=True)")
         y = qmm.affine_f32(x, p["w"], p.get("b"), relu=relu)
     else:
         y = qmm.affine(x, p["q"], p.get("b"), p["aq"], p["inv"], relu=relu)
@@ -620,9 +621,7 @@ def output_argmax(
     accumulator units, compared as packed integer keys. Every other
     case goes to the argmax kernel (ops/logits_argmax), whose index is
     the JAX package's XLA argmax: "packed_fp16"/"packed_bf16" up to
-    65536 columns, else the exact first maximum; at an E its tiles do
-    not hold (logits_argmax.EMB_DIMS) the int8 logits of ops/qmm and the
-    same argmax over them. So "fused" with
+    65536 columns, else the exact first maximum. So "fused" with
     "packed_int" takes the exact argmax, as in the JAX package
     (transformer.py:1035, :1051-1057). `packed_bias` is packed_int_bias
     of the projection's bias, where the caller has it."""
@@ -644,12 +643,4 @@ def output_argmax(
         return packed_int_argmax(acc, packed_bias, width_bits, shift)
     if method not in logits_argmax.PACKED_DTYPES or w.shape[1] > logits_argmax.MAX_PACKED_WIDTH:
         method = "exact"
-    if w.shape[0] not in logits_argmax.EMB_DIMS:
-        # A width the kernel's tiles do not hold: the int8 logits through
-        # ops/qmm, then the method's argmax over them (the kernel's plain
-        # version, as the JAX package's XLA path computes it).
-        logits = qmm.affine(x, w, b, aq, output_inv(params))
-        if method == "exact":
-            return first_max(logits)
-        return packed_argmax_16(logits, logits_argmax.PACKED_DTYPES[method])
     return logits_argmax.argmax_affine(x, w, b, aq, output_inv(params), method)

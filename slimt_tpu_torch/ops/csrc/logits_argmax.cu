@@ -38,8 +38,12 @@
 //      staged once for them (B = 512: 33 blocks a row tile of 64). The keys
 //      then meet over the quad by shuffles and over the warps in shared
 //      memory (one barrier), and the block writes one key per row. Any
-//      other W layout takes a block of 256 columns (a thread each, bytes
-//      gathered down the column, __dp4a) and 16 rows, with the same keys;
+//      other W layout, and any E that is not a multiple of 64 up to 512
+//      (the crosscheck cells' 32, say), takes a block of 256 columns (a
+//      thread each, bytes gathered down the column, __dp4a) and 16 rows,
+//      the rows quantized into shared memory at a pitch of E rounded up to
+//      4 bytes, zero past E, with the same keys. E may be anything up to
+//      kMaxEmb, as the TPU kernel takes the whole of K as one block;
 //   2. pick: a warp per row takes the max of its blocks' keys.
 //
 // Bounds on the H100. At B <= 64 one step reads W once: E * S bytes (8.2
@@ -65,7 +69,8 @@ namespace {
 using Key = unsigned long long;
 
 constexpr int kGatherRows = 16;  // rows of a block of the strided path
-constexpr int kMaxEmb = 512;
+constexpr int kMaxMmaEmb = 512;  // E of the tensor-core path (its rows in shared memory)
+constexpr int kMaxEmb = 2048;    // E of the strided path: 16 rows of 2 KB in shared memory
 constexpr int kNt = 2;  // n8 tiles of a warp's columns
 constexpr int kTileCols = 8 * kNt * kWarps;  // 128 columns a projection tile
 
@@ -282,18 +287,26 @@ __global__ void __launch_bounds__(kThreads) mma_project_kernel(const __grid_cons
   write_tile(a, best, kRows, row0, rows);
 }
 
-// Any other W layout: block blockIdx.x takes kThreads columns, a thread
-// each, and kGatherRows rows; W's bytes are gathered down the column.
+// Any other W layout or E: block blockIdx.x takes kThreads columns, a
+// thread each, and kGatherRows rows; W's bytes are gathered down the
+// column. xq (dynamic shared memory) holds the rows at `pitch` = E
+// rounded up to 4 bytes, zero past E and past the batch.
 __global__ void __launch_bounds__(kThreads) gather_project_kernel(const __grid_constant__ ArgmaxArgs a) {
-  __shared__ __align__(16) int8_t xq[kGatherRows * kMaxEmb];
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Key best[kWarps * kGatherRows];
   const int e = a.e;
+  const int pitch = (e + 3) & ~3;
+  int8_t* xq = reinterpret_cast<int8_t*>(smem);
   const int row0 = blockIdx.y * kGatherRows;
   const int rows = min(kGatherRows, a.b - row0);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  for (int i = threadIdx.x; i < rows * e; i += kThreads)
-    xq[i] = quant8(a.y[static_cast<long long>(row0) * e + i], a.aq);
+  for (int i = threadIdx.x; i < kGatherRows * pitch; i += kThreads) {
+    const int r = i / pitch;
+    const int k = i % pitch;
+    xq[i] = r < rows && k < e ? quant8(a.y[static_cast<long long>(row0 + r) * e + k], a.aq)
+                              : static_cast<int8_t>(0);
+  }
   __syncthreads();
 
   const int n = blockIdx.x * kThreads + threadIdx.x;
@@ -306,13 +319,14 @@ __global__ void __launch_bounds__(kThreads) gather_project_kernel(const __grid_c
       unsigned packed = 0;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const unsigned byte = static_cast<uint8_t>(col[(k0 + j) * a.sk]);
+        const unsigned byte =
+            k0 + j < e ? static_cast<uint8_t>(col[(k0 + j) * a.sk]) : 0u;
         packed |= byte << (8 * j);
       }
 #pragma unroll
       for (int r = 0; r < kGatherRows; ++r) {
         if (r < rows) {
-          const int xw = reinterpret_cast<const int*>(xq + r * e)[k0 / 4];
+          const int xw = reinterpret_cast<const int*>(xq + r * pitch)[k0 / 4];
           acc[r] = __dp4a(xw, static_cast<int>(packed), acc[r]);
         }
       }
@@ -394,14 +408,14 @@ int launch_argmax(const float* y, const int8_t* w, const float* bias, int* choic
                   void* part, int b, int e, int s, long long sk, long long sn, float aq,
                   float inv, int mode, cudaStream_t stream) {
   if (b <= 0 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (e <= 0 || e % 16 || e > kMaxEmb) return static_cast<int>(cudaErrorInvalidValue);
+  if (e <= 0 || e > kMaxEmb) return static_cast<int>(cudaErrorInvalidValue);
   if (mode != kArgmaxExact && mode != kArgmaxFp16 && mode != kArgmaxBf16)
     return static_cast<int>(cudaErrorInvalidValue);
   if (mode != kArgmaxExact && s > 65536) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(part) % sizeof(Key)) return static_cast<int>(cudaErrorInvalidValue);
   ArgmaxArgs a = {y, w, bias, static_cast<Key*>(part), b, e, s, sk, sn, aq, inv, mode, 0,
                   reinterpret_cast<uintptr_t>(y) % 16 == 0};
-  const bool columns = sk == 1 && sn % 16 == 0 && e % 64 == 0 &&
+  const bool columns = sk == 1 && sn % 16 == 0 && e % 64 == 0 && e <= kMaxMmaEmb &&
                        reinterpret_cast<uintptr_t>(w) % 16 == 0;
   int rc;
   if (columns) {
@@ -415,7 +429,8 @@ int launch_argmax(const float* y, const int8_t* w, const float* bias, int* choic
   } else {
     a.groups = (s + kThreads - 1) / kThreads;
     const dim3 grid(a.groups, (b + kGatherRows - 1) / kGatherRows);
-    gather_project_kernel<<<grid, kThreads, 0, stream>>>(a);
+    const size_t smem = static_cast<size_t>(kGatherRows) * ((e + 3) & ~3);
+    gather_project_kernel<<<grid, kThreads, smem, stream>>>(a);
     rc = static_cast<int>(cudaGetLastError());
   }
   if (rc) return rc;

@@ -22,12 +22,15 @@ import numpy as np
 import torch
 
 from slimt_tpu_torch.ops import _build, launches, qmm
-from slimt_tpu_torch.ops.fused_blocks import EMB_DIMS
 
 # Methods of the kernel, in csrc/slimt_kernels.cuh's ArgmaxMode order.
 METHODS = ("exact", "packed_fp16", "packed_bf16")
 PACKED_DTYPES = {"packed_fp16": torch.float16, "packed_bf16": torch.bfloat16}
 MAX_PACKED_WIDTH = 65536  # the reversed column needs 16 bits
+# E the kernel takes (csrc/logits_argmax.cu's kMaxEmb: 16 rows of y in
+# shared memory); like the TPU kernel, which takes the whole of K as one
+# block, it has no other gate on E.
+MAX_EMB = 2048
 
 
 def first_max(logits: torch.Tensor) -> torch.Tensor:
@@ -80,8 +83,8 @@ def _check(y, w, b, method: str) -> None:
     rows, e = y.shape
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
-    if e not in EMB_DIMS:
-        raise ValueError(f"E={e} not in {EMB_DIMS}")
+    if not 0 < e <= MAX_EMB:
+        raise ValueError(f"E={e} outside the kernel's range 1..{MAX_EMB}")
     if not y.is_cuda or y.dtype != torch.float32 or not y.is_contiguous():
         raise ValueError("y must be a contiguous float32 CUDA tensor")
     if w.dtype != torch.int8 or w.dim() != 2 or w.shape[0] != e:

@@ -13,8 +13,8 @@ csrc/qmm_affine.cu (it replaces qmm_pallas._affine_kernel) or raises;
 on a CPU tensor it runs the plain version below. The `f32` provider
 (`affine_f32`) is the JAX package's reference-numerics path, which that
 package computes with jnp.dot outside any Pallas kernel: an f32
-product against the weights dequantized once by
-io/params.add_dequantized, by torch.matmul, with TF32 off on the card
+product against the weights dequantized once at load
+(io/params.params_from_numpy), by torch.matmul, with TF32 off on the card
 (device.py). `w_q` may be any strided int8 [K, N] view: the tied output
 projection passes the [V, E] embedding's transpose without a copy.
 """
@@ -136,7 +136,7 @@ def int8_matmul(x, w_q, aq) -> torch.Tensor:
 
 def affine_f32(x, w, b=None, relu: bool = False) -> torch.Tensor:
     """The "f32" provider's affine: x @ w [+ b] [relu] in f32, w [K, N]
-    the dequantized weight w_q / bq (io/params.add_dequantized)."""
+    the dequantized weight w_q / bq (io/params.params_from_numpy)."""
     y = torch.matmul(x.to(torch.float32), w)
     if b is not None:
         y = y + b

@@ -7,6 +7,8 @@ port's own contracts (admit drops padding ids, make_pool's caches, the
 refusals).
 """
 
+import copy
+
 import numpy as np
 import pytest
 
@@ -21,7 +23,7 @@ from slimt_tpu.io.loader import load_weights  # noqa: E402
 from slimt_tpu.io.synthetic import synthetic_model_bytes  # noqa: E402
 from slimt_tpu.models import continuous as jcont  # noqa: E402
 from slimt_tpu.models import decode as jdecode  # noqa: E402
-from slimt_tpu_torch.io.params import params_from_numpy  # noqa: E402
+from slimt_tpu_torch.io.params import add_dequantized, params_from_numpy  # noqa: E402
 from slimt_tpu_torch.models import continuous as cont  # noqa: E402
 
 CONFIG = ModelConfig(encoder_layers=2, decoder_layers=2, num_heads=4)
@@ -199,11 +201,14 @@ def test_refusals(weights):
     XLA's fused CPU code skips half-precision roundings the JAX functions
     make); a fused_step pool cache it cannot read and an unknown admission
     order still raise."""
-    _, tp = weights
+    jp, tp = weights
     kw = dict(eos_id=1, num_heads=CONFIG.num_heads, slots=2, chunk=2, t_slot=8)
     segments = segments_fixture(n=3, seed=21)
-    for change in ({"encoder_dtype": "bfloat16"}, {"provider": "f32"}):
-        want_engine, engine = _engines(weights, eos_id=1, slots=2, chunk=2, **change)
+    # "f32" multiplies by the dequantized weights, which its params carry.
+    dequantized = (jp, add_dequantized(copy.deepcopy(tp)))
+    for change, pair in (({"encoder_dtype": "bfloat16"}, weights),
+                         ({"provider": "f32"}, dequantized)):
+        want_engine, engine = _engines(pair, eos_id=1, slots=2, chunk=2, **change)
         with jax.disable_jit():
             want = want_engine.translate(segments)
         assert engine.translate(segments) == want

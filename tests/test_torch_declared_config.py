@@ -4,7 +4,8 @@ slimt_tpu_torch.crosscheck serving`, run on the card): the port's
 ModelConfig declares the JAX package's serving config, the committed
 card sweep holds that config's full-stack row at the stated >= 99.0%
 bar of tokens and sentences, the exact row at the sweep's own 98% gate,
-and the file names the card it ran on."""
+and the file names the card it ran on, the port's sources and where the
+reference's tokens came from."""
 
 import dataclasses
 import json
@@ -12,7 +13,13 @@ import os
 
 from slimt_tpu.config import ModelConfig as JaxModelConfig
 from slimt_tpu_torch.config import ModelConfig
-from slimt_tpu_torch.crosscheck import CELLS, PEAKED_CELL, SERVING_CONFIGS, SERVING_OUT
+from slimt_tpu_torch.crosscheck import (
+    CELLS,
+    PEAKED_CELL,
+    SERVING_CONFIGS,
+    SERVING_OUT,
+    source_digest,
+)
 from slimt_tpu_torch.models.model import FLASH_AUTO_CROSSOVER_T, resolve_flash
 
 JAX_TABLE = os.path.join(os.path.dirname(SERVING_OUT), "serving_agreement.json")
@@ -54,6 +61,20 @@ def test_card_sweep_names_its_device_and_covers_every_row():
         assert len(row["cells"]) == legs, label
         assert row["sentences"] == 2 * len(CELLS) * 256, label
         assert [c["cell"] for c in row["cells"]].count(PEAKED_CELL[0]) == 1
+
+
+def test_card_sweep_names_its_sources_and_reference():
+    """The sweep records the digest of the port's sources it ran (as
+    source_digest computes it: 64 hex digits, the same on every call)
+    and whether the reference's tokens came from the harness or from the
+    recorded file."""
+    report = _table()
+    digest = report["port_source_sha256"]
+    assert len(digest) == 64 and int(digest, 16) >= 0
+    assert source_digest() == source_digest()
+    reference = report["reference_tokens"]
+    assert reference == "harness" or reference.startswith(
+        "recorded: crosscheck/reference_tokens.json (sha256 ")
 
 
 def test_model_config_defaults_match_the_jax_package():

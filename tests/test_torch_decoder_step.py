@@ -10,6 +10,7 @@ head-0 attention within 1e-6 (max |diff|; the two sides sum in
 different orders); alignments within 1e-5.
 """
 
+import copy
 import dataclasses
 import os
 import sys
@@ -32,7 +33,7 @@ from slimt_tpu.models.model import Model as JaxModel  # noqa: E402
 from slimt_tpu.ops import decoder_step_pallas as jdsp  # noqa: E402
 from slimt_tpu.runtime.service import Blocking  # noqa: E402
 from slimt_tpu_torch import Model, Package  # noqa: E402
-from slimt_tpu_torch.io.params import params_from_numpy  # noqa: E402
+from slimt_tpu_torch.io.params import add_dequantized, params_from_numpy  # noqa: E402
 from slimt_tpu_torch.models import decode  # noqa: E402
 from slimt_tpu_torch.models import transformer as tfm  # noqa: E402
 from slimt_tpu_torch.ops import _build  # noqa: E402
@@ -207,10 +208,13 @@ def test_fused_step_coerces_reduced_kv(weights):
     [("fused_step", "bfloat16"), ("fused_step", "float32"), (None, "int8"),
      ("f32", "int16")],
 )
-def test_unported_decode_options_raise(weights, provider, kv_dtype):
-    """Provider "f32", the float caches under fused_step and the int8
-    cache, which once raised, give the JAX package's tokens."""
+def test_once_unported_decode_options_match_jax(weights, provider, kv_dtype):
+    """Provider "f32" (on params loaded with its dequantized weights),
+    the float caches under fused_step and the int8 cache, which once
+    raised, give the JAX package's tokens."""
     jp, tp = weights
+    if provider == "f32":
+        tp = add_dequantized(copy.deepcopy(tp))
     indices, mask = _batch(seed=7, b=2)
     args = dict(eos_id=2, max_steps=4, num_heads=HEADS, provider=provider,
                 kv_dtype=kv_dtype)

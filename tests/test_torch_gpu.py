@@ -960,11 +960,11 @@ def test_decode_attention_forced_kernels_match_plain(card, kernel, b, t):
 LOOP_VOCAB = 700
 
 
-def _loop_params(card, seed=3, dec_layers=2):
+def _loop_params(card, seed=3, dec_layers=2, dequantize=False):
     config = ModelConfig(encoder_layers=1, decoder_layers=dec_layers, num_heads=8)
     host = load_weights(load_items(synthetic_model_bytes(
         config=config, vocab_size=LOOP_VOCAB, emb_dim=256, ffn_dim=1536, seed=seed)), config)
-    return params_from_numpy(host, card)
+    return params_from_numpy(host, card, dequantize=dequantize)
 
 
 def _loop_batch(card, b=5, t=16, seed=0):
@@ -1212,10 +1212,9 @@ def test_f32_provider_launches_no_int8_kernel(card, kv):
     eager loop, no int8 kernel launched (its products are f32 matmuls
     against the dequantized weights), and >= 99% of the tokens equal to
     the CPU's f32 path (f32 sums in another order)."""
-    from slimt_tpu_torch.io.params import add_dequantized
     from slimt_tpu_torch.models.loop_graph import GraphCache
 
-    params = add_dequantized(_loop_params(card))
+    params = _loop_params(card, dequantize=True)
     ids, mask = _loop_batch(card)
     kwargs = dict(provider="f32", kv_dtype=kv, fused_layer=True, fused_sdpa=False)
     before = _launches(INT8_COUNTERS)
@@ -1224,7 +1223,7 @@ def test_f32_provider_launches_no_int8_kernel(card, kv):
     torch.cuda.synchronize()
     assert _launches(INT8_COUNTERS) == before
     assert _same(got, eager)
-    cpu = _decode(add_dequantized(_loop_params("cpu")), ids.cpu(), mask.cpu(), **kwargs)
+    cpu = _decode(_loop_params("cpu", dequantize=True), ids.cpu(), mask.cpu(), **kwargs)
     equal = (got.tokens.cpu() == cpu.tokens) & cpu.valid
     assert int(equal.sum()) >= 0.99 * int(cpu.valid.sum())
 
@@ -1260,26 +1259,40 @@ def test_half_encoder_on_the_card(card, dtype):
     assert _same(got, eager)
 
 
+@pytest.mark.parametrize("emb", [32, 40, 64])
 @pytest.mark.parametrize("method", ["exact", "packed_fp16"])
-def test_argmax_at_a_narrow_width_on_the_card(card, method):
-    """At E=64 (the crosscheck cells' width; the argmax kernel's tiles
-    hold 256 and 512) the greedy argmax runs over #1's int8 logits: no
-    argmax kernel launch, the graph loop bit-equal to the eager loop, the
-    real rows decoding."""
+def test_argmax_at_a_narrow_width_on_the_card(card, method, emb):
+    """At the crosscheck cells' widths (32, 64) and one that is not a
+    multiple of 16, the argmax kernel is bit-equal to its plain version
+    in every method (full vocabulary and a shortlist, B in 1, 8, 33), and
+    the greedy loop launches it: the graph loop bit-equal to the eager
+    loop, the real rows decoding."""
     from slimt_tpu_torch.models.loop_graph import GraphCache
 
     config = ModelConfig(encoder_layers=2, decoder_layers=2, num_heads=4)
     host = load_weights(load_items(synthetic_model_bytes(
-        config=config, vocab_size=512, emb_dim=64, ffn_dim=128, seed=0)), config)
+        config=config, vocab_size=512, emb_dim=emb, ffn_dim=128, seed=0)), config)
+    params = params_from_numpy(host, card)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(emb)
+    ids = torch.randperm(512, device=card, generator=gen)[:200].sort().values
+    aq, inv = params["out"]["aq"], tfm.output_inv(params)
+    for w, b in (tfm.prepare_output_projection(params),
+                 tfm.prepare_output_projection(params, ids)):
+        for rows in (1, 8, 33):
+            y = torch.randn((rows, emb), device=card, generator=gen) * 2.0
+            for m in logits_argmax.METHODS:
+                got = logits_argmax.argmax_affine_kernel(y, w, b, aq, inv, m)
+                want = logits_argmax.argmax_affine_plain(y, w, b, aq, inv, m)
+                assert torch.equal(got, want), (m, rows, tuple(w.shape))
     ids, mask = _loop_batch(card)
     ids = ids % 512
     kwargs = dict(num_heads=4, kv_dtype="float32", argmax_method=method, fused_layer=True)
     before = logits_argmax.argmax_affine_kernel.launches
-    params = params_from_numpy(host, card)
     eager = _decode(params, ids, mask, _eager=True, **kwargs)
     got = _decode(params, ids, mask, graphs=GraphCache(), **kwargs)
     torch.cuda.synchronize()
-    assert logits_argmax.argmax_affine_kernel.launches == before
+    assert logits_argmax.argmax_affine_kernel.launches > before
     assert _same(got, eager)
     assert bool(got.valid[:-1].any(-1).all()) and not got.valid[-1].any()
 

@@ -131,7 +131,7 @@ def test_default_device_is_the_card():
         {"kv_cache_dtype": "k8v16"},
     ],
 )
-def test_unported_config_raises(change):
+def test_once_unported_configs_serve_the_jax_tokens(change):
     """Every value here once raised: qmm_provider="f32", encoder_dtype and
     the kv_cache_dtypes now serve with the JAX Model's tokens. The
     encoder_dtype cases hold the port to the JAX Model run op by op

@@ -403,11 +403,12 @@ def test_continuous_engine_matches_jax(weights, op_by_op, knob):
 
 
 @pytest.mark.parametrize("method", ["exact", "packed_fp16", "packed_bf16", "packed_int"])
-def test_argmax_at_a_width_the_kernel_does_not_hold(weights, monkeypatch, method):
-    """output_argmax at E=32 (the argmax kernel's tiles hold E in 256 and
-    512) takes the int8 logits of ops/qmm and the method's argmax, equal
-    to the kernel's plain version, and never calls the kernel's wrapper
-    (on the card it raises at such a width); at E=256 the wrapper runs."""
+def test_argmax_kernel_takes_the_narrow_width(weights, monkeypatch, method):
+    """output_argmax at E=32 (the crosscheck cells' width) sends every
+    method but packed_int to the argmax kernel's wrapper, as at E=256, and
+    the index is the kernel's plain version's; the kernel's gate takes any
+    E up to logits_argmax.MAX_EMB (past the gate on E, a CPU tensor fails
+    only the device check)."""
     from slimt_tpu_torch.ops import logits_argmax
 
     _, tp = weights
@@ -419,14 +420,37 @@ def test_argmax_at_a_width_the_kernel_does_not_hold(weights, monkeypatch, method
     monkeypatch.setattr(logits_argmax, "argmax_affine",
                         lambda *a, **k: calls.append(a) or real(*a, **k))
     got = tfm.output_argmax(tp, x, None, (w, b), method)
-    assert not calls
+    assert len(calls) == (method != "packed_int")
     if method != "packed_int":
         want = logits_argmax.argmax_affine_plain(x, w, b, tp["out"]["aq"], tfm.output_inv(tp),
                                                  method)
         assert torch.equal(got, want)
-        wide = ModelConfig(encoder_layers=1, decoder_layers=1, num_heads=4)
-        host = load_weights(load_items(synthetic_model_bytes(
-            config=wide, vocab_size=VOCAB, emb_dim=256, ffn_dim=FFN, seed=3)), wide)
-        wp = params_from_numpy(host, "cpu")
-        tfm.output_argmax(wp, x.repeat(1, 8), None, None, method)
-        assert len(calls) == 1
+        for emb in (EMB, 40, 64, logits_argmax.MAX_EMB):
+            y = torch.zeros((2, emb))
+            ww = torch.zeros((emb, 8), dtype=torch.int8)
+            with pytest.raises(ValueError, match="CUDA tensor"):
+                logits_argmax.argmax_affine_kernel(y, ww, torch.zeros(8), 1.0, 1.0, method)
+        with pytest.raises(ValueError, match="range"):
+            logits_argmax.argmax_affine_kernel(
+                torch.zeros((2, logits_argmax.MAX_EMB + 1)),
+                torch.zeros((logits_argmax.MAX_EMB + 1, 8), dtype=torch.int8),
+                torch.zeros(8), 1.0, 1.0, method)
+
+
+def test_f32_needs_the_dequantized_weights():
+    """Under "f32" nothing downstream of the loader dequantizes: params
+    loaded without them raise, naming the loader's switch, in
+    translate_batch and in ContinuousEngine."""
+    host = load_weights(load_items(synthetic_model_bytes(
+        config=CONFIG, vocab_size=VOCAB, emb_dim=EMB, ffn_dim=FFN, seed=3)), CONFIG)
+    params = params_from_numpy(host, "cpu")
+    indices = torch.tensor([[5, 9, 4, 2]], dtype=torch.int32)
+    mask = torch.ones((1, 4))
+    with pytest.raises(ValueError, match="dequantize=True"):
+        decode.translate_batch(params, indices, mask, eos_id=2, max_steps=4,
+                               num_heads=HEADS, provider="f32")
+    engine = cont.ContinuousEngine(params, eos_id=1, num_heads=HEADS, slots=2, chunk=2,
+                                   t_slot=8, provider="f32")
+    with pytest.raises(ValueError, match="dequantize=True"):
+        engine.translate([[5, 9, 4]])
+    assert dequantized_bytes(params) == 0
