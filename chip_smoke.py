@@ -31,7 +31,9 @@ without printing a result:
              packed_bf16; a tie across vocab tiles at two row-tile
              heights, a partial last tile of negative logits), at tiny
              and base widths and at E in (32, 40, 64) (the crosscheck
-             cells' widths, and one that is no multiple of 16); the split encoder's fused SDPA within
+             cells' widths, and one that is no multiple of 16); #5, #6
+             and #7 at WIDTH_CASES (E 32, 40, 64, 256, 512; F 64-2048,
+             and 80) as at tiny and base widths (the widths phase); the split encoder's fused SDPA within
              2e-5 at B in (1, 33, 512), T in (16, 17, 64, 100, 256), E in
              (256, 512), and its blockwise attention within 2e-5 abs + 1e-5
              rel at T in (272, 1000, 1024, 2048) (ragged pads), padding
@@ -104,12 +106,14 @@ without printing a result:
              text, no JAX among its imports), TranslationServer behind
              make_httpd (/health, /health/devices, /translate with a text
              and with 40 texts on the bulk lane, /submit and /job,
-             /stats) and the C ABI (built with g++, loaded with ctypes,
-             slimt_translate); every answer equal to the port's Blocking
-             or Async answer for the same Model on the card, the launch
-             counts reset before each door and qmm_affine and
-             encoder_layer launched in each; each door's first and warm
-             wall beside the card's name and power limit;
+             /stats), the C ABI (built with g++, loaded with ctypes,
+             slimt_translate) and the JNI layer (its fake-JVM host, a
+             process of its own, against the C ABI's object table); every
+             answer equal to the port's Blocking or Async answer for the
+             same Model on the card, the launch counts reset before each
+             in-process door and qmm_affine and encoder_layer launched in
+             each; each door's first and warm wall beside the card's name
+             and power limit;
 8. knobs   — qmm_provider "f32" and encoder_dtype float16 and bfloat16
              on the declared config through Model on the card (graph
              loop): the launch counts reset before each knob and read
@@ -125,7 +129,17 @@ without printing a result:
              kv=bfloat16 rows against the reference harness's tokens
              (recorded in crosscheck/reference_tokens.json where the
              harness cannot start): the exact row must keep >= 98% of
-             sentences;
+             sentences; then `parity providers` and `parity matrix` on
+             the card (exit 0; providers launches #5, #6 and #7 at E=64),
+             the crosscheck bleu leg at E=256 F=1536 (the tiny preset,
+             128 lines of data/corpus.txt, against the reference CLI's
+             lines recorded in crosscheck/reference_cli.json: the exact
+             path keeps >= 98% of lines, #1, #2 and #4 launch) and one
+             fused_step forward under utils.trace, whose Chrome trace
+             must name #1's, #2's (#8's attention_kernel among them) and
+             #7's kernels, in a process of its own (a trace lacking the
+             kernel of a launch is printed and taken again in a new
+             process, up to TRACE_PROCESSES times);
 9. check   — outputs well formed; CUDA tokens against the plain CPU
              path (>= 99% equal and none stopping short of the other;
              on the long path's arrays and the bfloat16 and int8 kv
@@ -173,6 +187,13 @@ each knob), the last line {"ok": true, "device": {...}}.
 line and the B=64 and B=512 T=64 forward lines of the graph loop at k
 in UNROLL_SWEEP on the declared, fused_step and fused paths.
 
+`python3 chip_smoke.py --trace-sessions N` runs no check: N traced
+fused_step forwards at E=256 F=1536 with utils.TRACE_PAD_S at 0, then N
+as committed, and for each the sessions whose trace lacks a launched
+kernel.
+`python3 chip_smoke.py --trace-once ROOT` is the trace phase's child:
+one traced forward of the package in ROOT, printed as one JSON line.
+
 `python3 chip_smoke.py --layouts OUT [KERNEL ...]` runs no check: it
 times #7 (the whole step, T=64, full vocabulary), #5 (the FFN block),
 #10 (split float32 cache, T=64) and #6 (the SSRU block) at B in
@@ -197,10 +218,13 @@ import contextlib
 import dataclasses
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -492,7 +516,7 @@ def check_layer(torch, enc, dev, load_host, params_from_numpy):
     return worst, timing
 
 
-def step_case(torch, tfm, params, gen, b, t, width):
+def step_case(torch, tfm, params, gen, b, t, width, heads=HEADS):
     """Whole-step arguments on the card: random x, states and int16
     per-row caches; row 0 padded from t/2, the last row (b > 1) fully
     masked; the full projection, or a shortlist of `width` columns."""
@@ -521,7 +545,7 @@ def step_case(torch, tfm, params, gen, b, t, width):
     if width:
         shortlist = torch.randperm(vocab, device=dev, generator=gen)[:width].sort().values
     projection = tfm.prepare_output_projection(params, shortlist)
-    return (layers, states, x, mask_add, caches, HEADS, projection,
+    return (layers, states, x, mask_add, caches, heads, projection,
             params["out"]["aq"], tfm.output_inv(params))
 
 
@@ -944,6 +968,119 @@ def check_blocks(torch, fblocks, dev, load_host, params_from_numpy):
             raise RuntimeError(f"{name}: rows within {STEP_TOL} {within / n} "
                                f"< {AGREEMENT_MIN}")
     return worst, timing
+
+
+# (E, F, heads) of #5, #6 and #7 at the widths of the repo's own
+# configurations: the crosscheck and parity cells (E 32 and 64; F 64, 128
+# and 256), tiny11 and base; and E=40 F=80 (a head of 40), whose rows the
+# kernels stage at a pitch of 48 with zeros past 40.
+WIDTH_CASES = ((32, 64, 2), (40, 80, 1), (64, 128, 4), (64, 256, 8), (256, 1536, 8),
+               (512, 2048, 8))
+WIDTH_BATCHES = (1, 8, 64, 130)
+
+
+def check_widths(torch, fblocks, dstep, tfm, dev, load_host, params_from_numpy, name, smi):
+    """#5, #6 and #7 at every width of WIDTH_CASES against their plain
+    versions: states, attn0 and outputs within STEP_TOL on >= 99% of rows
+    and within FLIP_BOUND on all, >= 99% of the step's choices equal, the
+    chooser's cluster layout bit-equal to one block a tile; each wrapper's
+    `launches` counter, set to 0 at each width, must grow by the calls made
+    there; device ms (CUDA-graph replays) at B = 1 and 64."""
+    wrappers = {"ssru_block": fblocks.ssru_kernel, "ffn_block": fblocks.ffn_kernel,
+                "whole_decode_step": dstep.whole_step_kernel}
+    totals = dict.fromkeys(wrappers, 0)
+    for emb, ffn, heads in WIDTH_CASES:
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        calls = dict.fromkeys(wrappers, 0)
+        params = params_from_numpy(load_host(emb, ffn, 1, DEC, vocab=512), dev)
+        layer = params["decoder"][0]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(emb + ffn)
+        rows = {"ssru_block": [0, 0], "ffn_block": [0, 0], "whole_decode_step": [0, 0]}
+        worst = dict.fromkeys(rows, 0.0)
+        same = total = 0
+        label = f"E={emb} F={ffn}"
+        for b in WIDTH_BATCHES:
+            x = torch.randn((b, emb), device=dev, generator=gen) * 2.0
+            c = torch.randn((b, emb), device=dev, generator=gen)
+            h, c_t = fblocks.ssru_kernel(x, c, layer["rnn"])
+            one = fblocks.ssru_kernel(x, c, layer["rnn"], _cluster=1)
+            want_h, want_c = fblocks.ssru_plain(x, c, layer["rnn"])
+            y = fblocks.ffn_kernel(x, layer["ffn"])
+            y_one = fblocks.ffn_kernel(x, layer["ffn"], _cluster=1)
+            want_y = fblocks.ffn_plain(x, layer["ffn"])
+            calls["ssru_block"] += 2
+            calls["ffn_block"] += 2
+            errs = {"ssru_block": torch.maximum((h - want_h).abs().amax(-1),
+                                                (c_t - want_c).abs().amax(-1)),
+                    "ffn_block": (y - want_y).abs().amax(-1)}
+            if not (bit_equal((h, c_t), one) and torch.equal(y, y_one)):
+                raise RuntimeError(f"blocks {label} B={b}: the cluster layout is not "
+                                   "bit-equal to cs=1")
+            for t in (16, 64):
+                args = step_case(torch, tfm, params, gen, b, t, 0, heads)
+                choice, states, attn0 = dstep.whole_step_kernel(*args)
+                step_one = dstep.whole_step_kernel(*args, _cluster=1)
+                calls["whole_decode_step"] += 2
+                y_rows, want_states, want_attn0 = dstep.layers_plain(*args[:6])
+                want = dstep.argmax_affine_plain(y_rows, *args[6], args[7], args[8])
+                if not bit_equal((choice, *states, attn0),
+                                 (step_one[0], *step_one[1], step_one[2])):
+                    raise RuntimeError(f"whole step {label} B={b} T={t}: the cluster "
+                                       "layout is not bit-equal to cs=1")
+                err = (attn0 - want_attn0).abs().amax(-1)
+                for got, ref in zip(states, want_states):
+                    err = torch.maximum(err, (got - ref).abs().amax((1, 2)))
+                n, within, e = rows_check(f"whole step {label} B={b} T={t}", err,
+                                          STEP_TOL, FLIP_BOUND)
+                rows["whole_decode_step"][0] += n
+                rows["whole_decode_step"][1] += within
+                worst["whole_decode_step"] = max(worst["whole_decode_step"], e)
+                same += int((choice == want).sum())
+                total += b
+            for key, err in errs.items():
+                n, within, e = rows_check(f"{key} {label} B={b}", err, STEP_TOL, FLIP_BOUND)
+                rows[key][0] += n
+                rows[key][1] += within
+                worst[key] = max(worst[key], e)
+        torch.cuda.synchronize()
+        counted = {key: wrapper.launches for key, wrapper in wrappers.items()}
+        if counted != calls:
+            raise RuntimeError(f"widths {label}: the wrappers counted {counted} launches "
+                               f"for {calls} calls")
+        for key, n in counted.items():
+            totals[key] += n
+        times = {}
+        for b in (1, 64):
+            x = torch.randn((b, emb), device=dev, generator=gen)
+            c = torch.randn((b, emb), device=dev, generator=gen)
+            args = step_case(torch, tfm, params, gen, b, 64, 0, heads)
+            plan = dstep.StepPlan(args[0], args[4], args[3], heads, *args[6:])
+            for key, fn in (("ssru_block", lambda: fblocks.ssru_kernel(x, c, layer["rnn"])),
+                            ("ffn_block", lambda: fblocks.ffn_kernel(x, layer["ffn"])),
+                            ("whole_decode_step",
+                             lambda: dstep.whole_step_kernel(*args, plan=plan))):
+                fn()
+                times[f"{key} B={b}"] = round(graph_ms(torch, fn), 4)
+        for key, (n, within) in rows.items():
+            log(f"widths {key} {label}: {within}/{n} rows within {STEP_TOL}, max |diff| "
+                f"{worst[key]:.3g}")
+            if within / n < AGREEMENT_MIN:
+                raise RuntimeError(f"widths {key} {label}: rows within {STEP_TOL} "
+                                   f"{within / n} < {AGREEMENT_MIN}")
+        cs_step = dstep.step_layout(1, emb, ffn, heads, 64, 0, dev.index)[0]
+        log(f"widths {label} heads={heads}: whole step choices equal on {same}/{total} rows; "
+            f"cluster layouts bit-equal to cs=1; layouts at B=1: ssru cs="
+            f"{fblocks.ssru_layout(1, emb, dev.index)[0]}, ffn cs="
+            f"{fblocks.ffn_layout(1, emb, ffn, dev.index)[0]}, step cs={cs_step}; "
+            f"device ms (CUDA graph) {times} on {name} ({smi})")
+        if same / total < AGREEMENT_MIN:
+            raise RuntimeError(f"widths {label}: choices equal {same / total} "
+                               f"< {AGREEMENT_MIN}")
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    log(f"widths: launches counted by the wrappers in the checks {totals}")
 
 
 def check_attention(torch, dattn, dev):
@@ -1863,7 +2000,7 @@ def in_process_cli(argv, stdin=""):
 
     out = io.StringIO()
     saved = sys.stdin
-    sys.stdin = io.StringIO(stdin)
+    sys.stdin = io.StringIO(stdin, newline=None)  # universal newlines, as a child's
     try:
         with contextlib.redirect_stdout(out):
             code = cli.main(list(argv))
@@ -2109,6 +2246,323 @@ def front_doors(torch, counted, model_bytes, spm, shortlist, lines, name, smi):
         log(f"doors C ABI: slimt_translate of {len(texts)} texts equals bindings.Service on "
             f"the card")
         wall(f"C ABI slimt_translate ({len(texts)} texts)", *capi_walls)
+        jni_door(repo, root, texts, name, smi)
+
+
+def jni_door(repo, root, texts, name, smi):
+    """The JNI door: the port's JNI binding and fake-JVM host, built with
+    g++ into slimt_tpu_torch/build/, the host dlopening the binding with
+    RTLD_LOCAL as a JVM does, with no device field in its Config (the
+    card); its lines must equal the C ABI's object table for the same
+    spec on the card. The host is its own process: its launches are not
+    counted here."""
+    from slimt_tpu_torch import capi
+    from slimt_tpu_torch.config import preset
+    from slimt_tpu_torch.ops import _native_build
+
+    start = time.perf_counter()
+    library, host = _native_build.jni_library_path(), _native_build.jni_host_path()
+    log(f"doors JNI: built {library.name} and {host.name} in "
+        f"{time.perf_counter() - start:.2f} s")
+    config = preset.tiny()
+    layers = [str(v) for v in (config.encoder_layers, config.decoder_layers,
+                               config.feed_forward_depth, config.num_heads)]
+    env = dict(os.environ, SLIMT_TPU_TORCH_PYTHONPATH=repo)
+    env.pop("SLIMT_JNI_DEVICE", None)
+    start = time.perf_counter()
+    result = subprocess.run([str(host), str(library), root, *layers, *texts],
+                            capture_output=True, text=True, env=env, timeout=600)
+    seconds = time.perf_counter() - start
+    if result.returncode != 0:
+        raise RuntimeError(f"doors JNI: rc {result.returncode}\n{result.stderr[-3000:]}")
+    spec = {"preset": "tiny", "encoder_layers": config.encoder_layers,
+            "decoder_layers": config.decoder_layers,
+            "feed_forward_depth": config.feed_forward_depth, "num_heads": config.num_heads,
+            "split_mode": "sentence", "model": os.path.join(root, "model.bin"),
+            "vocabulary": os.path.join(root, "vocab.spm"),
+            "shortlist": os.path.join(root, "shortlist.bin")}
+    service = capi.service_create(1, 64)
+    model = capi.model_create(json.dumps(spec))
+    try:
+        if capi._get(model).device.type != "cuda":
+            raise RuntimeError(f"doors JNI: the C ABI's model is on {capi._get(model).device}")
+        want = capi.translate(service, model, texts)
+    finally:
+        capi.release(model)
+        capi.release(service)
+    if result.stdout.splitlines() != want:
+        raise RuntimeError(f"doors JNI: {result.stdout.splitlines()!r:.300} != {want!r:.300}")
+    log(f"doors JNI: Service.ntranslate of {len(texts)} texts through the fake JVM equals "
+        f"the C ABI's object table on the card; process wall {seconds:.3f} s (an embedded "
+        f"interpreter importing torch) on {name} ({smi})")
+
+
+# The parity phase's launch requirements: `providers` runs the fused and
+# fused_step providers (#5, #6, #7 at E=64); `matrix`, the exact
+# numerics, runs the int8 affine at E 32 and 64.
+PARITY_KERNELS = {"providers": ("qmm_affine", "ssru_block", "ffn_block", "whole_decode_step"),
+                  "matrix": ("qmm_affine",)}
+
+
+def parity_phase(torch, counters, reset, name, smi):
+    """`python -m slimt_tpu_torch.parity providers` and `matrix` on the
+    card, in this process (their default sizes), counts reset before
+    each: both must exit 0 and launch PARITY_KERNELS."""
+    import io
+
+    from slimt_tpu_torch import parity
+
+    for mode, kernels in PARITY_KERNELS.items():
+        reset()
+        start = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = parity.main([mode, "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = {key: counter.launches for key, counter in counters.items()}
+        for line in out.getvalue().splitlines():
+            log(f"parity {mode}: {line}")
+        log(f"parity {mode}: exit {code} in {time.perf_counter() - start:.1f} s; launches "
+            f"{counts} on {name} ({smi})")
+        missing = [key for key in kernels if not counts[key]]
+        if code != 0 or missing:
+            raise RuntimeError(f"parity {mode}: exit {code}, kernels never launched {missing}")
+
+
+def in_process_translate(argv, text):
+    """`python -m slimt_tpu_torch translate ARGV` in this process, for the
+    crosscheck modes: its launches count here."""
+    code, out = in_process_cli(["translate", *argv], text)
+    if code != 0:
+        raise RuntimeError(f"translate {argv}: exit code {code}")
+    return out
+
+
+BLEU_KERNELS = ("qmm_affine", "encoder_layer", "argmax_affine")
+
+
+def bleu_leg(torch, counters, reset, root, name, smi):
+    """`crosscheck bleu` at full width on the card: the tiny preset (6+2
+    layers, 8 heads) at E=256 F=1536 from `synth` (written to `root`), the
+    first 128 lines of data/corpus.txt through the declared serving
+    config and the exact path (in this process, so #2's launches count;
+    #8 runs inside each, the SDPA launch of #2's C entry), against the
+    reference CLI's lines recorded in crosscheck/reference_cli.json. The
+    exact path must keep crosscheck.BLEU_EXACT_MIN of lines, the reference
+    and both paths must give one line a source and all of them be scored;
+    where a line parts, its first differing word is printed. The tokenizer
+    backend is "native" inside the leg only."""
+    import types
+
+    from slimt_tpu_torch import crosscheck as cc
+
+    cc.synth_package(root, 256, 1536, prefixes=False)
+    args = types.SimpleNamespace(device="cuda", bleu_package=root, bleu_model="model.bin",
+                                 bleu_vocab="vocab.spm", bleu_source=None, bleu_reference=None,
+                                 bleu_lines=cc.BLEU_LINES)
+    with open(cc.CORPUS) as f:
+        text = "\n".join([line.rstrip("\n") for line in f if line.strip()][:cc.BLEU_LINES])
+    ref = cc.run_reference_cli(root, ["--model", "model.bin", "--vocabulary", "vocab.spm"],
+                               text)
+    outputs = {}  # the port's lines of each path: serving, then exact
+
+    def translate(argv, source):
+        out = in_process_translate(argv, source)
+        outputs["exact" if "--exact" in argv else "serving"] = out.splitlines()
+        return out
+
+    reset()
+    start = time.perf_counter()
+    with mock.patch.dict(os.environ, {"SLIMT_TPU_BATCH_BACKEND": "native"}):
+        report = cc.bleu_report(args, translate=translate)
+    torch.cuda.synchronize()
+    counts = {key: counter.launches for key, counter in counters.items()}
+    sizes = {"reference": len(ref), **{key: len(lines) for key, lines in outputs.items()}}
+    log(f"bleu E=256 F=1536: reference CLI {cc.reference_cli_source()}")
+    log(f"bleu E=256 F=1536: {json.dumps(report)} in {time.perf_counter() - start:.1f} s; "
+        f"lines {sizes} of {cc.BLEU_LINES} sources; exact-path lines equal to the reference "
+        f"CLI {report['line_exact_vs_reference_exact']} (gate {cc.BLEU_EXACT_MIN}); launches "
+        f"{counts}, #8 inside each of #2's {counts['encoder_layer']} on {name} ({smi})")
+    for i, (a, b) in enumerate(zip(ref, outputs.get("exact", []))):
+        if a != b:
+            k = next((j for j, (x, y) in enumerate(zip(a.split(), b.split())) if x != y),
+                     min(len(a.split()), len(b.split())))
+            log(f"bleu E=256 line {i} parts at word {k}: reference {a.split()[k:k + 3]} "
+                f"port {b.split()[k:k + 3]}")
+    if report["lines"] != cc.BLEU_LINES or set(sizes) != {"reference", "serving", "exact"} \
+            or set(sizes.values()) != {cc.BLEU_LINES}:
+        raise RuntimeError(f"bleu E=256: {report['lines']} lines scored, lines {sizes}, "
+                           f"{cc.BLEU_LINES} sources")
+    missing = [key for key in BLEU_KERNELS if not counts[key]]
+    if missing or report["line_exact_vs_reference_exact"] < cc.BLEU_EXACT_MIN:
+        raise RuntimeError(f"bleu E=256: kernels never launched {missing}, exact lines "
+                           f"{report['line_exact_vs_reference_exact']}")
+    return report
+
+
+# The wrappers the traced forward (fused_step at E=256) must launch, and
+# the kernel names the trace must hold for each: #1's, #2's three (its
+# SDPA is #8's attention_kernel) and #7's layers and projection kernels.
+TRACE_KERNELS = {"qmm_affine": ("affine",),
+                 "encoder_layer": ("qkv_kernel", "attention_kernel", "post_attention_kernel"),
+                 "whole_decode_step": ("layers_kernel", "project_kernel", "pick_kernel")}
+
+
+def trace_model(root):
+    """The bleu leg's package in `root` under the fused_step provider (few
+    kernels a step, so a trace stays small), and the segments of the
+    first 4 lines of data/corpus.txt."""
+    from slimt_tpu_torch import Model, Package
+    from slimt_tpu_torch.config import preset
+
+    config = dataclasses.replace(preset.tiny(), qmm_provider="fused_step")
+    model = Model(config, Package(os.path.join(root, "model.bin"),
+                                  os.path.join(root, "vocab.spm")))
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                           "corpus.txt")) as f:
+        lines = [line.strip() for line in f if line.strip()][:4]
+    return model, [model.vocabulary.encode(line, add_eos=True)[0] for line in lines]
+
+
+def traced_forward(torch, model, segments):
+    """One forward of `segments` under slimt_tpu_torch.utils.trace into a
+    temporary directory: the Chrome trace's events and its size in bytes."""
+    import glob
+
+    from slimt_tpu_torch.utils import trace
+
+    with tempfile.TemporaryDirectory(prefix="slimt_trace_") as out:
+        with trace("slimt_forward", out):
+            model.forward(segments, need_alignment=False)
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(out, "slimt_forward.*.pt.trace.json"))
+        if len(files) != 1:
+            raise RuntimeError(f"trace: {len(files)} trace files in {out}")
+        with open(files[0]) as f:
+            return json.load(f)["traceEvents"], os.path.getsize(files[0])
+
+
+def trace_gaps(events):
+    """The launches (runtime events, graph launches too) of which the trace
+    holds no kernel, each as (call, microseconds after the scope opened),
+    and the least microseconds from a launch to the first of its kernels
+    (below 0 where the profiler put the card's clock early)."""
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            key = e["args"].get("correlation")
+            kernels[key] = min(kernels.get(key, e["ts"]), e["ts"])
+    opened = min((e["ts"] for e in events if e.get("name") == "slimt_forward"), default=0.0)
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "Launch" in e.get("name", "")]
+    dropped = [(e["name"], round(e["ts"] - opened, 1)) for e in launches
+               if e["args"].get("correlation") not in kernels]
+    gaps = [kernels[e["args"]["correlation"]] - e["ts"] for e in launches
+            if e["args"].get("correlation") in kernels]
+    return dropped, round(min(gaps), 1) if gaps else None
+
+
+def trace_once(root: str) -> None:
+    """The --trace-once mode, the trace phase's child process: the warm
+    forward of trace_model(root), then one under utils.trace with the
+    wrappers' counts set to 0 before it; prints one JSON line of the
+    counts, the port's kernels the trace names, the launches it lacks a
+    kernel of and where they were."""
+    import collections
+
+    import torch
+
+    from slimt_tpu_torch.ops import _build
+    from slimt_tpu_torch.ops import decoder_step, encoder_layer, qmm
+
+    _build.library()
+    counters = {"qmm_affine": qmm.affine_kernel, "encoder_layer": encoder_layer.layer_kernel,
+                "whole_decode_step": decoder_step.whole_step_kernel}
+    model, segments = trace_model(root)
+    model.forward(segments, need_alignment=False)  # warm: the trace holds one forward
+    for counter in counters.values():
+        counter.launches = 0
+    start = time.perf_counter()
+    events, size = traced_forward(torch, model, segments)
+    seconds = time.perf_counter() - start
+    dropped, gap = trace_gaps(events)
+    offsets = [at for _, at in dropped]
+    print(json.dumps({
+        "lines": len(segments), "bytes": size, "events": len(events), "seconds": seconds,
+        "counts": {key: counter.launches for key, counter in counters.items()},
+        "named": dict(sorted(collections.Counter(
+            short_kernel(e["name"]) for e in events
+            if e.get("cat") == "kernel" and "slimt::" in e["name"]).items())),
+        "dropped": len(dropped), "calls": dict(collections.Counter(c for c, _ in dropped)),
+        "at_us": [min(offsets), max(offsets)] if offsets else None, "least_gap_us": gap}))
+
+
+# Fresh processes the trace phase may take to get a trace that holds a
+# kernel for every launch: a long-running process can lose the first
+# milliseconds of a trace's non-graph kernels in every session (PERF.md
+# §6, PR 13), and such a trace cannot show whether the port's kernels ran.
+TRACE_PROCESSES = 3
+
+
+def trace_phase(root, name, smi):
+    """One forward of the bleu leg's package (trace_model) under
+    slimt_tpu_torch.utils.trace, in a process of its own (trace_once):
+    the wrappers of TRACE_KERNELS must launch and the Chrome trace must
+    name their kernels. A trace lacking the kernel of any launch (printed
+    with where the launches were) is taken again in a new process, up to
+    TRACE_PROCESSES times."""
+    for attempt in range(1, TRACE_PROCESSES + 1):
+        start = time.perf_counter()
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--trace-once", root],
+                             capture_output=True, text=True, timeout=300)
+        if run.returncode != 0:
+            raise RuntimeError(f"trace: the traced process exited {run.returncode}: "
+                               f"{run.stderr[-2000:]}")
+        got = json.loads(run.stdout.strip().splitlines()[-1])
+        log(f"trace {attempt}: one fused_step forward of {got['lines']} lines under "
+            f"utils.trace in a new process ({time.perf_counter() - start:.1f} s) wrote "
+            f"{got['bytes']} bytes ({got['events']} events) in {got['seconds']:.1f} s; "
+            f"launches {got['counts']}; the port's kernels named {got['named']}; launches "
+            f"without a kernel in the trace {got['dropped']} {got['calls']} at "
+            f"{got['at_us']} us after the scope opened; least launch-to-kernel "
+            f"{got['least_gap_us']} us on {name} ({smi})")
+        if not got["dropped"]:
+            break
+    if got["dropped"]:
+        raise RuntimeError(f"trace: each of {TRACE_PROCESSES} traces lacks launched kernels")
+    missing = [key for key, n in got["counts"].items() if not n]
+    missing += [want for wants in TRACE_KERNELS.values() for want in wants
+                if not any(want in kernel for kernel in got["named"])]
+    if missing:
+        raise RuntimeError(f"trace: not launched or not named: {missing}")
+
+
+def trace_sessions(sessions: int) -> None:
+    """The --trace-sessions mode: `sessions` traced forwards (trace_model)
+    with utils.TRACE_PAD_S set to 0, then as committed; for each, the
+    sessions whose trace lacks a launched kernel, and each session's
+    dropped launches and least launch-to-kernel microseconds."""
+    import torch
+
+    name, smi = probe(torch)
+    from slimt_tpu_torch import crosscheck as cc
+    from slimt_tpu_torch import utils
+    from slimt_tpu_torch.ops import _build
+
+    _build.library()
+    committed = utils.TRACE_PAD_S
+    with tempfile.TemporaryDirectory(prefix="slimt_trace_") as root:
+        cc.synth_package(root, 256, 1536, prefixes=False)
+        model, segments = trace_model(root)
+        model.forward(segments, need_alignment=False)
+        for pad in (0.0, committed):
+            utils.TRACE_PAD_S = pad
+            got = [trace_gaps(traced_forward(torch, model, segments)[0])
+                   for _ in range(sessions)]
+            log(f"trace sessions, pad {pad} s: {sum(1 for d, _ in got if d)} of {sessions} "
+                f"lack a launched kernel; dropped {[len(d) for d, _ in got]}; least "
+                f"launch-to-kernel us {[g for _, g in got]} on {name} ({smi})")
+    utils.TRACE_PAD_S = committed
 
 
 LAYOUT_BATCHES = (1, 8, 64, 130, 200, 512)
@@ -2404,6 +2858,13 @@ def main() -> None:
     start = time.perf_counter()
     _build.library()
     log(f"build: {time.perf_counter() - start:.2f} s into {_build.BUILD_DIR}")
+    from slimt_tpu_torch import native
+
+    start = time.perf_counter()
+    if not native.available():
+        raise RuntimeError("the port's native host library did not load")
+    log(f"native host library: {native.library_path()} in "
+        f"{time.perf_counter() - start:.2f} s")
 
     def load_host(emb, ffn, enc_layers, dec_layers, vocab=64):
         config = ModelConfig(encoder_layers=enc_layers, decoder_layers=dec_layers)
@@ -2416,6 +2877,9 @@ def main() -> None:
     step_err, step_ms = check_step(torch, dstep, lam, tfm, qmm, dev, load_host,
                                    params_from_numpy)
     block_err, block_ms = check_blocks(torch, fblocks, dev, load_host, params_from_numpy)
+    start = time.perf_counter()
+    check_widths(torch, fblocks, dstep, tfm, dev, load_host, params_from_numpy, name, smi)
+    log(f"widths phase: {time.perf_counter() - start:.1f} s")
     attn_err, attn_ms = check_attention(torch, dattn, dev)
     widths = [params_from_numpy(load_host(emb, ffn, 1, DEC, vocab=VOCAB), dev)
               for emb, ffn in ((EMB, FFN), (512, 2048))]
@@ -2741,6 +3205,14 @@ def main() -> None:
     reference_cell(torch, counters, reset, name, smi)
     log(f"knobs phase: {time.perf_counter() - start:.1f} s")
 
+    # The parity phase, the full-width bleu leg and a traced forward.
+    start = time.perf_counter()
+    parity_phase(torch, counters, reset, name, smi)
+    with tempfile.TemporaryDirectory(prefix="slimt_bleu_") as root:
+        bleu_leg(torch, counters, reset, root, name, smi)
+        trace_phase(root, name, smi)
+    log(f"parity, bleu and trace phases: {time.perf_counter() - start:.1f} s")
+
     with torch.inference_mode():
         longctx(torch, tfm, paths["declared"].params, name, smi)
 
@@ -2810,6 +3282,10 @@ if __name__ == "__main__":
         layout_times(sys.argv[2], tuple(sys.argv[3:]) or LAYOUT_KERNELS)
     elif sys.argv[1:2] == ["--unroll"]:
         unroll_times()
+    elif sys.argv[1:2] == ["--trace-once"]:
+        trace_once(sys.argv[2])
+    elif sys.argv[1:2] == ["--trace-sessions"]:
+        trace_sessions(int(sys.argv[2]))
     else:
         main()
     sys.exit(0)

@@ -15,7 +15,7 @@ only by the sentence splitter, on first use.
 The JAX package's front doors are here too, on the card by default:
 `python -m slimt_tpu_torch translate --root pkg/` (and synth, convert,
 inspect, ls, download, serve, route), `slimt_tpu_torch.server`,
-`slimt_tpu_torch.runtime.router` and the C ABI (`native/`, `capi.py`).
+`slimt_tpu_torch.runtime.router` and the C ABI and the JNI layer (`slimt_tpu_torch/native/`, `capi.py`).
 """
 
 from slimt_tpu_torch.config import Config, ModelConfig, preset  # noqa: F401

@@ -38,28 +38,60 @@ Modes:
             where it parts, both choices, the plain CPU logit gap
             between them and whether the roundf oracle (see tokens)
             reproduces the reference.
+  split     the port's splitter (text/splitter.py) against the
+            reference's PCRE2 Splitter.cc (`slimt_ref_harness --split`)
+            over SPLIT_DOCS: per-document byte-range boundaries.
+  process   the port's TextProcessor (its native tokenizer, the port's
+            own host library) against the reference's
+            (`slimt_ref_harness --process`): segments and annotations.
+  e2e       the reference's whole CLI (crosscheck/bin/slimt_ref_cli)
+            against `python -m slimt_tpu_torch translate --exact
+            --device ...` on the same text and synthetic package: exact
+            string compare (HTML: tag skeleton and tokens where tags
+            move on an attention tie); the declared serving config
+            informational.
+  bleu      corpus BLEU (slimt_tpu_torch/bleu.py) of the reference CLI,
+            the port's serving config and its exact path on
+            --bleu-lines of data/corpus.txt (or --bleu-source), against
+            --bleu-reference or, without one, the reference CLI's own
+            output; exit status 1 below 98% of lines equal on the exact
+            path in that pseudo-reference mode.
+  record    writes RECORDED (the harness's legs) and RECORDED_CLI (the
+            reference CLI's lines for the e2e documents and the bleu
+            legs at BLEU_WIDTHS), where both start.
+
+split and process need the harness and exit 1, saying why, where it does
+not start. e2e and bleu read the reference CLI's lines from RECORDED_CLI
+where the CLI does not start (a machine without the libraries it links),
+and say so.
 
 Shortlist legs run with a zeroed logit bias: the reference's Ruy
 provider adds the unselected bias under a shortlist (see
 scripts/crosscheck.py's docstring).
 
 Usage:
-  python -m slimt_tpu_torch.crosscheck [tokens|serving|shortlist|partings]
+  python -m slimt_tpu_torch.crosscheck
+      [tokens|serving|shortlist|partings|split|process|e2e|bleu|record]
       [--lines N] [--device cuda|cpu] [--configs a,b] [--verbose]
+      [--bleu-package DIR --bleu-model F --bleu-vocab F --bleu-source F
+       --bleu-reference F --bleu-lines N]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import hashlib
 import importlib.util
+import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -71,6 +103,16 @@ SERVING_OUT = os.path.join(ROOT, "crosscheck", "serving_agreement_torch.json")
 # The reference's tokens for every leg the modes and chip_smoke.py run,
 # for machines where the harness cannot start (`record` writes it).
 RECORDED = os.path.join(ROOT, "crosscheck", "reference_tokens.json")
+REF_CLI = os.path.join(ROOT, "crosscheck", "bin", "slimt_ref_cli")
+# The reference CLI's output lines for the e2e documents and the bleu
+# legs, for machines where it cannot start (`record` writes it).
+RECORDED_CLI = os.path.join(ROOT, "crosscheck", "reference_cli.json")
+CORPUS = os.path.join(ROOT, "data", "corpus.txt")
+# (E, F) of the synthetic packages whose bleu legs `record` keeps: the
+# default, and the tiny preset at full width.
+BLEU_WIDTHS = ((64, 128), (256, 1536))
+BLEU_LINES = 128
+BLEU_EXACT_MIN = 0.98  # lines equal on the exact path (the JAX mode's gate)
 
 # (label, enc, dec, heads, emb, ffn, seed): scripts/crosscheck.py's.
 CELLS = [
@@ -749,6 +791,421 @@ def mode_partings(args) -> None:
                       flush=True)
 
 
+# scripts/crosscheck.py's adversarial splitter corpus: abbreviations,
+# NUMERIC_ONLY prefixes, CJK/Armenian stops, footnotes, quotes, ellipses,
+# mixed newlines, unicode whitespace.
+SPLIT_DOCS = [
+    "Hello world. This is a test. Short! Done?",
+    "Dr. Smith met Mr. Jones at 5 p.m. They talked. etc. And left.",
+    "No. 5 is here. No. Five is not. Art. 12 applies.",
+    "He said \u201cStop.\u201d Then left. She asked \u201cWhy?\u201d Nobody knew.",
+    "This is v2.0 of the spec. Versions 1.5.2 and 3.10 differ.",
+    "\u8fd9\u662f\u4e00\u4e2a\u53e5\u5b50\u3002\u8fd9\u662f\u53e6\u4e00\u4e2a\uff01"
+    "\u4f60\u597d\u5417\uff1f\u518d\u89c1\u3002",
+    "\u0531\u0575\u057d \u0574\u056b \u0576\u0561\u056d\u0561\u0564\u0561\u057d"
+    "\u0578\u0582\u0569\u0575\u0578\u0582\u0576 \u0567\u0589 \u0535\u0582 "
+    "\u0574\u0565\u056f \u0578\u0582\u0580\u056b\u0577\u0589",
+    "A claim was made [12]. Another claim [3, 4] followed. See refs.",
+    "Wait... what happened? An ellipsis\u2026 then more. The end.",
+    "i.e. this stays together. E.g. so does this? Q.E.D. Done.",
+    "Sentence one.\nSentence two on a new line. And three.\n\n"
+    "New paragraph starts here. It continues! Done.",
+    "Line with CRLF.\r\nNext line. More text?\r\n\r\nAfter blank.",
+    "Ends with no punctuation and trailing spaces   ",
+    "((Parenthetical.)) 'Quoted.' \u201cCurly.\u201d Next one.",
+    "A.B. initials here. J. R. R. Tolkien wrote books. True.",
+    "1. First item. 2. Second item. 10. Tenth item.",
+]
+
+# Moses-style nonbreaking prefix file (class 1 + NUMERIC_ONLY class 2),
+# format per slimt/Splitter.cc:31-53: scripts/crosscheck.py's.
+PREFIX_FILE = """# nonbreaking prefixes (crosscheck corpus)
+Dr
+Mr
+Mrs
+Prof
+etc
+i.e
+e.g
+vs
+A
+B
+J
+R
+Q.E.D
+No #NUMERIC_ONLY#
+Art #NUMERIC_ONLY#
+pp #NUMERIC_ONLY#
+"""
+
+# The e2e mode's HTML documents (scripts/crosscheck.py's).
+HTML_DOCUMENTS = [
+    "<b>Hello world.</b> This <i>is</i> a test of <a href='x'>"
+    "markup transfer</a>. Done!",
+    "<p>First paragraph here.</p><p>Second one, with "
+    "<em>emphasis</em> and a <br/>void tag.</p>",
+    "Text with &amp; entities &lt;escaped&gt; and trailing "
+    "words after <span class='x'>spans</span> end.",
+]
+
+
+def harness_needed(mode: str) -> bool:
+    """Print why `mode` cannot run where the harness does not start."""
+    if harness_runs():
+        return False
+    print(f"{mode}: the reference harness does not start here ({HARNESS}); these "
+          "host-side text checks need it and are not recorded")
+    return True
+
+
+def mode_split(args) -> int:
+    """The port's splitter against the reference's PCRE2 Splitter.cc over
+    SPLIT_DOCS, with and without PREFIX_FILE, in each split mode:
+    per-document byte-range boundaries. Returns the mismatches (1 where
+    the harness cannot start)."""
+    from slimt_tpu_torch.text.splitter import SentenceStream, SplitMode, Splitter
+
+    if harness_needed("split"):
+        return 1
+    mode_map = {
+        "sentence": SplitMode.ONE_SENTENCE_PER_LINE,
+        "paragraph": SplitMode.ONE_PARAGRAPH_PER_LINE,
+        "wrapped": SplitMode.WRAPPED_TEXT,
+    }
+    mismatch = total = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix_path = os.path.join(tmp, "prefixes.txt")
+        with open(prefix_path, "w") as f:
+            f.write(PREFIX_FILE)
+        for use_prefixes in (False, True):
+            splitter = Splitter()
+            if use_prefixes:
+                splitter.load(prefix_path)
+            for mode_name, mode in mode_map.items():
+                for doc_id, doc in enumerate(SPLIT_DOCS):
+                    cmd = [HARNESS, "--split", mode_name]
+                    if use_prefixes:
+                        cmd += ["--prefix-file", prefix_path]
+                    ref = subprocess.run(cmd, input=doc, capture_output=True, text=True,
+                                         check=True).stdout.splitlines()
+                    byte_of = [0]  # character offsets to byte offsets
+                    for ch in doc:
+                        byte_of.append(byte_of[-1] + len(ch.encode("utf-8")))
+                    mine = ["para" if sent == "" else f"{byte_of[begin]} {byte_of[end]}"
+                            for sent, begin, end in SentenceStream(doc, splitter, mode)]
+                    # The reference may emit a trailing paragraph marker.
+                    while ref and ref[-1] == "para":
+                        ref.pop()
+                    while mine and mine[-1] == "para":
+                        mine.pop()
+                    total += 1
+                    if ref != mine:
+                        mismatch += 1
+                        if args.verbose:
+                            print(f"doc {doc_id} mode={mode_name} prefixes={use_prefixes}:\n"
+                                  f"  ref={ref}\n  port={mine}")
+    print(f"splitter boundaries: {total - mismatch}/{total} documents identical")
+    return mismatch
+
+
+def mode_process(args) -> int:
+    """The port's TextProcessor against the reference's on SPLIT_DOCS, the
+    same tokenizer on both sides (the harness's shim vocabulary is the
+    JAX package's host library; the port's vocabulary is forced to its
+    own, backend="native"), so a difference is wrap, EOS or annotation
+    semantics: segments (ids with EOS) and each sentence's and word's
+    byte ranges. Returns the mismatches (1 where the harness cannot
+    start)."""
+    from slimt_tpu_torch.text import spm_proto
+    from slimt_tpu_torch.text.processor import TextProcessor
+    from slimt_tpu_torch.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
+    from slimt_tpu_torch.text.vocabulary import Vocabulary
+
+    if harness_needed("process"):
+        return 1
+    spm_bytes = spm_proto.serialize_model(build_spm_model(DEFAULT_WORDS))
+    mismatch = total = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab_path = os.path.join(tmp, "vocab.spm")
+        with open(vocab_path, "wb") as f:
+            f.write(spm_bytes)
+        prefix_path = os.path.join(tmp, "prefixes.txt")
+        with open(prefix_path, "w") as f:
+            f.write(PREFIX_FILE)
+        vocabulary = Vocabulary(spm_bytes, backend="native")
+        for mode in ("sentence", "paragraph", "wrapped_text"):
+            processor = TextProcessor(mode, vocabulary, PREFIX_FILE)
+            for wrap in (8, 128):
+                for doc_id, doc in enumerate(SPLIT_DOCS):
+                    ref = subprocess.run(
+                        [HARNESS, "--process", mode, "--vocab", vocab_path,
+                         "--wrap", str(wrap), "--prefix-file", prefix_path],
+                        input=doc, capture_output=True, text=True, check=True,
+                    ).stdout.splitlines()
+                    ann, segments = processor.process(doc, wrap)
+                    mine = ["ids " + " ".join(str(w) for w in segment) for segment in segments]
+                    for s in range(ann.sentence_count()):
+                        rng = ann.sentence_as_range(s)
+                        words = " ".join(
+                            f"{ann.word_as_range(s, w).begin}:{ann.word_as_range(s, w).end}"
+                            for w in range(ann.word_count(s)))
+                        mine.append(f"sent {rng.begin} {rng.end} :"
+                                    + (f" {words}" if words else ""))
+                    total += 1
+                    if ref != mine:
+                        mismatch += 1
+                        if args.verbose:
+                            print(f"doc {doc_id} mode={mode} wrap={wrap}:")
+                            for a, b in zip(ref + [""] * 9, mine + [""] * 9):
+                                if a != b:
+                                    print(f"  ref={a}\n  port={b}")
+    print(f"text pipeline: {total - mismatch}/{total} documents identical "
+          "(segments + annotations)")
+    return mismatch
+
+
+@functools.cache
+def cli_runs() -> bool:
+    """Whether the reference CLI starts here (its --help exits 0; where a
+    library it links is missing, the loader exits 127 before it)."""
+    try:
+        proc = subprocess.run([REF_CLI, "--help"], capture_output=True, text=True)
+    except OSError:
+        return False
+    return proc.returncode == 0 and "Usage" in proc.stdout
+
+
+def cli_key(pkg: str, args, text: str) -> str:
+    """SHA-256 of what the reference CLI reads for one run: its arguments
+    after --root, the bytes of each package file they name (--model,
+    --vocabulary, --ssplit) and its standard input."""
+    digest = hashlib.sha256(" ".join(args).encode())
+    for flag, name in zip(args, args[1:]):
+        if flag in ("--model", "--vocabulary", "--ssplit"):
+            with open(os.path.join(pkg, name), "rb") as f:
+                digest.update(name.encode() + b"\0" + f.read())
+    digest.update(text.encode())
+    return digest.hexdigest()
+
+
+@functools.cache
+def recorded_cli() -> dict:
+    """RECORDED_CLI's runs, {key: output lines}; empty where it is absent."""
+    if not os.path.exists(RECORDED_CLI):
+        return {}
+    with open(RECORDED_CLI) as f:
+        return {key: run["lines"] for key, run in json.load(f)["runs"].items()}
+
+
+def run_reference_cli(pkg: str, args, text: str):
+    """The reference CLI's output lines (its 4-line config echo dropped)
+    for `text` on the package at `pkg` with `args` (after --root). Where
+    the CLI cannot start, the lines come from RECORDED_CLI (`record`
+    writes it where the CLI starts); a run that is in neither raises."""
+    if not cli_runs():
+        key = cli_key(pkg, args, text)
+        runs = recorded_cli()
+        if key not in runs:
+            raise RuntimeError(
+                f"the reference CLI does not start here ({REF_CLI}) and "
+                f"{os.path.relpath(RECORDED_CLI, ROOT)} holds no run {key[:16]}: run "
+                "`python -m slimt_tpu_torch.crosscheck record` where it starts")
+        return list(runs[key])
+    proc = subprocess.run([REF_CLI, "--root", pkg, *args], input=text, capture_output=True,
+                          text=True, check=True)
+    return proc.stdout.splitlines()[4:]  # the config echo (app/main.cc:73-76)
+
+
+def reference_cli_source() -> str:
+    """Where run_reference_cli takes the reference CLI's lines from here."""
+    if cli_runs():
+        return "the reference CLI"
+    return (f"recorded lines from {os.path.relpath(RECORDED_CLI, ROOT)} (the reference "
+            "CLI does not start here)")
+
+
+def synth_package(out: str, emb: int = 64, ffn: int = 128, prefixes: bool = True) -> str:
+    """`python -m slimt_tpu_torch synth` (the tiny preset) into `out`, run
+    in this process, with PREFIX_FILE as prefixes.txt where asked."""
+    from slimt_tpu_torch import cli
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["synth", "--out", out, "--emb-dim", str(emb), "--ffn-dim", str(ffn)])
+    if prefixes:
+        with open(os.path.join(out, "prefixes.txt"), "w") as f:
+            f.write(PREFIX_FILE)
+    return out
+
+
+def translate_subprocess(argv, text: str) -> str:
+    """`python -m slimt_tpu_torch translate ARGV` on `text`: its stdout,
+    with the native batch tokenizer (the reference's tokenization)."""
+    env = dict(os.environ, SLIMT_TPU_BATCH_BACKEND="native")
+    return subprocess.run([sys.executable, "-m", "slimt_tpu_torch", "translate", *argv],
+                          input=text, capture_output=True, text=True, check=True,
+                          env=env, cwd=ROOT).stdout
+
+
+def e2e_documents():
+    """(document, html) of the e2e mode: SPLIT_DOCS as one document, the
+    first 32 lines of data/corpus.txt as another, then HTML_DOCUMENTS."""
+    documents = ["\n".join(SPLIT_DOCS)]
+    if os.path.exists(CORPUS):
+        with open(CORPUS) as f:
+            documents.append("\n".join([line.rstrip("\n") for line in f][:32]))
+    return [(doc, False) for doc in documents] + [(doc, True) for doc in HTML_DOCUMENTS]
+
+
+def e2e_cli_args(html: bool):
+    return (["--model", "model.bin", "--vocabulary", "vocab.spm", "--ssplit", "prefixes.txt"]
+            + (["--html"] if html else []))
+
+
+def _skeleton(text: str):
+    import re
+
+    return re.findall(r"<[^>]+>", text), sorted(re.sub(r"<[^>]+>", " ", text).split())
+
+
+def mode_e2e(args, translate=translate_subprocess) -> int:
+    """The reference's whole CLI against `python -m slimt_tpu_torch
+    translate --exact --device ...` (through `translate(argv, text)`) on
+    the e2e documents and the synthetic package: exact string compare,
+    or, for HTML, the tag skeleton and the token multiset where tags move
+    on an attention tie; then the declared serving config
+    (informational). Returns the mismatches."""
+    mismatch = total = serving_same = 0
+    print(f"reference CLI: {reference_cli_source()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        pkg = synth_package(os.path.join(tmp, "pkg"))
+        cases = e2e_documents()
+        mine_args = ["--root", pkg, "--ssplit", "prefixes.txt", "--device", args.device]
+        for doc_id, (doc, html) in enumerate(cases):
+            ref_text = "\n".join(run_reference_cli(pkg, e2e_cli_args(html), doc)).strip()
+            flag = ["--html"] if html else []
+            mine_text = translate(mine_args + ["--exact"] + flag, doc).strip()
+            total += 1
+            if ref_text != mine_text:
+                if html and _skeleton(ref_text) == _skeleton(mine_text):
+                    if args.verbose:
+                        print(f"document {doc_id}: tag placement differs on an attention "
+                              "tie (skeleton + tokens identical)")
+                else:
+                    mismatch += 1
+                    if args.verbose:
+                        print(f"document {doc_id} html={html}:\n  ref: {ref_text[:400]}\n"
+                              f"  port: {mine_text[:400]}")
+            serving_same += int(ref_text == translate(mine_args + flag, doc).strip())
+    print(f"e2e CLI text: {total - mismatch}/{total} documents identical")
+    print(f"e2e serving-config (informational): {serving_same}/{total} documents "
+          "byte-identical under the declared serving config")
+    return mismatch
+
+
+def bleu_report(args, translate=translate_subprocess) -> dict:
+    """The bleu mode's JSON: corpus BLEU of the reference CLI, the port's
+    serving config and its exact path (through `translate(argv, text)` on
+    --device) on --bleu-lines sources, against --bleu-reference or the
+    reference CLI's own output; the lines equal to the reference CLI's
+    on each path."""
+    from slimt_tpu_torch.bleu import corpus_bleu
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pkg = args.bleu_package
+        if pkg is None:
+            pkg = synth_package(os.path.join(tmp, "pkg"))
+        if args.bleu_source:
+            with open(args.bleu_source, encoding="utf-8") as f:
+                sources = [line.rstrip("\n") for line in f]
+        else:
+            with open(CORPUS) as f:
+                sources = [line.rstrip("\n") for line in f if line.strip()]
+        text = "\n".join(sources[:args.bleu_lines])
+        ssplit = (["--ssplit", "prefixes.txt"]
+                  if os.path.exists(os.path.join(pkg, "prefixes.txt")) else [])
+        package_args = ["--model", args.bleu_model, "--vocabulary", args.bleu_vocab, *ssplit]
+        ref_lines = run_reference_cli(pkg, package_args, text)
+        mine_args = ["--root", pkg, *package_args, "--device", args.device]
+        serving_lines = translate(mine_args, text).splitlines()  # the declared config
+        exact_lines = translate(mine_args + ["--exact"], text).splitlines()
+    pseudo = args.bleu_reference is None
+    if pseudo:
+        references = ref_lines
+    else:
+        with open(args.bleu_reference, encoding="utf-8") as f:
+            references = [line.rstrip("\n") for line in f][:args.bleu_lines]
+    n = min(len(references), len(ref_lines), len(serving_lines), len(exact_lines))
+    rows = {}
+    for label, lines in (("reference_cli", ref_lines),
+                         ("slimt_tpu_torch_serving", serving_lines),
+                         ("slimt_tpu_torch_exact", exact_lines)):
+        rows[f"bleu_{label}"] = round(corpus_bleu(lines[:n], references[:n])[0], 2)
+    return {
+        **rows,
+        "delta_serving": round(rows["bleu_slimt_tpu_torch_serving"]
+                               - rows["bleu_reference_cli"], 2),
+        "lines": n,
+        "line_exact_vs_reference_serving": round(
+            sum(a == b for a, b in zip(serving_lines[:n], ref_lines[:n])) / n, 4),
+        "line_exact_vs_reference_exact": round(
+            sum(a == b for a, b in zip(exact_lines[:n], ref_lines[:n])) / n, 4),
+        "pseudo_reference": pseudo,
+    }
+
+
+def mode_bleu(args) -> int:
+    """Print bleu_report's JSON; exit status 1 below BLEU_EXACT_MIN of
+    lines equal on the exact path in pseudo-reference mode (with a real
+    reference there is no gate: the BLEUs are the report)."""
+    print(f"reference CLI: {reference_cli_source()}")
+    out = bleu_report(args)
+    print(json.dumps(out))
+    return 1 if out["pseudo_reference"] and (
+        out["line_exact_vs_reference_exact"] < BLEU_EXACT_MIN) else 0
+
+
+def cli_runs_to_record():
+    """(what, package dir, CLI args, text) of every reference CLI run that
+    RECORDED_CLI keeps, in a temporary directory: the e2e documents and
+    the bleu legs at BLEU_WIDTHS (the default package with prefixes.txt,
+    as the mode makes it; the full-width one as --bleu-package, without)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        pkg = synth_package(os.path.join(tmp, "pkg"))
+        runs = [(f"e2e document {i} html={html}", pkg, e2e_cli_args(html), doc)
+                for i, (doc, html) in enumerate(e2e_documents())]
+        with open(CORPUS) as f:
+            sources = [line.rstrip("\n") for line in f if line.strip()]
+        text = "\n".join(sources[:BLEU_LINES])
+        for emb, ffn in BLEU_WIDTHS:
+            default = (emb, ffn) == BLEU_WIDTHS[0]
+            leg = pkg if default else synth_package(
+                os.path.join(tmp, f"pkg{emb}"), emb, ffn, prefixes=False)
+            args = ["--model", "model.bin", "--vocabulary", "vocab.spm"]
+            if default:
+                args += ["--ssplit", "prefixes.txt"]
+            runs.append((f"bleu E={emb} F={ffn} lines={BLEU_LINES}", leg, args, text))
+        yield from runs
+
+
+def record_cli() -> int:
+    """Run the reference CLI on every run of cli_runs_to_record and write
+    RECORDED_CLI: {key: its lines}."""
+    if not cli_runs():
+        raise SystemExit(f"the reference CLI does not start here: {REF_CLI}")
+    runs = {}
+    for what, pkg, args, text in cli_runs_to_record():
+        start = time.perf_counter()
+        runs[cli_key(pkg, args, text)] = {"what": what,
+                                          "lines": run_reference_cli(pkg, args, text)}
+        print(f"recorded {what} ({time.perf_counter() - start:.1f} s)", flush=True)
+    with open(RECORDED_CLI, "w") as f:
+        json.dump({"cli": "crosscheck/bin/slimt_ref_cli",
+                   "written_by": "python -m slimt_tpu_torch.crosscheck record",
+                   "runs": runs}, f, indent=0, ensure_ascii=False)
+    print(f"wrote {len(runs)} runs to {RECORDED_CLI}")
+    return 0
+
+
 # chip_smoke.py's reference cell: the narrow cell's first 64 serving lines.
 SMOKE_CELL, SMOKE_LINES = CELLS[2], 64
 
@@ -756,8 +1213,8 @@ SMOKE_CELL, SMOKE_LINES = CELLS[2], 64
 def mode_record(args) -> int:
     """Run the harness on every leg of the three modes at their default
     sizes and of chip_smoke.py's cell, and write RECORDED: {leg key:
-    its tokens}. Where the harness starts, it is run; the file serves a
-    machine where it does not."""
+    its tokens}; then record_cli. Where the harness starts, it is run;
+    the files serve a machine where it does not."""
     if not harness_runs():
         raise SystemExit(f"the reference harness does not start here: {HARNESS}")
     legs = {}
@@ -780,13 +1237,13 @@ def mode_record(args) -> int:
                    "written_by": "python -m slimt_tpu_torch.crosscheck record",
                    "legs": legs}, f, indent=0)
     print(f"wrote {len(legs)} legs to {RECORDED}")
-    return 0
+    return record_cli()
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m slimt_tpu_torch.crosscheck")
     parser.add_argument("mode", choices=["tokens", "serving", "shortlist", "partings",
-                                         "record"])
+                                         "split", "process", "e2e", "bleu", "record"])
     parser.add_argument("--lines", type=int, default=None,
                         help="sentences a cell (tokens, shortlist: 48; serving: 256)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -794,6 +1251,16 @@ def main(argv=None) -> int:
                         help="serving: comma-separated substrings of the rows to run "
                              "('exact' always runs); a filtered run writes nothing")
     parser.add_argument("--verbose", action="store_true")
+    parser.add_argument("--bleu-package", default=None,
+                        help="bleu: a package dir (default: the synthetic package)")
+    parser.add_argument("--bleu-model", default="model.bin")
+    parser.add_argument("--bleu-vocab", default="vocab.spm")
+    parser.add_argument("--bleu-source", default=None,
+                        help="bleu: the test set's sources (default: data/corpus.txt)")
+    parser.add_argument("--bleu-reference", default=None,
+                        help="bleu: its reference translations; absent, the reference "
+                             "CLI's own output is the reference")
+    parser.add_argument("--bleu-lines", type=int, default=BLEU_LINES)
     args = parser.parse_args(argv)
     if args.lines is None:
         args.lines = 256 if args.mode in ("serving", "partings") else 48
@@ -806,6 +1273,11 @@ def main(argv=None) -> int:
     if args.mode == "partings":
         mode_partings(args)
         return 0
+    if args.mode in ("split", "process", "e2e"):
+        modes = {"split": mode_split, "process": mode_process, "e2e": mode_e2e}
+        return 1 if modes[args.mode](args) else 0
+    if args.mode == "bleu":
+        return mode_bleu(args)
     return 1 if mode_shortlist(args) else 0
 
 

@@ -1,51 +1,48 @@
-"""ctypes loader for the native host library (native/slimt_host.cpp).
+"""ctypes loader for the port's native host library
+(slimt_tpu_torch/native/slimt_host.cpp).
 
-Builds on demand with the in-tree Makefile (g++); all callers fall
-back to the pure-Python implementations when the toolchain or library
-is unavailable.
+Built on first use by one g++ call into slimt_tpu_torch/build/
+(`ops/_native_build.host_library_path`); nothing under the JAX package's
+top-level native/ is read, built or written. On a machine without g++
+every caller falls back to the pure-Python implementations; with g++, a
+failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
+import shutil
 import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native"
-)
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libslimt_host.so")
-
 _lib = None
 _lock = threading.Lock()
-_build_failed = False
+_no_toolchain = False
+
+
+def library_path():
+    """The built library's path (slimt_tpu_torch/build/...), built on
+    first use; None where there is no g++."""
+    if shutil.which("g++") is None:
+        return None
+    from slimt_tpu_torch.ops._native_build import host_library_path
+
+    return host_library_path()
 
 
 def _load():
-    global _lib, _build_failed
+    global _lib, _no_toolchain
     with _lock:
-        if _lib is not None or _build_failed:
+        if _lib is not None or _no_toolchain:
             return _lib
-        if not os.path.exists(_LIB_PATH):
-            try:
-                subprocess.run(
-                    ["make", "-s", "-C", _NATIVE_DIR],
-                    check=True,
-                    capture_output=True,
-                    timeout=120,
-                )
-            except Exception:
-                _build_failed = True
-                return None
-        try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
-            _build_failed = True
+        path = library_path()
+        if path is None:
+            _no_toolchain = True
             return None
+        lib = ctypes.CDLL(str(path))
 
         lib.slimt_vocab_create.restype = ctypes.c_void_p
         lib.slimt_vocab_create.argtypes = [
@@ -512,7 +509,7 @@ class NativeVocab:
         device batch instead of one per sentence). Returns per
         sequence its UTF-8 text bytes plus per-token end offsets into
         them (token i spans [end[i-1], end[i]), tokens contiguous from
-        0 — the decode_one contract in native/slimt_host.cpp)."""
+        0 — the decode_one contract in slimt_tpu_torch/native/slimt_host.cpp)."""
         import itertools
 
         n_seqs = len(segments)

@@ -44,6 +44,18 @@
 // the output does not depend on cs (exact int32 sums, float sums in one
 // order).
 //
+// Widths. E and F may be anything. The products and the cluster split run
+// over the widths rounded up to 16 (ep, fp; the wrappers' cluster_layout
+// splits those); where E or F is no multiple of 16 the rows are staged in
+// shared memory at a pitch of ep with zeros past E, the weights are read
+// in place byte by byte with zeros past the true K and N (masked Slabs: no
+// 16-byte rows to copy), every vector is read only below its true width,
+// and the LayerNorm runs over the true E. At multiples of 16 (ep = e, fp =
+// f) the kernels carry no masks: the padded ones are separate
+// instantiations (kPadded). The widest rows a tile may take are what a
+// block's shared memory holds; the cluster queries return minus the
+// bytes asked for past that, and the wrappers raise.
+//
 // Bounds on the H100. The blocks read their weights from L2 or device
 // memory: 2 E^2 bytes for the SSRU (128 KB at E = 256), 2 E F for the FFN
 // (768 KB at E = 256, F = 1536), once per row tile. At decode batch the
@@ -73,16 +85,19 @@ struct BlockArgs {
   float* c_out;        // ssru: [m, e] new cell
   int m, e, f, rows, cs, slots;
   float aq0, inv0, aq1, inv1;
+  int ep, fp;          // e and f rounded up to 16: the products' widths
 };
 
 // The SSRU block's shared memory, as floats x and relu(c') [rows, e], the
 // gate and the previous cell of the block's e/cs columns [rows, e/cs], bf
 // of those columns and the LayerNorm's scale and bias [e]; the cross-warp
-// sums (cs > 1) and the two quantized copies of x [rows, e].
+// sums (reduce_ints) and the two quantized copies of x [rows, e].
+// e: the padded width.
 size_t ssru_smem_bytes(int rows, int cs, int e) {
   const size_t es = static_cast<size_t>(e / cs);
   return sizeof(float) * (2 * static_cast<size_t>(rows) * (e + es) + es + 2 * static_cast<size_t>(e)) +
-         sizeof(int) * (cs > 1 ? kReduceInts : 0) + 2 * static_cast<size_t>(rows) * e;
+         sizeof(int) * reduce_ints(cs, e, e) +
+         2 * static_cast<size_t>(rows) * e;
 }
 
 // n floats (a multiple of 4, both ends 16-byte aligned) from device memory
@@ -103,68 +118,90 @@ __device__ __forceinline__ void copy_floats(float* dst, const float* src, int n)
 // each weight once). The first push waits at a cluster barrier that every
 // block arrived at on starting; no block reads another's shared memory
 // after the cluster.sync() that follows it, so none waits at the end.
+template <bool kPadded>
 __global__ void __launch_bounds__(kThreads) ssru_kernel(const __grid_constant__ BlockArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int e = a.e;
+  const int e = a.e;    // the rows' true width
+  const int ep = a.ep;  // their pitch in shared memory (e unless kPadded)
   const int cs = a.cs;
-  const int es = e / cs;
+  const int es = ep / cs;
   const int n0 = static_cast<int>(cluster.block_rank()) * es;
   const int cap = a.rows;
   const int row0 = blockIdx.x / cs * cap;
   const int rows = min(cap, a.m - row0);
   float* xs = reinterpret_cast<float*>(smem);
-  float* hs = xs + cap * e;  // relu(c'), then h
-  float* gate = hs + cap * e;
+  float* hs = xs + cap * ep;  // relu(c'), then h
+  float* gate = hs + cap * ep;
   float* c_prev = gate + cap * es;
   float* bf = c_prev + cap * es;
   float* ln = bf + es;  // scale, then bias
-  int* red = reinterpret_cast<int*>(ln + 2 * e);
-  int8_t* xq = reinterpret_cast<int8_t*>(red + (cs > 1 ? kReduceInts : 0));
-  int8_t* xq2 = xq + cap * e;
+  int* red = reinterpret_cast<int*>(ln + 2 * ep);
+  int8_t* xq = reinterpret_cast<int8_t*>(red + reduce_ints(cs, ep, ep));
+  int8_t* xq2 = xq + cap * ep;
   const long long tile0 = static_cast<long long>(row0) * e;
 
   cluster_arrive();  // push_cols waits for every block to start
-  copy_floats(xs, a.x + tile0, rows * e);
-  for (int i = threadIdx.x; i < rows * es / 4; i += kThreads)
-    cp_async16(c_prev + 4 * i, a.c + tile0 + 4 * i / es * e + n0 + 4 * i % es, true);
-  copy_floats(bf, a.b0 + n0, es);
-  copy_floats(ln, a.ln_scale, e);
-  copy_floats(ln + e, a.ln_bias, e);
-  cp_async_commit();
-  cp_async_wait<0>();
+  if constexpr (!kPadded) {
+    copy_floats(xs, a.x + tile0, rows * e);
+    for (int i = threadIdx.x; i < rows * es / 4; i += kThreads)
+      cp_async16(c_prev + 4 * i, a.c + tile0 + 4 * i / es * e + n0 + 4 * i % es, true);
+    copy_floats(bf, a.b0 + n0, es);
+    copy_floats(ln, a.ln_scale, e);
+    copy_floats(ln + e, a.ln_bias, e);
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {
+    // Zeros past E; every read below the true width.
+    for (int i = threadIdx.x; i < rows * ep; i += kThreads) {
+      const int c = i % ep;
+      xs[i] = c < e ? a.x[tile0 + i / ep * e + c] : 0.0f;
+    }
+    for (int i = threadIdx.x; i < rows * es; i += kThreads) {
+      const int c = n0 + i % es;
+      c_prev[i] = c < e ? a.c[tile0 + i / es * e + c] : 0.0f;
+    }
+    for (int i = threadIdx.x; i < es; i += kThreads) bf[i] = n0 + i < e ? a.b0[n0 + i] : 0.0f;
+    for (int i = threadIdx.x; i < e; i += kThreads) {
+      ln[i] = a.ln_scale[i];
+      ln[ep + i] = a.ln_bias[i];
+    }
+  }
   __syncthreads();
-  quantize_rows(xs, e, e, a.aq0, xq, e, rows, a.aq1, xq2);
+  quantize_rows(xs, ep, e, a.aq0, xq, ep, rows, a.aq1, xq2);
   // Wf's and W's columns n0.., in place.
-  slice_product(xq, e, rows, row_major(a.w0 + n0, e), e, es, red, [&](int r, int n, int acc) {
+  const Slab wf = {a.w0 + n0, 4 * e, e, 16, e, e - n0};
+  const Slab w = {a.w1 + n0, 4 * e, e, 16, e, e - n0};
+  slice_product<kPadded>(xq, ep, rows, wf, ep, es, red, [&](int r, int n, int acc) {
     gate[r * es + n] = affine_value(acc, a.inv0, bf, n, false);
   });
-  slice_product(xq2, e, rows, row_major(a.w1 + n0, e), e, es, red, [&](int r, int n, int acc) {
+  slice_product<kPadded>(xq2, ep, rows, w, ep, es, red, [&](int r, int n, int acc) {
     const float wx = affine_value(acc, a.inv1, nullptr, n, false);
     const float f = 1.0f / (1.0f + expf(-gate[r * es + n]));
     const float c_t = __fadd_rn(__fmul_rn(f, c_prev[r * es + n]), __fmul_rn(1.0f - f, wx));
-    const int at = r * e + n0 + n;
-    a.c_out[tile0 + at] = c_t;
-    hs[at] = fmaxf(c_t, 0.0f);
+    const int c = n0 + n;
+    if (!kPadded || c < e) a.c_out[tile0 + r * e + c] = c_t;
+    hs[r * ep + c] = fmaxf(c_t, 0.0f);  // 0 past E
   });
   cluster_wait();
-  push_cols(hs, e, rows, n0, es);
+  push_cols(hs, ep, rows, n0, es);
   cluster.sync();
-  add_layer_norm(xs, hs, ln, ln + e, hs, rows, e);
+  add_layer_norm(xs, hs, ln, ln + ep, hs, rows, e, 0, 0.0f, nullptr, 0.0f, nullptr, ep);
   for (int i = threadIdx.x; i < rows * es; i += kThreads) {
-    const int at = i / es * e + n0 + i % es;
-    a.out[tile0 + at] = hs[at];
+    const int c = n0 + i % es;
+    if (!kPadded || c < e) a.out[tile0 + i / es * e + c] = hs[i / es * ep + c];
   }
 }
 
 // The FFN block's shared memory: the weight ring's `slots` buffers of e x
 // f/cs bytes, x and y [rows, e], the [rows, e] int32 partials, the
-// cross-warp sums (cs > 1) and two rows of quantized inputs.
+// cross-warp sums (reduce_ints) and two rows of quantized inputs (e and f: the
+// padded widths).
 size_t ffn_smem_bytes(int rows, int cs, int e, int f, int slots = 0) {
   const size_t ldq = static_cast<size_t>(f / cs > e ? f / cs : e);
   return static_cast<size_t>(slots) * e * (f / cs) +
          sizeof(float) * 3 * static_cast<size_t>(rows) * e +
-         sizeof(int) * (cs > 1 ? kReduceInts : 0) + 2 * static_cast<size_t>(rows) * ldq;
+         sizeof(int) * reduce_ints(cs, e, f) + 2 * static_cast<size_t>(rows) * ldq;
 }
 
 // The ring's buffers: 2 (W1's and W2's slices, W2's copied while W1's
@@ -173,70 +210,92 @@ int ffn_slots(int rows, int cs, int e, int f) {
   return ffn_smem_bytes(rows, cs, e, f, 2) <= smem_optin() ? 2 : 0;
 }
 
+template <bool kPadded>
 __global__ void __launch_bounds__(kThreads) ffn_kernel(const __grid_constant__ BlockArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int e = a.e;
+  const int e = a.e;  // the true widths
+  const int f = a.f;
+  const int ep = a.ep;  // the products' widths, the rows' pitch (e, f unless kPadded)
   const int cs = a.cs;
-  const int es = e / cs;
-  const int fs = a.f / cs;
+  const int es = ep / cs;
+  const int fs = a.fp / cs;
   const int rank = static_cast<int>(cluster.block_rank());
   const int n0 = rank * es;
   const int k0 = rank * fs;
   const int cap = a.rows;
   const int row0 = blockIdx.x / cs * cap;
   const int rows = min(cap, a.m - row0);
-  const int ldq = e > fs ? e : fs;
+  const int ldq = ep > fs ? ep : fs;
   int8_t* ring = reinterpret_cast<int8_t*>(smem);
-  float* xs = reinterpret_cast<float*>(ring + a.slots * e * fs);
-  float* ys = xs + cap * e;
-  int* part = reinterpret_cast<int*>(ys + cap * e);
-  int* red = part + cap * e;
-  int8_t* xq = reinterpret_cast<int8_t*>(red + (cs > 1 ? kReduceInts : 0));
+  float* xs = reinterpret_cast<float*>(ring + a.slots * ep * fs);
+  float* ys = xs + cap * ep;
+  int* part = reinterpret_cast<int*>(ys + cap * ep);
+  int* red = part + cap * ep;
+  int8_t* xq = reinterpret_cast<int8_t*>(red + reduce_ints(cs, ep, a.fp));
   const long long tile0 = static_cast<long long>(row0) * e;
-  const FfnWeights w = {a.b0 + k0, a.b1, a.ln_scale, a.ln_bias, a.inv0, a.aq1, a.inv1};
+  const FfnWeights w = {a.b0 + k0, a.b1, a.ln_scale, a.ln_bias, a.inv0, a.aq1, a.inv1,
+                        e, f - k0};
   // W1's columns k0.. and W2's rows k0..
   auto slice_of = [&](int i) -> Slice {
-    if (i == 0) return {a.w0 + k0, e, fs, a.f};
-    return {a.w1 + static_cast<long long>(k0) * e, fs, e, e};
+    if (i == 0) return {a.w0 + k0, ep, fs, f, e, f - k0};
+    return {a.w1 + static_cast<long long>(k0) * e, fs, ep, e, f - k0, e};
   };
-  const auto weights = weight_stream(slice_of, 2, ring, a.slots, e * fs);
+  const auto weights = weight_stream(slice_of, 2, ring, a.slots, ep * fs);
 
   weights.start();
-  for (int i = threadIdx.x; i < rows * e; i += kThreads) xs[i] = a.x[tile0 + i];
+  if constexpr (!kPadded) {
+    for (int i = threadIdx.x; i < rows * e; i += kThreads) xs[i] = a.x[tile0 + i];
+  } else {
+    for (int i = threadIdx.x; i < rows * ep; i += kThreads) {
+      const int c = i % ep;
+      xs[i] = c < e ? a.x[tile0 + i / ep * e + c] : 0.0f;
+    }
+  }
   __syncthreads();
-  quantize_rows(xs, e, e, a.aq0, xq, ldq, rows);
-  cluster_ffn(w, [&](int m) { return weights.take(m); }, xs, ys, ys, part, red, xq,
-              xq + cap * ldq, ldq, rows, e, a.f);
+  quantize_rows(xs, ep, e, a.aq0, xq, ldq, rows);
+  cluster_ffn<kPadded>(w, [&](int m) { return weights.take(m); }, xs, ys, ys, part, red, xq,
+                       xq + cap * ldq, ldq, rows, ep, a.fp);
   for (int i = threadIdx.x; i < rows * es; i += kThreads) {
-    const int at = i / es * e + n0 + i % es;
-    a.out[tile0 + at] = ys[at];
+    const int c = n0 + i % es;
+    if (!kPadded || c < e) a.out[tile0 + i / es * e + c] = ys[i / es * ep + c];
   }
   cluster.sync();  // the other blocks read this block's partials until here
 }
 
-KernelAttrs ssru_attrs;
-KernelAttrs ffn_attrs;
+KernelAttrs ssru_attrs[2];  // [kPadded]
+KernelAttrs ffn_attrs[2];
 
 bool shapes_ok(int m, int e, int f, int rows) {
-  return m >= 1 && e >= 16 && e % 16 == 0 && f >= 16 && f % 16 == 0 &&
-         rows >= 1 && rows <= kMaxRows;
+  return m >= 1 && e >= 1 && f >= 1 && rows >= 1 && rows <= kMaxRows;
+}
+
+// Clusters of cs blocks with `smem` bytes each that the device holds at
+// once, or minus `smem` where that is more than a block may opt into.
+template <typename Kernel>
+int clusters_or_need(Kernel kernel, int cs, size_t smem, KernelAttrs* attrs) {
+  if (smem > smem_optin()) return -static_cast<int>(smem);
+  return cluster_capacity(kernel, cs, smem, attrs);
 }
 
 }  // namespace
 }  // namespace slimt
 
 // Clusters of cs blocks of `rows` rows the SSRU block can hold on the
-// current device at once; 0 where it cannot run one.
+// current device at once; 0 where it cannot run one; minus the shared
+// memory a block would need where that is more than a block may hold.
 extern "C" int slimt_ssru_clusters(int rows, int cs, int e) {
   using namespace slimt;
-  if (!shapes_ok(1, e, e, rows) || !cluster_layout_ok(cs, e, e)) return 0;
-  return cluster_capacity(ssru_kernel, cs, ssru_smem_bytes(rows, cs, e), &ssru_attrs);
+  if (!shapes_ok(1, e, e, rows) || !cluster_layout_ok(cs, pad16(e), pad16(e))) return 0;
+  const size_t smem = ssru_smem_bytes(rows, cs, pad16(e));
+  return e % 16 ? clusters_or_need(ssru_kernel<true>, cs, smem, &ssru_attrs[1])
+                : clusters_or_need(ssru_kernel<false>, cs, smem, &ssru_attrs[0]);
 }
 
 // x, c, h, c_out [m, e] f32; wf, w [e, e] int8; bf, ln_scale, ln_bias
 // [e] f32; all 16-byte aligned device pointers. rows: rows per tile; cs:
-// the blocks of a tile's cluster (slimt_ssru_clusters).
+// the blocks of a tile's cluster (slimt_ssru_clusters), which splits e
+// rounded up to 16.
 extern "C" int slimt_ssru_block(const void* x, const void* c, const void* wf,
                                 const void* bf, const void* w,
                                 const void* ln_scale, const void* ln_bias,
@@ -244,7 +303,8 @@ extern "C" int slimt_ssru_block(const void* x, const void* c, const void* wf,
                                 float aq_f, float inv_f, float aq_w,
                                 float inv_w, void* stream) {
   using namespace slimt;
-  if (!shapes_ok(m, e, e, rows) || !cluster_layout_ok(cs, e, e))
+  const int ep = pad16(e);
+  if (!shapes_ok(m, e, e, rows) || !cluster_layout_ok(cs, ep, ep))
     return static_cast<int>(cudaErrorInvalidValue);
   const BlockArgs a = {
       static_cast<const float*>(x), static_cast<const float*>(c),
@@ -252,24 +312,32 @@ extern "C" int slimt_ssru_block(const void* x, const void* c, const void* wf,
       static_cast<const int8_t*>(w), nullptr,
       static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias),
       static_cast<float*>(h), static_cast<float*>(c_out),
-      m, e, e, rows, cs, 0, aq_f, inv_f, aq_w, inv_w};
-  return launch_cluster(ssru_kernel, (m + rows - 1) / rows * cs, cs, ssru_smem_bytes(rows, cs, e),
-                        &ssru_attrs, static_cast<cudaStream_t>(stream), a);
+      m, e, e, rows, cs, 0, aq_f, inv_f, aq_w, inv_w, ep, ep};
+  const int blocks = (m + rows - 1) / rows * cs;
+  const size_t smem = ssru_smem_bytes(rows, cs, ep);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return ep != e ? launch_cluster(ssru_kernel<true>, blocks, cs, smem, &ssru_attrs[1], s, a)
+                 : launch_cluster(ssru_kernel<false>, blocks, cs, smem, &ssru_attrs[0], s, a);
 }
 
 // Clusters of cs blocks of `rows` rows the FFN block can hold on the
-// current device at once; 0 where it cannot run one.
+// current device at once; 0 where it cannot run one; minus the shared
+// memory a block would need where that is more than a block may hold.
 extern "C" int slimt_ffn_clusters(int rows, int cs, int e, int f) {
   using namespace slimt;
-  if (!shapes_ok(1, e, f, rows) || !cluster_layout_ok(cs, e, f)) return 0;
-  return cluster_capacity(ffn_kernel, cs,
-                          ffn_smem_bytes(rows, cs, e, f, ffn_slots(rows, cs, e, f)),
-                          &ffn_attrs);
+  const int ep = pad16(e);
+  const int fp = pad16(f);
+  if (!shapes_ok(1, e, f, rows) || !cluster_layout_ok(cs, ep, fp)) return 0;
+  const bool padded = e % 16 || f % 16;
+  const size_t smem = ffn_smem_bytes(rows, cs, ep, fp, padded ? 0 : ffn_slots(rows, cs, ep, fp));
+  return padded ? clusters_or_need(ffn_kernel<true>, cs, smem, &ffn_attrs[1])
+                : clusters_or_need(ffn_kernel<false>, cs, smem, &ffn_attrs[0]);
 }
 
 // x, out [m, e] f32; w1 [e, f], w2 [f, e] int8; b1 [f], b2, ln_scale,
 // ln_bias [e] f32; all 16-byte aligned device pointers. rows: rows per
-// tile; cs: the blocks of a tile's cluster (slimt_ffn_clusters).
+// tile; cs: the blocks of a tile's cluster (slimt_ffn_clusters), which
+// splits e and f rounded up to 16.
 extern "C" int slimt_ffn_block(const void* x, const void* w1, const void* b1,
                                const void* w2, const void* b2,
                                const void* ln_scale, const void* ln_bias,
@@ -277,16 +345,22 @@ extern "C" int slimt_ffn_block(const void* x, const void* w1, const void* b1,
                                float aq1, float inv1, float aq2, float inv2,
                                void* stream) {
   using namespace slimt;
-  if (!shapes_ok(m, e, f, rows) || !cluster_layout_ok(cs, e, f))
+  const int ep = pad16(e);
+  const int fp = pad16(f);
+  if (!shapes_ok(m, e, f, rows) || !cluster_layout_ok(cs, ep, fp))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool padded = e % 16 || f % 16;
+  const int slots = padded ? 0 : ffn_slots(rows, cs, ep, fp);
   const BlockArgs a = {
       static_cast<const float*>(x), nullptr,
       static_cast<const int8_t*>(w1), static_cast<const float*>(b1),
       static_cast<const int8_t*>(w2), static_cast<const float*>(b2),
       static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias),
       static_cast<float*>(out), nullptr,
-      m, e, f, rows, cs, ffn_slots(rows, cs, e, f), aq1, inv1, aq2, inv2};
-  return launch_cluster(ffn_kernel, (m + rows - 1) / rows * cs, cs,
-                        ffn_smem_bytes(rows, cs, e, f, a.slots), &ffn_attrs,
-                        static_cast<cudaStream_t>(stream), a);
+      m, e, f, rows, cs, slots, aq1, inv1, aq2, inv2, ep, fp};
+  const int blocks = (m + rows - 1) / rows * cs;
+  const size_t smem = ffn_smem_bytes(rows, cs, ep, fp, slots);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return padded ? launch_cluster(ffn_kernel<true>, blocks, cs, smem, &ffn_attrs[1], s, a)
+                : launch_cluster(ffn_kernel<false>, blocks, cs, smem, &ffn_attrs[0], s, a);
 }

@@ -101,21 +101,66 @@ __device__ __forceinline__ float affine_value(int acc, float inv,
 }
 
 // Shared-memory ints slice_product needs where a column group spans more
-// than one warp (n_cols < 128).
+// than one warp (n_cols <= 64 beside k_dim >= 256).
 constexpr int kReduceInts = kWarps * kMaxRows * 16;
+
+// The lanes slice_product gives each 16-column group of a k_dim x n_cols
+// product to split k between: doubled while the groups still fill the
+// block and each lane keeps two quads of k.
+__host__ __device__ constexpr int product_lanes(int k_dim, int n_cols) {
+  int ks = 1;
+  while (ks < kThreads && 2 * ks * (n_cols / 16) <= kThreads && 2 * ks <= k_dim / 4) ks *= 2;
+  return ks;
+}
+
+// n rounded up to a multiple of 16: the width the decoder kernels'
+// products and cluster split run over (zeros, or masks, past n).
+__host__ __device__ constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
+
+// The ints of `red` a kernel of E x E, E x F and F x E products on
+// clusters of cs blocks needs: kReduceInts on a cluster (its slices are
+// narrow) or where a whole product's column group spans warps (a narrow E
+// beside a wide F: E = 64, F = 256 at cs = 1), else none.
+__host__ __device__ constexpr int reduce_ints(int cs, int e, int f) {
+  return cs > 1 || product_lanes(e, e) > 32 || product_lanes(e, f) > 32 ||
+                 product_lanes(f, e) > 32
+             ? kReduceInts
+             : 0;
+}
 
 // Where a product reads its int8 weights: the 16 bytes of rows 4 kq + i,
 // columns 16 g.. at w + kq * quad + i * row + g * group. A row-major [K, N]
 // matrix with row stride ld is (w, 4 ld, ld, 16); a slice staged in shared
 // memory by WeightStream is laid out [i][g][kq], so that the lanes of a
-// column group, which split k, read neighbouring 16-byte chunks.
+// column group, which split k, read neighbouring 16-byte chunks. A
+// masked product (slice_product<true>) reads a row-major matrix in place
+// whose rows need not be 16-byte aligned and whose true K or N ends inside
+// the product's 16-column groups (a width that is no multiple of 16): byte
+// by byte, rows >= k_valid and columns >= n_valid (both counted from w) as
+// zeros, so that the product over the widths rounded up equals the one
+// over the true widths whatever the quantized input holds past them.
 struct Slab {
   const int8_t* w;
   int quad, row, group;
+  int k_valid = 0, n_valid = 0;  // masked products only
 };
 
 __device__ __forceinline__ Slab row_major(const int8_t* w, int ld) {
   return {w, 4 * ld, ld, 16};
+}
+
+// The 16 bytes at p as an int4, bytes j >= n (or all, where the row is
+// past the matrix) zero.
+__device__ __forceinline__ int4 masked16(const int8_t* p, bool row_ok, int n) {
+  unsigned word[4] = {0u, 0u, 0u, 0u};
+  if (row_ok) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if (j < n) word[j / 4] |= static_cast<unsigned>(static_cast<uint8_t>(p[j])) << (8 * (j % 4));
+    }
+  }
+  return make_int4(static_cast<int>(word[0]), static_cast<int>(word[1]),
+                   static_cast<int>(word[2]), static_cast<int>(word[3]));
 }
 
 // a[j] for a j known only at run time, without indexing the registers.
@@ -128,20 +173,20 @@ __device__ __forceinline__ int pick(const int (&a)[16], int j) {
 
 // epi(r, n, acc) once for each r < rows <= kMaxRows and n < n_cols, acc =
 // sum_{k < k_dim} xq[r * ldq + k] * W[k, n], an exact int32 sum; W is read
-// through `w` (Slab: int8 in global or shared memory, 16-byte aligned),
+// through `w` (Slab: int8 in global or shared memory, 16-byte aligned; or,
+// kMasked, a row-major matrix in place read byte by byte),
 // n_cols % 16 == 0, k_dim % 4 == 0, ldq % 4 == 0. A group of ks lanes owns 16
 // columns and splits k between them, ks growing as the groups get fewer (up
 // to the whole block); the lanes of one warp meet by shuffles, the warps of
-// one group in `red` (kReduceInts ints of shared memory, null where n_cols >=
-// 128); each lane then runs epi for the 16 / ks columns it holds. Ends with
+// one group in `red` (kReduceInts ints of shared memory, null where no group
+// spans warps: reduce_ints); each lane then runs epi for the 16 / ks columns it holds. Ends with
 // __syncthreads().
-template <typename Epi>
+template <bool kMasked = false, typename Epi>
 __device__ void slice_product(const int8_t* xq, int ldq, int rows, const Slab& w,
                               int k_dim, int n_cols, int* red, Epi epi) {
   const int groups = n_cols / 16;
   const int quads = k_dim / 4;
-  int ks = 1;
-  while (ks < kThreads && 2 * ks * groups <= kThreads && 2 * ks <= quads) ks *= 2;
+  const int ks = product_lanes(k_dim, n_cols);
   const int lane_k = threadIdx.x % ks;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -161,10 +206,20 @@ __device__ void slice_product(const int8_t* xq, int ldq, int rows, const Slab& w
 #pragma unroll 2
       for (int kq = lane_k; kq < quads; kq += ks) {
         const int8_t* src = col + static_cast<long long>(kq) * w.quad;
-        const int4 a0 = *reinterpret_cast<const int4*>(src);
-        const int4 a1 = *reinterpret_cast<const int4*>(src + w.row);
-        const int4 a2 = *reinterpret_cast<const int4*>(src + 2 * w.row);
-        const int4 a3 = *reinterpret_cast<const int4*>(src + 3 * w.row);
+        int4 a0, a1, a2, a3;
+        if constexpr (!kMasked) {
+          a0 = *reinterpret_cast<const int4*>(src);
+          a1 = *reinterpret_cast<const int4*>(src + w.row);
+          a2 = *reinterpret_cast<const int4*>(src + 2 * w.row);
+          a3 = *reinterpret_cast<const int4*>(src + 3 * w.row);
+        } else {
+          const int k = 4 * kq;
+          const int n = w.n_valid - 16 * g;
+          a0 = masked16(src, k < w.k_valid, n);
+          a1 = masked16(src + w.row, k + 1 < w.k_valid, n);
+          a2 = masked16(src + 2 * w.row, k + 2 < w.k_valid, n);
+          a3 = masked16(src + 3 * w.row, k + 3 < w.k_valid, n);
+        }
         int cols[16];
         transpose4(a0.x, a1.x, a2.x, a3.x, cols);
         transpose4(a0.y, a1.y, a2.y, a3.y, cols + 4);
@@ -303,19 +358,25 @@ __device__ void push_cols(float* buf, int ld, int rows, int c0, int n) {
 
 // The weight slices of the cluster kernels' products, streamed into shared
 // memory. A block's slice of a [K, N] matrix is rows x width bytes, row r
-// at src + r * ld (width and ld multiples of 16, src 16-byte aligned).
+// at src + r * ld (width and ld multiples of 16, src 16-byte aligned); for
+// a masked product (a width that is no multiple of 16), read in place with
+// k_valid rows and n_valid columns of the matrix.
 struct Slice {
   const int8_t* src;
   int rows, width, ld;
+  int k_valid = 0, n_valid = 0;  // masked products only
 };
 
-// The FFN block's vectors and scales (its weights come from `take`).
+// The FFN block's vectors and scales (its weights come from `take`), and
+// the true widths where the products run over widths rounded up to 16:
+// e_valid columns of the rows, b1_valid of this block's hidden units.
 struct FfnWeights {
   const float* b1;  // this block's f/cs hidden units
   const float* b2;  // [e]
   const float* ln_scale;
   const float* ln_bias;
   float inv1, aq2, inv2;
+  int e_valid, b1_valid;
 };
 
 // out = LN(x + q8(relu(q8(x) W1 inv1 + b1)) W2 inv2 + b2) for the rows of
@@ -328,9 +389,13 @@ struct FfnWeights {
 // output by aq0 or aq1 for the next products). Shared memory of each
 // block: x, y, out [rows, e] (out may alias x or y), part [rows, e] ints,
 // red (slice_product), xq and xq2 [rows, ldq] bytes, ldq >= max(e, f/cs).
+// e and f are the products' widths (multiples of 16 cs); kMasked, the true
+// widths (w.e_valid, and f through w.b1_valid) may be less: the rows hold
+// zeros past them, the hidden units past f quantize to 0, the products are
+// masked, and the LayerNorm runs over the true E at a pitch of e.
 // The other blocks read `part` until the cluster's next sync: write it
 // again only after that.
-template <typename Take>
+template <bool kMasked = false, typename Take>
 __device__ void cluster_ffn(const FfnWeights& w, Take take, const float* x, float* y,
                             float* out, int* part, int* red, const int8_t* xq,
                             int8_t* xq2, int ldq, int rows, int e, int f,
@@ -339,19 +404,26 @@ __device__ void cluster_ffn(const FfnWeights& w, Take take, const float* x, floa
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
   const int fs = f / cs;
-  slice_product(xq, ldq, rows, take(0), e, fs, red, [&](int r, int n, int acc) {
-    xq2[r * ldq + n] = quant8(affine_value(acc, w.inv1, w.b1, n, true), w.aq2);
+  slice_product<kMasked>(xq, ldq, rows, take(0), e, fs, red, [&](int r, int n, int acc) {
+    xq2[r * ldq + n] = !kMasked || n < w.b1_valid
+                           ? quant8(affine_value(acc, w.inv1, w.b1, n, true), w.aq2)
+                           : 0;
   });
-  slice_product(xq2, ldq, rows, take(1), fs, e, red,
-                [&](int r, int n, int acc) { part[r * e + n] = acc; });
+  slice_product<kMasked>(xq2, ldq, rows, take(1), fs, e, red,
+                         [&](int r, int n, int acc) { part[r * e + n] = acc; });
   cluster.sync();
   for (int i = threadIdx.x; i < rows * e; i += kThreads) {
-    int acc = 0;
-    for (int src = 0; src < cs; ++src) acc += cluster.map_shared_rank(part, src)[i];
-    y[i] = affine_value(acc, w.inv2, w.b2, i % e, false);
+    const int c = i % e;
+    float v = 0.0f;
+    if (!kMasked || c < w.e_valid) {
+      int acc = 0;
+      for (int src = 0; src < cs; ++src) acc += cluster.map_shared_rank(part, src)[i];
+      v = affine_value(acc, w.inv2, w.b2, c, false);
+    }
+    y[i] = v;
   }
   __syncthreads();
-  add_layer_norm(y, x, w.ln_scale, w.ln_bias, out, rows, e, ldq, aq0, q0, aq1, q1);
+  add_layer_norm(y, x, w.ln_scale, w.ln_bias, out, rows, w.e_valid, ldq, aq0, q0, aq1, q1, e);
 }
 
 // Cluster sizes the kernels take: a power of two up to 16 (above 8 only
@@ -572,33 +644,38 @@ using SplitFloat = Cache<T, kSplitFloat>;
 // (only those heads' columns of out are written); sc: [rows, the heads
 // taken, t]. attn0, if not null, receives the head-0 probabilities [b, t]
 // (unrounded) where head 0 is taken. The head dim d = e / heads is a
-// multiple of 8 with d / 8 a power of two <= 32. Every sum runs in one
-// order whatever the heads taken, so a head's output does not depend on
-// which block computes it.
+// multiple of 8 up to 256. The rows of q and out are ld floats apart (0:
+// e). Every sum runs in one order whatever the heads taken, so a head's
+// output does not depend on which block computes it.
 template <typename C>
 __device__ void attention(const float* q, const C& cache,
                           const float* __restrict__ mask, int row0, int rows,
                           int heads, float scale, float* sc, float* out,
-                          float* __restrict__ attn0, int h0 = 0, int hstep = 1) {
+                          float* __restrict__ attn0, int h0 = 0, int hstep = 1,
+                          int ld = 0) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int t = cache.t;
-  const int e = cache.e;
+  const int e = ld > 0 ? ld : cache.e;
   const int d = cache.d;
   const int nh = h0 < heads ? (heads - h0 + hstep - 1) / hstep : 0;
   const int lanes_per_head = d / 8;  // a lane holds 8 elements of a head
-  const int per_warp = 32 / lanes_per_head;
+  int group = 1;  // lanes a (row, position, head) takes: a power of two
+  while (group < lanes_per_head) group *= 2;
+  const int per_warp = 32 / group;
   // Scores: lanes_per_head lanes per (row, position, head), 8 elements a
-  // lane; a warp's lanes read neighbouring heads of one K row.
+  // lane, in a group of `group` lanes (the rest idle where d / 8 is no power
+  // of two); a warp's lanes read neighbouring heads of one K row.
   const int items = rows * t * nh;
   for (int first = warp * per_warp; first < items; first += kWarps * per_warp) {
-    const int item = first + lane / lanes_per_head;
-    const bool valid = item < items;
+    const int item = first + lane / group;
+    const int part = lane % group;
+    const bool valid = item < items && part < lanes_per_head;
     const int hl = item % nh;
     const int rj = item / nh;
     const int r = rj / t;
     const int j = rj % t;
-    const int base = (h0 + hl * hstep) * d + 8 * (lane % lanes_per_head);
+    const int base = (h0 + hl * hstep) * d + 8 * part;
     const long long pos = static_cast<long long>(row0 + r) * t + j;
     float s = 0.0f;
     if (valid) {
@@ -609,9 +686,9 @@ __device__ void attention(const float* q, const C& cache,
       for (int i = 0; i < 8; ++i)
         s = __fadd_rn(s, __fmul_rn(kv[i], cache.query(q_row[base + i])));
     }
-    for (int offset = lanes_per_head / 2; offset > 0; offset /= 2)
+    for (int offset = group / 2; offset > 0; offset /= 2)
       s += __shfl_xor_sync(0xffffffffu, s, offset);
-    if (valid && lane % lanes_per_head == 0)
+    if (item < items && part == 0)
       sc[(r * nh + hl) * t + j] = __fadd_rn(cache.score(s, scale, pos), mask[pos]);
   }
   __syncthreads();
@@ -745,7 +822,7 @@ struct WeightStream {
 
   __device__ Slab take(int i) const {
     const Slice s = slice_of(i);
-    if (slots == 0) return row_major(s.src, s.ld);
+    if (slots == 0) return {s.src, 4 * s.ld, s.ld, 16, s.k_valid, s.n_valid};
     issue(i + slots - 1);  // into the buffer of slice i - 1, whose product is done
     if (slots == 3) {
       cp_async_wait<2>();

@@ -45,8 +45,6 @@ import torch
 from slimt_tpu_torch.ops import _build, decode_attn, fused_blocks, launches, qmm
 from slimt_tpu_torch.ops.encoder_layer import layer_norm, softmax
 from slimt_tpu_torch.ops.fused_blocks import (
-    EMB_DIMS,
-    FFN_DIMS,
     card_query,
     check_cluster,
     cluster_layout,
@@ -155,21 +153,21 @@ def decoder_layer_step_plain(layer, state, x, mask_add, kv, num_heads):
 
 
 def check_shapes(e: int, f: int, t: int, num_heads: int, layers: int) -> None:
-    """Raise ValueError on a shape the kernel does not take. T is bounded
-    only by the shared memory of one row, which the C entry knows
-    (`step_rows`; at tiny widths and cs=1, T <= 7008)."""
+    """Raise ValueError on a shape the kernel does not take. E is any
+    width whose heads are a multiple of 8 wide, F any width (the kernel
+    rounds both up to 16 and masks the rest, `fused_blocks.pad16`). T and
+    the widths are bounded by the shared memory of one row, which the C
+    entry knows (`step_rows`; at tiny widths and cs=1, T <= 7008)."""
     d = e // num_heads if num_heads > 0 else 0
     problems = []
-    if e not in EMB_DIMS:
-        problems.append(f"E={e} not in {EMB_DIMS}")
-    if f not in FFN_DIMS:
-        problems.append(f"F={f} not in {FFN_DIMS}")
+    if f < 1:
+        problems.append(f"F={f} < 1")
     if t < 1:
         problems.append(f"T={t} < 1")
     if num_heads <= 0 or e % num_heads or num_heads & (num_heads - 1):
         problems.append(f"heads={num_heads} must be a power of two dividing E")
-    elif not 8 <= d <= 256:
-        problems.append(f"head dim {d} outside 8..256")
+    elif not 8 <= d <= 256 or d % 8:
+        problems.append(f"head dim {d} outside the multiples of 8 in 8..256")
     if not 0 < layers <= MAX_LAYERS:
         problems.append(f"{layers} layers outside 1..{MAX_LAYERS}")
     if problems:
@@ -197,8 +195,8 @@ def step_rows(b: int, e: int, f: int, heads: int, t: int, cs: int = 1,
     rows = card_query(device, "slimt_whole_step_rows", fused_blocks.rows_per_block(b), cs,
                       e, f, heads, t)
     if rows == 0:
-        raise ValueError(f"whole decode step: T={t}: the scores of one row do "
-                         "not fit in shared memory")
+        raise ValueError(f"whole decode step: E={e} F={f} T={t}: one row (its "
+                         "scores over T and its rows of E) does not fit in shared memory")
     return rows
 
 
@@ -235,6 +233,17 @@ def _layer_tensors(layer) -> list:
         ffn["w1"]["q"], ffn["w1"]["b"], ffn["w2"]["q"], ffn["w2"]["b"],
         ffn["ln"]["scale"], ffn["ln"]["bias"],
     ]
+
+
+def _check_layer(layer, e: int, f: int) -> None:
+    """ValueError unless the layer's tensors are those of width E and
+    hidden width F (the kernels read them at those shapes)."""
+    shapes = [(e, e), (e,), (e, e), (e,), (e,), (e, e), (e,), (e, e), (e,), (e,), (e,),
+              (e, f), (f,), (f, e), (e,), (e,), (e,)]
+    for tensor, want in zip(_layer_tensors(layer), shapes):
+        if tuple(tensor.shape) != want:
+            raise ValueError(f"decoder layer at E={e} F={f}: a tensor is "
+                             f"{tuple(tensor.shape)}, the kernels read {want}")
 
 
 def _layer_scales(layer) -> list:
@@ -288,6 +297,8 @@ class StepPlan:
         b, t, e = k0.shape
         f = layers[0]["ffn"]["w1"]["q"].shape[1]
         check_shapes(e, f, t, num_heads, len(layers))
+        for layer in layers:
+            _check_layer(layer, e, f)
         if _cluster is not None:
             check_cluster(_cluster, e, f)
         if not k0.is_cuda:
@@ -417,6 +428,7 @@ def _layer_step_kernel(layer, state, x, mask_add, kv, num_heads, split: bool,
     t = k.shape[2] if split else k.shape[1]
     f = layer["ffn"]["w1"]["q"].shape[1]
     check_shapes(e, f, t, num_heads, 1)
+    _check_layer(layer, e, f)
     if _cluster is not None:
         check_cluster(_cluster, e, f)
     if not x.is_cuda:

@@ -16,6 +16,12 @@ Both blocks (and the whole decode step's layers kernel) run a tile of
 rows on a thread-block cluster of `cs` blocks that split their products;
 `cluster_layout` picks cs and the rows of a tile from the batch, and
 `fit_cluster` halves cs until the card holds every tile's cluster at once.
+
+E and F may be any width, as the JAX kernels' full-width blocks take: the
+kernels split and multiply over the widths rounded up to 16 (`pad16`) and
+mask what lies past the true ones. A row tile wider than a block's
+shared memory holds raises ValueError (`fit_cluster`); nothing is sent
+to the plain version instead.
 """
 
 from __future__ import annotations
@@ -28,10 +34,6 @@ import torch
 
 from slimt_tpu_torch.ops import _build, launches, qmm
 from slimt_tpu_torch.ops.encoder_layer import layer_norm
-
-# Shapes the kernels take (and the whole decode step's).
-EMB_DIMS = (256, 512)
-FFN_DIMS = (1536, 2048)
 
 
 def _affine(p: dict, x: torch.Tensor, mode=qmm.AFFINE) -> torch.Tensor:
@@ -65,22 +67,31 @@ def rows_per_block(m: int) -> int:
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 
 
+def pad16(n: int) -> int:
+    """n rounded up to a multiple of 16: the width the kernels' products
+    and cluster split run over (zeros past n)."""
+    return -(-n // 16) * 16
+
+
 def cluster_layout(b: int, e: int, f: int) -> tuple:
     """(cs, rows) for B rows of width E and hidden width F: rows a tile
     (`rows_per_block`) and the largest cluster size whose blocks split E
-    and F in multiples of 16 columns (16 at tiny and base widths). What
+    and F, each rounded up to 16 (`pad16`), in multiples of 16 columns (16
+    at tiny and base widths, 2 at E=32, 1 at E=40). What
     the card holds at once decides the rest (`fit_cluster`): at B=512 on
     the H100, one block a tile for the layers kernel, clusters of 2 for
     the FFN block, which holds several blocks an SM there."""
-    sizes = [cs for cs in CLUSTER_SIZES if not (e % (16 * cs) or f % (16 * cs))]
+    ep, fp = pad16(e), pad16(f)
+    sizes = [cs for cs in CLUSTER_SIZES if not (ep % (16 * cs) or fp % (16 * cs))]
     return max(sizes), rows_per_block(b)
 
 
 def check_cluster(cs: int, e: int, f: int) -> None:
     """ValueError on a cluster size the kernels do not take at these widths."""
-    if cs not in CLUSTER_SIZES or e % (16 * cs) or f % (16 * cs):
+    if cs not in CLUSTER_SIZES or pad16(e) % (16 * cs) or pad16(f) % (16 * cs):
         raise ValueError(f"a cluster of {cs} blocks: sizes {CLUSTER_SIZES} whose "
-                         f"blocks take multiples of 16 of E={e} and F={f}")
+                         f"blocks take multiples of 16 of E={e} and F={f}, each "
+                         "rounded up to 16")
 
 
 def fit_cluster(capacity, cs: int, tiles: int, what: str, forced: bool = False) -> int:
@@ -88,9 +99,17 @@ def fit_cluster(capacity, cs: int, tiles: int, what: str, forced: bool = False) 
     a row tile, the card holds at once: capacity(cs) >= tiles, where
     capacity is what the C entry reports (a second wave of clusters would
     double the time). One block (cs = 1) and a forced size need only fit
-    once; where they do not, raise instead of shrinking."""
+    once; where they do not, raise instead of shrinking. A negative
+    capacity is minus the shared memory a block of such a cluster would
+    need, more than a block may hold: smaller clusters need more, so the
+    widths are past the kernel's limit (ValueError)."""
     while True:
         have = capacity(cs)
+        if have < 0:
+            raise ValueError(
+                f"{what}: a row tile on a cluster of {cs} blocks needs {-have} bytes of "
+                "shared memory a block, more than a block of this card holds: the "
+                "widths are past the kernel's limit")
         if have >= 1 and (forced or cs == 1 or have >= tiles):
             return cs
         if forced or cs == 1:
@@ -132,11 +151,13 @@ def ffn_layout(m: int, e: int, f: int, device: int, _cluster=None) -> tuple:
     return cs, rows
 
 
+def _check_shape(name: str, tensor, want: tuple, e: int, f=None) -> None:
+    if tuple(tensor.shape) != want:
+        widths = f"E={e}" + ("" if f is None else f", F={f}")
+        raise ValueError(f"{name} must be {want} at {widths}, got {tuple(tensor.shape)}")
+
+
 def _check(x, tensors, e: int, f=None) -> None:
-    if e not in EMB_DIMS:
-        raise ValueError(f"E={e} not in {EMB_DIMS}")
-    if f is not None and f not in FFN_DIMS:
-        raise ValueError(f"F={f} not in {FFN_DIMS}")
     if not x.is_cuda:
         raise ValueError(f"the kernel takes CUDA tensors, got {x.device}")
     for t in (x,) + tuple(tensors):
@@ -161,6 +182,10 @@ def ssru_kernel(x, state, rnn, _cluster=None):
     wf, w, ln = rnn["wf"], rnn["w"], rnn["ln"]
     if _cluster is not None:
         check_cluster(_cluster, e, e)
+    for name, tensor, want in (("Wf", wf["q"], (e, e)), ("W", w["q"], (e, e)),
+                               ("bf", wf["b"], (e,)), ("the LN scale", ln["scale"], (e,)),
+                               ("the LN bias", ln["bias"], (e,))):
+        _check_shape(name, tensor, want, e)
     _check(x, (state, wf["q"], wf["b"], w["q"], ln["scale"], ln["bias"]), e)
     if tuple(state.shape) != (m, e) or state.dtype != torch.float32:
         raise ValueError(f"state must be float32 [{m}, {e}]")
@@ -193,6 +218,11 @@ def ffn_kernel(x, ffn, _cluster=None):
     f = w1["q"].shape[1]
     if _cluster is not None:
         check_cluster(_cluster, e, f)
+    for name, tensor, want in (("W1", w1["q"], (e, f)), ("W2", w2["q"], (f, e)),
+                               ("b1", w1["b"], (f,)), ("b2", w2["b"], (e,)),
+                               ("the LN scale", ln["scale"], (e,)),
+                               ("the LN bias", ln["bias"], (e,))):
+        _check_shape(name, tensor, want, e, f)
     _check(x, (w1["q"], w1["b"], w2["q"], w2["b"], ln["scale"], ln["bias"]), e, f)
     cs, rows = ffn_layout(m, e, f, x.device.index, _cluster)
     out = torch.empty_like(x)

@@ -15,15 +15,19 @@ Modes:
   reduced    token agreement of the reduced-precision options with the
              exact path over several random-weight models (a worst case:
              random weights give near-tied logits).
+  bleu       corpus BLEU of a hypothesis file against a reference file,
+             one segment a line, by slimt_tpu_torch/bleu.py (sacrebleu's
+             scoring, which scripts/parity.py calls; neither machine has
+             sacrebleu); prints its JSON.
 
 `--device` picks where the port runs: the card (default) or the CPU.
-`bleu` waits: it needs sacrebleu.
 
 Usage:
     python -m slimt_tpu_torch.parity oracle [--lines 64] [--device cpu]
     python -m slimt_tpu_torch.parity matrix [--lines 16]
     python -m slimt_tpu_torch.parity providers [--lines 64]
     python -m slimt_tpu_torch.parity reduced [--lines 32] [--models 5]
+    python -m slimt_tpu_torch.parity bleu HYPOTHESES REFERENCES
 """
 
 from __future__ import annotations
@@ -192,6 +196,21 @@ def mode_reduced(args) -> int:
     return 1 if failures else 0
 
 
+def mode_bleu(args) -> int:
+    """Print the corpus BLEU of args.hypothesis against args.reference."""
+    import json
+
+    from slimt_tpu_torch.bleu import corpus_bleu
+
+    with open(args.hypothesis, encoding="utf-8") as f:
+        hyps = [line.rstrip("\n") for line in f]
+    with open(args.reference, encoding="utf-8") as f:
+        refs = [line.rstrip("\n") for line in f]
+    score, detail = corpus_bleu(hyps, refs)
+    print(json.dumps({"bleu": round(score, 4), **detail}))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m slimt_tpu_torch.parity")
     sub = parser.add_subparsers(dest="mode", required=True)
@@ -214,6 +233,10 @@ def main(argv=None) -> int:
     r.set_defaults(fn=mode_reduced)
     for sp in (o, p, m, r):
         sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    b = sub.add_parser("bleu")
+    b.add_argument("hypothesis")
+    b.add_argument("reference")
+    b.set_defaults(fn=mode_bleu)
     args = parser.parse_args(argv)
     return args.fn(args)
 

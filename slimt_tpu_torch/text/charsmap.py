@@ -12,7 +12,7 @@ unchanged. (HF tokenizers' Precompiled normalizes grapheme-by-grapheme
 instead — a documented quirk of its reimplementation; the two agree on
 single-grapheme rules, which is what real charsmaps like nmt_nfkc
 contain.) The native C++ backend implements the same traversal
-(native/slimt_host.cpp Charsmap); this module is the pure-Python
+(slimt_tpu_torch/native/slimt_host.cpp Charsmap); this module is the pure-Python
 fallback, parity-tested against it.
 """
 

@@ -100,9 +100,9 @@ class Vocabulary:
                 if backend == "hf":
                     raise
                 self._hf = None
-        # Native C++ segmenter (native/slimt_host.cpp). Implements the
-        # full normalization, including the precompiled charsmap
-        # (darts-trie longest-match, sentencepiece Normalizer
+        # Native C++ segmenter (slimt_tpu_torch/native/slimt_host.cpp).
+        # Implements the full normalization, including the precompiled
+        # charsmap (darts-trie longest-match, sentencepiece Normalizer
         # semantics) when the model ships one.
         self._native = None
         if backend in ("auto", "native"):

@@ -273,3 +273,60 @@ def test_card_query_asks_the_named_card_once(monkeypatch):
         assert fused_blocks.card_query.cache_info().maxsize is not None
     finally:
         fused_blocks.card_query.cache_clear()
+
+
+# The widths of the repo's own configurations (crosscheck and parity
+# cells, tiny11, base) and a padded one: (E, F, heads, the chooser's cs).
+REPO_WIDTHS = [(32, 64, 2, 2), (40, 80, 1, 1), (64, 128, 4, 4), (64, 256, 8, 4),
+               (256, 1536, 8, 16), (512, 2048, 8, 16)]
+
+
+@pytest.mark.parametrize("e,f,heads,cs", REPO_WIDTHS, ids=lambda v: str(v))
+@pytest.mark.parametrize("b", [1, 64, 65, 512])
+def test_cluster_layout_at_every_width(b, e, f, heads, cs):
+    """The kernels split E and F rounded up to 16 (E=40 runs at 48, whose
+    three 16-column groups take one block a tile)."""
+    assert fused_blocks.pad16(e) % 16 == 0 and 0 <= fused_blocks.pad16(e) - e < 16
+    assert fused_blocks.cluster_layout(b, e, f) == (cs, fused_blocks.rows_per_block(b))
+    assert fused_blocks.cluster_layout(b, e, e)[0] == max(  # the SSRU block's
+        size for size in fused_blocks.CLUSTER_SIZES if fused_blocks.pad16(e) % (16 * size) == 0)
+    fused_blocks.check_cluster(cs, e, f)
+    fused_blocks.check_cluster(1, e, f)
+    for bigger in (s for s in fused_blocks.CLUSTER_SIZES if s > cs):
+        with pytest.raises(ValueError, match=f"cluster of {bigger} blocks"):
+            fused_blocks.check_cluster(bigger, e, f)
+
+
+@pytest.mark.parametrize("e,f,heads,cs", REPO_WIDTHS, ids=lambda v: str(v))
+def test_gates_take_every_width_before_the_card(no_build, e, f, heads, cs):
+    """No width gate is left before a launch: at every width the
+    wrappers pass their shape checks and stop only at the CPU tensor
+    (on the card they launch: tests/test_torch_gpu.py)."""
+    dstep.check_shapes(e, f, 64, heads, 2)
+    ffn = _params(e, f)["decoder"][0]["ffn"]
+    rnn = _params(e, f)["decoder"][0]["rnn"]
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_blocks.ffn_kernel(torch.zeros((3, e)), ffn, _cluster=cs)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_blocks.ssru_kernel(torch.zeros((3, e)), torch.zeros((3, e)), rnn)
+
+
+@pytest.mark.parametrize("e,heads", [(40, 2), (40, 8), (96, 8), (256, 3)])
+def test_check_shapes_keeps_the_head_limits(e, heads):
+    with pytest.raises(ValueError, match="whole decode step"):
+        dstep.check_shapes(e, 80, 16, heads, 2)
+
+
+def test_fit_cluster_raises_past_a_blocks_shared_memory():
+    """A negative capacity is the bytes a block would need past what it
+    may hold: a smaller cluster needs more, so the width is past the
+    kernel's limit and raises ValueError at once."""
+    asked = []
+
+    def capacity(cs):
+        asked.append(cs)
+        return -300000
+
+    with pytest.raises(ValueError, match="300000 bytes of shared memory"):
+        fused_blocks.fit_cluster(capacity, 16, 1, "test")
+    assert asked == [16]

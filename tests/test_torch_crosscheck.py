@@ -21,6 +21,7 @@ The tests that run the harness skip where it cannot start here.
 """
 
 import importlib.util
+import json
 import os
 import tempfile
 
@@ -180,3 +181,172 @@ def test_parity_oracle_and_providers_pass(capsys):
     out = capsys.readouterr().out
     assert "oracle agreement: 6/6" in out
     assert "xla_int8 vs pallas): 6/6" in out and "f32 dequantized" in out
+
+
+# The split, process, e2e and bleu modes against scripts/crosscheck.py's.
+
+
+def test_text_corpora_equal_the_jax_script(jcc):
+    assert cc.SPLIT_DOCS == jcc.SPLIT_DOCS
+    assert cc.PREFIX_FILE == jcc.PREFIX_FILE
+
+
+def test_synth_package_equals_the_jax_cli(tmp_path):
+    """The package the e2e and bleu modes make, byte for byte the JAX
+    package's `synth`: the reference CLI reads the same files."""
+    from slimt_tpu import cli as jcli
+
+    port = cc.synth_package(str(tmp_path / "port"))
+    assert jcli.main(["synth", "--out", str(tmp_path / "jax")]) == 0
+    for name in ("model.bin", "vocab.spm", "shortlist.bin"):
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
+
+
+def _args(**kw):
+    import types
+
+    base = dict(verbose=False, device="cpu", bleu_package=None, bleu_model="model.bin",
+                bleu_vocab="vocab.spm", bleu_source=None, bleu_reference=None,
+                bleu_lines=cc.BLEU_LINES)
+    return types.SimpleNamespace(**{**base, **kw})
+
+
+@NEEDS_HARNESS
+@pytest.mark.parametrize("mode", ["split", "process"])
+def test_text_mode_counts_equal_the_jax_functions(jcc, capsys, mode):
+    got = getattr(cc, f"mode_{mode}")(_args())
+    want = getattr(jcc, f"mode_{mode}")(_args())
+    out = capsys.readouterr().out.splitlines()
+    assert got == want == 0
+    assert out[0] == out[1] and out[0].startswith(("splitter boundaries: 96/96",
+                                                   "text pipeline: 96/96"))
+
+
+def test_text_modes_say_why_without_the_harness(monkeypatch, capsys):
+    monkeypatch.setattr(cc, "harness_runs", lambda: False)
+    assert cc.main(["split"]) == 1 and cc.main(["process"]) == 1
+    assert capsys.readouterr().out.count("does not start here") == 2
+
+
+def _in_process(main, argv, text):
+    """(exit code, stdout) of a package's cli.main(argv) with stdin
+    replaced, in this process; stdin reads with universal newlines, as a
+    child process's text-mode stdin does."""
+    import contextlib
+    import io
+    import sys
+
+    out = io.StringIO()
+    saved = sys.stdin
+    sys.stdin = io.StringIO(text, newline=None)
+    try:
+        with contextlib.redirect_stdout(out):
+            code = main(list(argv))
+    finally:
+        sys.stdin = saved
+    return code, out.getvalue()
+
+
+@pytest.fixture(scope="module")
+def jax_cli_runs(jcc):
+    """scripts/crosscheck.py's mode_e2e and mode_bleu, run as functions,
+    and the port's (--device cpu): (the JAX results, the port's, and each
+    reference CLI run the JAX modes made, keyed by its arguments after
+    --root and its input). Each package's CLI runs in this process
+    (`python -m slimt_tpu ...` through slimt_tpu.cli.main, the port's
+    `translate` through slimt_tpu_torch.cli.main), so neither pays an
+    interpreter's start a call; the port reads the reference CLI's lines
+    from crosscheck/reference_cli.json, which
+    test_recorded_cli_default_width_equals_a_fresh_run holds to the JAX
+    modes' fresh runs."""
+    import subprocess
+    import sys
+    import types
+
+    from slimt_tpu import cli as jcli
+    from slimt_tpu_torch import cli as port_cli
+
+    runs = {}
+    printed = []
+
+    def run(cmd, **kwargs):
+        if cmd[0].endswith("slimt_ref_cli"):
+            proc = subprocess.run(cmd, **kwargs)
+            runs[tuple(cmd[3:]), kwargs["input"]] = proc.stdout.splitlines()[4:]
+            return proc
+        assert cmd[:3] == [sys.executable, "-m", "slimt_tpu"], cmd
+        code, out = _in_process(jcli.main, cmd[3:], kwargs.get("input", ""))
+        if kwargs.get("check") and code:
+            raise subprocess.CalledProcessError(code, cmd, out)
+        return types.SimpleNamespace(returncode=code, stdout=out, stderr="")
+
+    def port_translate(argv, text):
+        code, out = _in_process(port_cli.main, ["translate", *argv], text)
+        assert code == 0
+        return out
+
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(jcc, "subprocess", types.SimpleNamespace(
+            run=run, CalledProcessError=subprocess.CalledProcessError))
+        patch.setattr(jcc, "print", lambda *a, **k: printed.append(" ".join(map(str, a))),
+                      raising=False)
+        patch.syspath_prepend(os.path.join(REPO, "scripts"))  # mode_bleu imports bleu
+        patch.setenv("SLIMT_TPU_BATCH_BACKEND", "native")
+        results = {"jax_e2e": jcc.mode_e2e(_args()), "jax_bleu": jcc.mode_bleu(_args())}
+        patch.setattr(cc, "cli_runs", lambda: False)
+        results["port_e2e"] = cc.mode_e2e(_args(), translate=port_translate)
+        results["port_bleu"] = cc.bleu_report(_args(), translate=port_translate)
+    results["jax_bleu_json"] = json.loads(next(p for p in printed if p.startswith("{")))
+    return results, runs
+
+
+def test_e2e_count_equals_the_jax_function(jax_cli_runs):
+    results, _ = jax_cli_runs
+    assert results["port_e2e"] == results["jax_e2e"] == 0
+
+
+def test_bleu_json_equals_the_jax_mode(jax_cli_runs):
+    """At the default width every line agrees, BLEU 100.0 three times, as
+    the JAX mode reads; its keys renamed slimt_tpu_torch_*."""
+    results, _ = jax_cli_runs
+    want = results["jax_bleu_json"]
+    got = results["port_bleu"]
+    assert results["jax_bleu"] == 0
+    assert got == {key.replace("slimt_tpu_", "slimt_tpu_torch_"): value
+                   for key, value in want.items()}
+    assert got["bleu_slimt_tpu_torch_exact"] == got["bleu_reference_cli"] == 100.0
+    assert got["line_exact_vs_reference_exact"] == 1.0 and got["lines"] == cc.BLEU_LINES
+
+
+def test_recorded_cli_default_width_equals_a_fresh_run(jax_cli_runs):
+    """crosscheck/reference_cli.json, which serves a machine where the
+    reference CLI cannot start, holds what the CLI gives here: every run
+    at the default width (the e2e documents, the bleu leg) against the
+    fresh runs of the JAX modes on the same package bytes and input. The
+    full-width bleu leg (~7 minutes of the CLI) is `record`'s alone."""
+    _, fresh = jax_cli_runs
+    recorded = cc.recorded_cli()
+    assert len(recorded) == len(cc.e2e_documents()) + len(cc.BLEU_WIDTHS)
+    checked = 0
+    for what, pkg, args, text in cc.cli_runs_to_record():
+        if what.startswith("bleu") and "E=64 " not in what:
+            continue
+        assert recorded[cc.cli_key(pkg, args, text)] == fresh[tuple(args), text], what
+        checked += 1
+    assert checked == len(cc.e2e_documents()) + 1
+
+
+def test_run_reference_cli_reads_the_record_where_the_cli_cannot_start(
+        tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(cc, "cli_runs", lambda: False)
+    pkg = cc.synth_package(str(tmp_path / "pkg"))
+    doc, html = cc.e2e_documents()[2]
+    lines = cc.run_reference_cli(pkg, cc.e2e_cli_args(html), doc)
+    assert lines and "reference_cli.json" in cc.reference_cli_source()
+    with pytest.raises(RuntimeError, match="record"):
+        cc.run_reference_cli(pkg, cc.e2e_cli_args(html), doc + " more")
+
+
+def test_parity_matrix_passes(capsys):
+    assert parity.main(["matrix", "--device", "cpu", "--lines", "8"]) == 0
+    assert "FAIL" not in capsys.readouterr().out

@@ -310,9 +310,9 @@ def test_fused_step_bfloat16_cache_raises():
 
 @pytest.mark.parametrize(
     "shape",
-    # T=0; T past the 1-row shared-memory bound is the C entry's
-    # (test_torch_gpu.py::test_whole_step_rows).
-    [(32, 1536, 16, 8, 2), (256, 1024, 16, 8, 2), (256, 1536, 0, 8, 2),
+    # F=0; T=0; T past the 1-row shared-memory bound is the C entry's
+    # (test_torch_gpu.py::test_whole_step_rows). Any F >= 1 is taken.
+    [(32, 1536, 16, 8, 2), (256, 0, 16, 8, 2), (256, 1536, 0, 8, 2),
      (256, 1536, 16, 6, 2), (256, 1536, 16, 64, 2), (512, 2048, 16, 8, 9)],
 )
 def test_check_shapes_rejects(shape):

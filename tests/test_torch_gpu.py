@@ -1430,3 +1430,139 @@ def test_capi_translates_on_the_card(door_package):
         reference.close()
         capi.release(handle)
         capi.release(service)
+
+
+# The widths of the repo's own configurations (crosscheck and parity
+# cells, tiny11, base) and one padded case (E=40, F=80: rows at a pitch
+# of 48, masked products): (E, F, heads).
+BLOCK_WIDTHS = [(32, 64, 2), (40, 80, 1), (64, 128, 4), (64, 256, 8), (256, 1536, 8),
+                (512, 2048, 8)]
+# A row within the kernels' 2e-5 unless an int8 rounding flips against
+# the plain version's sum order (a step of an activation quantum, well
+# under FLIP_BOUND); such rows stay few.
+FLIP_BOUND, WITHIN_MIN = 0.25, 0.97
+
+
+def _rows_ok(err):
+    assert float(err.max()) <= FLIP_BOUND, float(err.max())
+    assert float((err <= 2e-5).float().mean()) >= WITHIN_MIN
+
+
+@pytest.mark.parametrize("emb,ffn,heads", BLOCK_WIDTHS, ids=lambda v: str(v))
+@pytest.mark.parametrize("m", [1, 33, 130])
+def test_fused_blocks_at_every_width(card, emb, ffn, heads, m):
+    """#5 and #6 launch at every width the JAX kernels take, hold to their
+    plain versions and, on one block a tile, bit-equal the chooser's
+    cluster layout."""
+    layer = _decoder_layer(card, emb, ffn, seed=m + emb)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(m + ffn)
+    x = torch.randn((m, emb), device=card, generator=gen) * 2.0
+    c = torch.randn((m, emb), device=card, generator=gen)
+    before = (fused_blocks.ssru_kernel.launches, fused_blocks.ffn_kernel.launches)
+    h, c_t = fused_blocks.ssru_kernel(x, c, layer["rnn"])
+    y = fused_blocks.ffn_kernel(x, layer["ffn"])
+    assert (fused_blocks.ssru_kernel.launches, fused_blocks.ffn_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+    one = fused_blocks.ssru_kernel(x, c, layer["rnn"], _cluster=1)
+    y_one = fused_blocks.ffn_kernel(x, layer["ffn"], _cluster=1)
+    want_h, want_c = fused_blocks.ssru_plain(x, c, layer["rnn"])
+    want_y = fused_blocks.ffn_plain(x, layer["ffn"])
+    torch.cuda.synchronize()
+    assert torch.equal(h, one[0]) and torch.equal(c_t, one[1]) and torch.equal(y, y_one)
+    _rows_ok(torch.maximum((h - want_h).abs().amax(-1), (c_t - want_c).abs().amax(-1)))
+    _rows_ok((y - want_y).abs().amax(-1))
+
+
+def _width_step_case(card, emb, ffn, heads, b, t, seed):
+    config = ModelConfig(encoder_layers=1, decoder_layers=2, num_heads=heads)
+    params = params_from_numpy(load_weights(load_items(synthetic_model_bytes(
+        config=config, vocab_size=STEP_VOCAB, emb_dim=emb, ffn_dim=ffn, seed=seed)), config),
+        card)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    layers = params["decoder"]
+    x = torch.randn((b, 1, emb), device=card, generator=gen) * 2.0
+    states = tuple(torch.randn((b, 1, emb), device=card, generator=gen) for _ in layers)
+    mask = torch.ones((b, t), device=card)
+    mask[0, t // 2:] = 0.0
+    mask_add = ((1.0 - mask) * -99999999.0)[:, None, None, :]
+    caches = tuple({"k": torch.randint(-32767, 32768, (b, t, emb), device=card,
+                                       dtype=torch.int16, generator=gen),
+                    "v": torch.randint(-32767, 32768, (b, t, emb), device=card,
+                                       dtype=torch.int16, generator=gen),
+                    "kqi": torch.full((b, t), 1.0 / 32767.0, device=card),
+                    "vqi": torch.full((b, t), 1.0 / 32767.0, device=card)} for _ in layers)
+    return (layers, states, x, mask_add, caches, heads, tfm.prepare_output_projection(params),
+            params["out"]["aq"], tfm.output_inv(params))
+
+
+@pytest.mark.parametrize("emb,ffn,heads", BLOCK_WIDTHS, ids=lambda v: str(v))
+@pytest.mark.parametrize("b,t", [(1, 16), (33, 64)])
+def test_whole_step_at_every_width(card, emb, ffn, heads, b, t):
+    """#7 launches at every width of BLOCK_WIDTHS, holds its states and
+    attn0 to the plain step, and its cluster layout bit-equals one block a
+    tile; differing choices are near ties of the plain logits."""
+    args = _width_step_case(card, emb, ffn, heads, b, t, seed=b + emb)
+    before = dstep.whole_step_kernel.launches
+    choice, states, attn0 = dstep.whole_decode_step(*args)
+    assert dstep.whole_step_kernel.launches == before + 1
+    one = dstep.whole_step_kernel(*args, _cluster=1)
+    y, want_states, want_attn0 = dstep.layers_plain(*args[:6])
+    want = dstep.argmax_affine_plain(y, *args[6], args[7], args[8])
+    torch.cuda.synchronize()
+    assert torch.equal(choice, one[0]) and torch.equal(attn0, one[2])
+    assert all(torch.equal(a, b) for a, b in zip(states, one[1]))
+    err = (attn0 - want_attn0).abs().amax(-1)
+    for got, ref in zip(states, want_states):
+        err = torch.maximum(err, (got - ref).abs().amax((1, 2)))
+    _rows_ok(err)
+    differ = (choice != want).nonzero().flatten()
+    if len(differ):
+        logits = qmm.affine_plain(y, *args[6], args[7], args[8])[differ]
+        picked = logits.gather(1, choice[differ].long()[:, None])[:, 0]
+        assert float((logits.amax(-1) - picked).max()) <= 1e-3
+
+
+def test_widths_past_a_blocks_shared_memory_raise(card):
+    """A row tile that no block of a cluster can hold raises ValueError
+    naming its shared memory, before any launch; nothing falls to the
+    plain version."""
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        fused_blocks.ssru_layout(1, 20000, card.index or 0)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        fused_blocks.ffn_layout(1, 20000, 80000, card.index or 0)
+
+
+def test_jni_translates_on_the_card(door_package):
+    """The port's JNI binding through its fake-JVM host with no device
+    field: the model runs on the card, and its lines equal the C ABI's
+    object table on the card for the same spec."""
+    import json
+    import os
+    import subprocess
+
+    from slimt_tpu_torch import capi
+    from slimt_tpu_torch.ops import _native_build
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    texts = ["hello world .", "the cat sat ."]
+    env = dict(os.environ, SLIMT_TPU_TORCH_PYTHONPATH=repo)
+    env.pop("SLIMT_JNI_DEVICE", None)
+    out = subprocess.run(
+        [str(_native_build.jni_host_path()), str(_native_build.jni_library_path()),
+         door_package, "6", "2", "2", "8", *texts],
+        capture_output=True, text=True, timeout=600, env=env)
+    assert out.returncode == 0, out.stderr
+    spec = {"preset": "tiny", "encoder_layers": 6, "decoder_layers": 2,
+            "feed_forward_depth": 2, "num_heads": 8, "split_mode": "sentence",
+            "model": f"{door_package}/model.bin", "vocabulary": f"{door_package}/vocab.spm",
+            "shortlist": f"{door_package}/shortlist.bin"}
+    service = capi.service_create(1, 64)
+    model = capi.model_create(json.dumps(spec))
+    try:
+        assert capi._get(model).device.type == "cuda"
+        assert out.stdout.splitlines() == capi.translate(service, model, texts)
+    finally:
+        capi.release(model)
+        capi.release(service)
