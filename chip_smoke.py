@@ -53,7 +53,13 @@ without printing a result:
              beside the plain versions' (and, for the two attention
              kernels, one scaled_dot_product_attention call's), each with
              its bound and a device time from a CUDA graph replay, the
-             two layouts timed in turns (new, one, one, new);
+             two layouts timed in turns (new, one, one, new); the
+             variants a mesh runs: #8's and #9's query slice (each seq
+             rank's rows bit-equal to the full kernel's rows, within the
+             tolerance of the plain version) and #4's key variant on 2
+             and 4 vocab shards (each shard bit-equal to plain, the max
+             of the shards' keys the unsharded choice), timed at T/2 query
+             rows and at a half-vocabulary shard;
 4. serve   — a tiny11-width model (32k vocab, emb 256, ffn 1536, 6+2
              layers, 8 heads; random weights from seed 0) answers
              request batches of text through Model.forward_async,
@@ -140,13 +146,29 @@ without printing a result:
              #7's kernels, in a process of its own (a trace lacking the
              kernel of a launch is printed and taken again in a new
              process, up to TRACE_PROCESSES times);
+   mesh    — (after the knobs, parity, bleu and trace phases and the
+             encoder timings) slimt_tpu_torch.entry.dryrun_multichip(4) at
+             the tiny11 widths on ranks that go round the cards (one card:
+             [cuda:0] * 4): the toy and the flagship DP x TP steps (exact
+             and serving numerics), DP with the whole layer (#2) and the
+             whole step (#7) per data shard, the two-stage pipeline on two
+             streams, (data x seq) at T=64 (#8's query slice) and T=1024
+             (#9's); each leg's tokens bit-equal to one card's and the
+             kernels of entry.LEG_KERNELS launched in its mesh run (#1 in
+             ACCUMULATOR mode, #2, #3, #4's key variant, #7, #8/#9's query
+             slice), its wall beside one card's for the same batch (a
+             virtual mesh on one card: the shards share one device); then
+             two `python -m slimt_tpu_torch.parallel.demo` processes on the
+             card over gloo, their translations identical and equal to one
+             Model's; with two cards or more also over NCCL (on one card it
+             prints that the legs over distinct cards and NCCL did not run);
 9. check   — outputs well formed; CUDA tokens against the plain CPU
              path (>= 99% equal and none stopping short of the other;
              on the long path's arrays and the bfloat16 and int8 kv
              configs, one row may part instead where the plain logits
              of the two choices lie within TIE_GAP) for every path and
              kv config: 16 segments (on `kv`
-             the decode capped at 0.5 x T), on `long`
+             the decode capped at 0.25 x T), on `long`
              2 segments of ~900 tokens and the 4 forward_async_arrays
              rows at T=1024, the CPU's decode capped at 0.1 x T;
              forward wall time and tokens/s at B=64 and B=512 (T=64)
@@ -181,7 +203,10 @@ torch.profiler, encoder_layer launches_per_layer and split_ms, its
 launches a layer and each one's device ms at B=512 T=64 from
 torch.profiler; qmm_affine also lists its times at the six timed shapes
 under "shapes"; every kernel lists knobs_launches, its launches under
-each knob), the last line {"ok": true, "device": {...}}.
+each knob; argmax_affine, fused_sdpa and blockwise_attention list
+mesh_variant, the key variant's or the query slice's checks, times, bound
+and launches in the mesh phase; qmm_affine lists accumulator_launches_mesh,
+its ACCUMULATOR launches there), the last line {"ok": true, "device": {...}}.
 
 `python3 chip_smoke.py --unroll` runs no check: the B=1 T=32 latency
 line and the B=64 and B=512 T=64 forward lines of the graph loop at k
@@ -195,7 +220,8 @@ kernel.
 one traced forward of the package in ROOT, printed as one JSON line.
 
 `python3 chip_smoke.py --layouts OUT [KERNEL ...]` runs no check: it
-times #7 (the whole step, T=64, full vocabulary), #5 (the FFN block),
+times #8 and #9 at the kernels record's shapes, #7 (the whole step,
+T=64, full vocabulary), #5 (the FFN block),
 #10 (split float32 cache, T=64) and #6 (the SSRU block) at B in
 LAYOUT_BATCHES, #4 (the argmax, exact and packed_fp16, full
 vocabulary and shortlists of 1024 and 3072) at B in ARGMAX_BATCHES, #2
@@ -205,8 +231,8 @@ script, with the wrapper's own layout and, where the package can force
 one, on every cluster size the card schedules (#3: each of its two
 kernels): CUDA-event ms and the
 median of three graph replays (for #4 and #2 also each kernel's device
-ms and launches from torch.profiler; for #2 and #3 the SHA-256 of the
-output on inputs from seeded generators), written as one JSON object to
+ms and launches from torch.profiler; for #2, #3, #4, #8 and #9 the SHA-256
+of the output on inputs from seeded generators), written as one JSON object to
 OUT. KERNEL names limit it to some of LAYOUT_KERNELS. A copy of the
 script beside another tree's package times that tree; run both in one
 call, in turns (equal digests show equal outputs).
@@ -1325,6 +1351,239 @@ def check_blockwise(torch, att, dev):
         f"scaled_dot_product_attention {times['library_ms']:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({by})")
     return worst, times
+
+
+def check_query_slices(torch, att, enc, dev):
+    """#8's and #9's query slice (sequence parallelism: a seq rank's rows
+    against every key): each rank's rows bit-equal to the full kernel's
+    rows (B 33 and 512 at T 64 and 100, E 256 and 512, seq 2 and 4; T 272
+    and 1024 for #9), within SDPA_TOL (#9: its own tolerance) of the plain
+    version on the real rows; timed at the record's shapes with T / 2 query
+    rows (seq 2) beside the plain version and the bound. Returns (worst
+    |diff| against plain, {"fused_sdpa": times, "blockwise_attention":
+    times})."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    worst = 0.0
+    cases = 0
+    for e, b, t in ((EMB, 33, 64), (EMB, 512, 64), (512, 33, 100)):
+        q, k, v = (torch.randn((b, t, e), device=dev, generator=gen) for _ in range(3))
+        mask_add, real = padded_mask(torch, dev, b, t)
+        full = att.fused_sdpa_kernel(q, k, v, mask_add, HEADS)
+        for seq in (2, 4):
+            n = -(-t // seq)
+            for lo in range(0, t, n):
+                rows = min(n, t - lo)
+                got = att.fused_sdpa_rows_kernel(q[:, lo:lo + rows].contiguous(), k, v,
+                                                 mask_add, HEADS)
+                if not torch.equal(got, full[:, lo:lo + rows]):
+                    raise RuntimeError(f"fused SDPA rows B={b} T={t} E={e} [{lo}, +{rows}): "
+                                       "not bit-equal to the full kernel's rows")
+                want = att.sdpa_rows_plain(q, k, v, mask_add, HEADS, lo, rows)
+                err = float((got[real] - want[real]).abs().max())
+                worst = max(worst, err)
+                if not err <= SDPA_TOL:
+                    raise RuntimeError(f"fused SDPA rows B={b} T={t} E={e}: max |diff| {err}")
+                cases += 1
+    for b, t in ((16, 272), (16, 1024)):
+        q, k, v = (torch.randn((b, HEADS, t, 32), device=dev, generator=gen) for _ in range(3))
+        mask_add, real = padded_mask(torch, dev, b, t)
+        full = att.blockwise_kernel(q, k, v, mask_add)
+        for seq in (2, 4):
+            n = t // seq
+            for s in range(seq):
+                got = att.blockwise_rows_kernel(q[:, :, s * n:(s + 1) * n].contiguous(),
+                                                k, v, mask_add)
+                if not torch.equal(got, full[:, :, s * n:(s + 1) * n]):
+                    raise RuntimeError(f"blockwise rows B={b} T={t} seq={seq} rank {s}: not "
+                                       "bit-equal to the full kernel's rows")
+                want = att.blockwise_rows_plain(q, k, v, mask_add, s * n, n)
+                diff = (got[real] - want[real]).abs()
+                worst = max(worst, float(diff.max()))
+                if not bool((diff <= BLOCKWISE_ATOL + BLOCKWISE_RTOL * want[real].abs()).all()):
+                    raise RuntimeError(f"blockwise rows B={b} T={t}: beyond its tolerance")
+                cases += 1
+    log(f"query slices: {cases} cases, each rank's rows bit-equal to the full kernel's, "
+        f"max |diff| against plain {worst:.3g}")
+    times = {}
+    b, t, e = 512, 64, EMB
+    q, k, v = (torch.randn((b, t, e), device=dev, generator=gen) for _ in range(3))
+    mask_add = padded_mask(torch, dev, b, t)[0]
+    half = q[:, :t // 2].contiguous()
+
+    def fused_rows():
+        return att.fused_sdpa_rows_kernel(half, k, v, mask_add, HEADS)
+
+    bound_ms, by = bound(8 * b * (t // 2) * e + 8 * b * t * e + 4 * b * t,
+                         f32_ops=4 * b * (t // 2) * t * e)
+    times["fused_sdpa"] = {
+        "shape": f"B={b} T_q={t // 2} T_k={t} E={e}", "ms": cuda_ms(torch, fused_rows),
+        "graph_ms": graph_ms(torch, fused_rows),
+        "plain_ms": cuda_ms(torch, lambda: att.sdpa_rows_plain(half, k, v, mask_add, HEADS), 10),
+        "bound_ms": bound_ms, "bound_by": by}
+    b, t = 16, 1024
+    q, k, v = (torch.randn((b, HEADS, t, 32), device=dev, generator=gen) for _ in range(3))
+    mask_add = padded_mask(torch, dev, b, t)[0]
+    half = q[:, :, :t // 2].contiguous()
+
+    def block_rows():
+        return att.blockwise_rows_kernel(half, k, v, mask_add)
+
+    bh = b * HEADS
+    bound_ms, by = bound(8 * bh * (t // 2) * 32 + 8 * bh * t * 32 + 4 * b * t,
+                         f32_ops=4 * bh * (t // 2) * t * 32)
+    times["blockwise_attention"] = {
+        "shape": f"B*H={bh} T_q={t // 2} T_k={t} D=32", "ms": cuda_ms(torch, block_rows, 10),
+        "graph_ms": graph_ms(torch, block_rows, 5),
+        "plain_ms": cuda_ms(torch, lambda: att.blockwise_rows_plain(half, k, v, mask_add), 10),
+        "bound_ms": bound_ms, "bound_by": by}
+    for key, got in times.items():
+        log(f"time {key} query slice {got['shape']}: kernel {got['ms']:.4f} ms "
+            f"({got['graph_ms']:.4f} ms in a CUDA graph), plain {got['plain_ms']:.4f} ms, "
+            f"bound {got['bound_ms']:.4f} ms ({got['bound_by']})")
+    return worst, times
+
+
+def check_argmax_keys(torch, lam, tfm, params):
+    """#4's key variant on vocab shards of the tiny11 projection (2 and 4
+    shards, full vocabulary and a 1024 shortlist, B in 1, 16, 64, 512, each
+    method): each shard's column and key equal to the plain version's, and
+    the max of the shards' keys names the unsharded kernel's choice; timed
+    at B=64 exact on one of two shards. Returns (most differing indices,
+    0; the times)."""
+    dev = params["emb"]["q"].device
+    aq, inv = params["out"]["aq"], tfm.output_inv(params)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    ids = torch.randperm(VOCAB, device=dev, generator=gen)[:1024].sort().values
+    cases = 0
+    for label, (w, b) in (("full", tfm.prepare_output_projection(params)),
+                          ("shortlist 1024", tfm.prepare_output_projection(params, ids))):
+        width = w.shape[1]
+        for rows in (1, 16, 64, 512):
+            y = torch.randn((rows, EMB), device=dev, generator=gen) * 2.0
+            for method in lam.METHODS:
+                want = lam.argmax_affine_kernel(y, w, b, aq, inv, method)
+                for shards in (2, 4):
+                    keys = []
+                    for m in range(shards):
+                        lo, hi = m * width // shards, (m + 1) * width // shards
+                        got = lam.argmax_keys_kernel(y, w[:, lo:hi], b[lo:hi], aq, inv,
+                                                     method, lo)
+                        plain = lam.argmax_keys_plain(y, w[:, lo:hi], b[lo:hi], aq, inv,
+                                                      method, lo)
+                        if not (torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])):
+                            raise RuntimeError(f"argmax keys {method} {label} B={rows} shard "
+                                               f"{m} of {shards}: not bit-equal to plain")
+                        keys.append(got[1])
+                    best = keys[0]
+                    for key in keys[1:]:
+                        best = torch.maximum(best, key)
+                    if not torch.equal(lam.key_column(best, method), want):
+                        raise RuntimeError(f"argmax keys {method} {label} B={rows}: the "
+                                           f"{shards} shards' max is not the whole choice")
+                    cases += 1
+    log(f"argmax keys: {cases} cases, every shard bit-equal to plain, the shards' max the "
+        "unsharded choice")
+    w, b = tfm.prepare_output_projection(params)
+    lo, hi = 0, VOCAB // 2
+    y = torch.randn((64, EMB), device=dev, generator=gen)
+
+    def kernel():
+        return lam.argmax_keys_kernel(y, w[:, lo:hi], b[lo:hi], aq, inv, "exact", lo)
+
+    s = hi - lo
+    bound_ms, by = bound(4 * 64 * EMB + EMB * s + 4 * s + 12 * 64, int8_ops=2 * 64 * EMB * s)
+    times = {"shape": f"B=64 S={s} of {VOCAB}, exact", "ms": cuda_ms(torch, kernel, 50),
+             "graph_ms": graph_ms(torch, kernel),
+             "plain_ms": cuda_ms(torch, lambda: lam.argmax_keys_plain(
+                 y, w[:, lo:hi], b[lo:hi], aq, inv, "exact", lo), 20),
+             "bound_ms": bound_ms, "bound_by": by}
+    log(f"time argmax keys {times['shape']}: kernel {times['ms']:.4f} ms "
+        f"({times['graph_ms']:.4f} ms in a CUDA graph), plain {times['plain_ms']:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({by})")
+    return 0.0, times
+
+
+def demo_processes(torch, backend: str, name: str, smi: str) -> list:
+    """Two `python -m slimt_tpu_torch.parallel.demo` processes on the card
+    (`backend` gloo: both on cuda:0; nccl: one card each): their
+    translations, identical in both and equal to one Model on the card."""
+    import socket
+
+    from slimt_tpu_torch import Blocking as PortBlocking
+    from slimt_tpu_torch import Config as PortConfig
+    from slimt_tpu_torch import Model
+    from slimt_tpu_torch.parallel import demo
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    start = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "slimt_tpu_torch.parallel.demo", str(i), "2",
+         f"127.0.0.1:{port}", "--device", "cuda", "--backend", backend],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=root)
+        for i in range(2)]
+    outputs = []
+    try:
+        for proc in procs:
+            out, _ = proc.communicate(timeout=240)
+            if proc.returncode != 0:
+                raise RuntimeError(f"demo process ({backend}) rc {proc.returncode}:\n{out}")
+            outputs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - start
+    texts = [[line.split("->", 1)[1].strip() for line in out.splitlines() if "->" in line]
+             for out in outputs]
+    config, package = demo.build_package()
+    with PortBlocking(PortConfig(cache_size=0)) as service:
+        one = [repr(r.target.text) for r in service.translate(Model(config, package),
+                                                              demo.CORPUS)]
+    if texts[0] != texts[1] or texts[0] != one or len(one) != len(demo.CORPUS):
+        raise RuntimeError(f"demo ({backend}): the processes' translations differ: {texts}, "
+                           f"one Model: {one}")
+    done = [line for out in outputs for line in out.splitlines() if "DONE" in line]
+    log(f"mesh two processes ({backend}): {len(one)} translations identical in both and equal "
+        f"to one Model on the card; {done}; {wall:.1f} s for both on {name} ({smi})")
+    return texts[0]
+
+
+def mesh_phase(torch, name: str, smi: str) -> dict:
+    """entry.dryrun_multichip(4) at the tiny11 widths (each leg bit-equal
+    to one card, its kernels launched: it raises otherwise), then two demo
+    processes on the card over gloo; with two cards or more also the legs
+    over distinct cards (the dryrun's ranks go round the cards) and two
+    processes over NCCL. Returns the launches over the legs by counter."""
+    from slimt_tpu_torch import entry
+
+    start = time.perf_counter()
+    cards = torch.cuda.device_count()
+    report = entry.dryrun_multichip(4)
+    totals = {}
+    for leg in report:
+        for key, n in leg["launches"].items():
+            totals[key] = totals.get(key, 0) + n
+        log(f"mesh {leg['leg']} {leg['mesh'] or '(encoder stage, decoder stage)'} over "
+            f"{leg['devices'] or 'cuda:0, cuda:' + str(min(1, cards - 1))}: tokens bit-equal to "
+            f"one card's ({leg['tokens']} tokens); wall {leg['mesh_ms']:.1f} ms against one "
+            f"card's {leg['single_ms']:.1f} ms for the same batch (virtual mesh on one card: "
+            f"the shards share one device; no scaling claim) on {name} ({smi}); launches "
+            f"{leg['launches']}")
+    demo_processes(torch, "gloo", name, smi)
+    if cards >= 2:
+        demo_processes(torch, "nccl", name, smi)
+    else:
+        log("mesh: one card: the legs over distinct cards and the two-process NCCL leg "
+            "did not run")
+    log(f"mesh phase: {time.perf_counter() - start:.1f} s")
+    return totals
 
 
 # The host's CUDA calls that put work on a stream, as torch.profiler names
@@ -2567,7 +2826,8 @@ def trace_sessions(sessions: int) -> None:
 
 LAYOUT_BATCHES = (1, 8, 64, 130, 200, 512)
 LAYOUT_KERNELS = ("whole_decode_step", "ffn_block", "decoder_layer_step", "ssru_block",
-                  "argmax_affine", "encoder_layer", "decode_attention")
+                  "argmax_affine", "encoder_layer", "decode_attention", "fused_sdpa",
+                  "blockwise_attention")
 # The encoder layer (#2) at both widths: B=64 and 512 at T=64, and 16,384
 # tokens a call at T=128 and T=256; the decode attention (#3) at
 # LAYOUT_BATCHES, T=64, and at B=8 and 256 T=1024 (tiny width), by the
@@ -2577,7 +2837,13 @@ LAYER_WIDTHS = ((256, 1536), (512, 2048))
 LAYER_SHAPES = ((64, 64), (512, 64), (128, 128), (64, 256))
 ATTN_SHAPES = tuple((b, 64) for b in LAYOUT_BATCHES) + ((8, 1024), (256, 1024))
 DECODER_LAYOUT_KERNELS = ("whole_decode_step", "ffn_block", "decoder_layer_step", "ssru_block")
-DIGESTED = ("encoder_layer", "decode_attention")  # outputs compared across trees
+# Outputs compared across trees.
+DIGESTED = ("encoder_layer", "decode_attention", "argmax_affine", "fused_sdpa",
+            "blockwise_attention")
+# The fused SDPA (#8) and the blockwise attention (#9) at the kernels
+# record's shapes: B=512 T=64 E=256; B=16 (x 8 heads) T=1024 D=32.
+SDPA_SHAPE = (512, 64, 256)
+BLOCKWISE_SHAPE = (16, 1024, 32)
 # The argmax (#4) at the batches the records keep, its exact and packed
 # methods, the full vocabulary and the two shortlists.
 ARGMAX_BATCHES = (1, 64, 512)
@@ -2773,6 +3039,24 @@ def layout_times(out: str, kernels=LAYOUT_KERNELS) -> None:
                 timed("decoder_layer_step", b, cs, layer_step)
             if cs is None or ssru_forced:
                 timed("ssru_block", b, cs, ssru)
+    from slimt_tpu_torch.ops import attention as att
+
+    if "fused_sdpa" in kernels:
+        b, t, e = SDPA_SHAPE
+        gen.manual_seed(b * t + e)
+        q, k, v = (torch.randn((b, t, e), device=dev, generator=gen) for _ in range(3))
+        sdpa_mask = padded_mask(torch, dev, b, t)[0]
+        timed("fused_sdpa", b, None,
+              lambda: ((lambda: att.fused_sdpa_kernel(q, k, v, sdpa_mask, HEADS)), None),
+              t=t, e=e)
+    if "blockwise_attention" in kernels:
+        b, t, d = BLOCKWISE_SHAPE
+        gen.manual_seed(b * t + d)
+        q, k, v = (torch.randn((b, HEADS, t, d), device=dev, generator=gen) for _ in range(3))
+        block_mask = padded_mask(torch, dev, b, t)[0]
+        timed("blockwise_attention", b, None,
+              lambda: ((lambda: att.blockwise_kernel(q, k, v, block_mask)), None), t=t, d=d)
+    gen.manual_seed(3)
     aq, inv = params["out"]["aq"], tfm.output_inv(params)
     for width in ARGMAX_WIDTHS if "argmax_affine" in kernels else ():
         w, bias = tfm.prepare_output_projection(params, None if not width else torch.randperm(
@@ -2832,6 +3116,7 @@ def unroll_times() -> None:
 def main() -> None:
     import torch
 
+    smoke_start = time.perf_counter()
     name, smi = probe(torch)
 
     from slimt_tpu_torch import Model, ModelConfig, Package
@@ -2891,11 +3176,14 @@ def main() -> None:
     del narrow
     sdpa_err, sdpa_ms = check_fused_sdpa(torch, att, enc, dev)
     blockwise_err, blockwise_ms = check_blockwise(torch, att, dev)
+    slice_err, slice_ms = check_query_slices(torch, att, enc, dev)
+    keys_err, keys_ms = check_argmax_keys(torch, lam, tfm, widths[0])
     layer_step_launches, layer_step_err, layer_step_ms = check_layer_steps(
         torch, dstep, dev, load_host, params_from_numpy)
     step_float_err, step_float_ms = check_step_float(torch, dstep, tfm, dev, widths)
     del widths
-    log(f"kernel times above on {name} ({smi})")
+    log(f"kernel times above on {name} ({smi}); kernels phase done at "
+        f"{time.perf_counter() - smoke_start:.1f} s")
 
     config = ModelConfig(encoder_layers=ENC, decoder_layers=DEC, num_heads=HEADS)
     fused_step = dataclasses.replace(config, qmm_provider="fused_step")
@@ -3066,9 +3354,13 @@ def main() -> None:
     read("kv")
     log(f"whole step launches over the bfloat16 cache (fused_step bfloat16): "
         f"{dstep.whole_step_kernel.launches}")
-    for (label, pkg_label), segments in kv_served.items():  # the CPU's decode capped at 0.5 x T
+    # The CPU's decode capped at 0.25 x T (its plain int8 products run in
+    # float64; the smoke holds its time to about half its limit).
+    for (label, pkg_label), segments in kv_served.items():
         compare("kv", f"{label}, {pkg_label}", kv_configs[label], packages[pkg_label],
-                segments[:16], limit_factor=0.5)
+                segments[:16], limit_factor=0.25)
+
+    log(f"serve phases done at {time.perf_counter() - smoke_start:.1f} s")
 
     # The loop: on every serving path and kv config, the graph loop's
     # tokens bit-equal to the eager loop's on the card (on the declared
@@ -3216,6 +3508,9 @@ def main() -> None:
     with torch.inference_mode():
         longctx(torch, tfm, paths["declared"].params, name, smi)
 
+    # The mesh phase: the meshed legs, each bit-equal to one card.
+    mesh_launches = mesh_phase(torch, name, smi)
+
     loaded = [m for m in sys.modules if m.startswith("jax")
               or m == "slimt_tpu" or m.startswith("slimt_tpu.")]
     if loaded:
@@ -3254,6 +3549,22 @@ def main() -> None:
          layer_step_err["decoder_layer_step_bte"], layer_step_ms["decoder_layer_step_bte"],
          layer_step_bound(b, t, e, f)),
     ]
+    # The variants of this kernel the mesh runs (#4's key variant on vocab
+    # shards, #8's and #9's query slice): their launches are the mesh
+    # phase's.
+    variant = "mesh_variant"
+    variants = {
+        "argmax_affine": {variant: {"name": "argmax_keys", "max_abs_err": keys_err,
+                                    "launches": mesh_launches.get("argmax_keys", 0),
+                                    **keys_ms}},
+        "fused_sdpa": {variant: {"name": "fused_sdpa_rows", "max_abs_err": slice_err,
+                                 "launches": mesh_launches.get("fused_sdpa_rows", 0),
+                                 **slice_ms["fused_sdpa"]}},
+        "blockwise_attention": {variant: {
+            "name": "blockwise_rows", "max_abs_err": slice_err,
+            "launches": mesh_launches.get("blockwise_rows", 0),
+            **slice_ms["blockwise_attention"]}},
+    }
     # No serving path reaches #10 and #11, in the port as in the JAX
     # package: their launches are those of the kernels phase's checks.
     launches.update(layer_step_launches)
@@ -3268,9 +3579,14 @@ def main() -> None:
                                   "launches_per_layer", "split_ms")
             if k in times},
          **({"shapes": affine_times} if key == "qmm_affine" else {}),
+         **({"accumulator_launches_mesh": mesh_launches.get("qmm_accumulator", 0)}
+            if key == "qmm_affine" else {}),
+         **({variant: variants[key][variant]} if key in variants else {}),
          "knobs_launches": {label: counts.get(key, 0) for label, counts in knob_counts.items()}}
         for key, source, replaces, err, times, (bound_ms, by) in rows
     ]}
+    log(f"smoke: {time.perf_counter() - smoke_start:.1f} s, the build included, on {name} "
+        f"({smi})")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@ the epilogue multiplier, computed in float32 as the JAX package does
 computation can land one ulp away and break bit-exactness. `emb` gains
 `inv` = np.float32(1) / scale for the embedding dequantization. On the
 card each encoder layer's int8 matrices also gain their K-major copies,
-which the whole-layer kernel reads (ops.encoder_layer.add_k_major).
+which the whole-layer kernel reads (ops.encoder_layer.add_k_major). On a
+mesh each rank's shard goes to its device (`_place_shards`).
 
 The `f32` provider multiplies by dequantized weights, which the loader
 adds where it is asked (`params_from_numpy(..., dequantize=True)`, as a
@@ -98,20 +99,56 @@ def dequantized_bytes(params: dict) -> int:
     return total
 
 
-def params_from_numpy(host_params: dict, device, dequantize: bool = False) -> dict:
-    """Loader pytree (numpy, per-layer lists) → the port's params; with
-    `dequantize`, also the f32 provider's weights (add_dequantized)."""
-    if not isinstance(host_params["encoder"], list):
-        raise ValueError(
-            "params_from_numpy takes per-layer lists (load_weights), "
-            "not stacked layers"
-        )
-    device = resolve_device(device)
+def _place(host_params: dict, device: torch.device, dequantize: bool,
+           k_major: bool = True) -> dict:
     params = _convert(host_params, device)
     params["emb"]["inv"] = np.float32(1) / params["emb"]["scale"]
-    if device.type == "cuda":
+    if k_major and device.type == "cuda":
         for layer in params["encoder"]:
             add_k_major(layer)
     if dequantize:
         add_dequantized(params)
     return params
+
+
+def _place_shards(shards, dequantize: bool):
+    """Each rank's shard on its device: a parallel.sharding.ShardedParams.
+    Ranks that share a device and a shard (the data and seq replicas of a
+    model rank) share one params dict. Where a rank's shard is the whole
+    model (replicated weights, or a mesh without a model axis) it gets the
+    K-major copies of the whole-layer kernel; a tensor-parallel shard does
+    not (that kernel runs on the gathered params)."""
+    from slimt_tpu_torch.parallel.sharding import ShardedParams
+
+    mesh = shards.mesh
+    whole = shards.kind == "replicate" or mesh.local_shape["model"] == 1
+    placed = {}
+    ranks = []
+    for rank, device in enumerate(mesh.devices):
+        device = resolve_device(device)
+        key = (device, 0 if whole else mesh.coords(rank)[1])
+        if key not in placed:
+            placed[key] = _place(shards[rank], device, dequantize, k_major=whole)
+        ranks.append(placed[key])
+    return ShardedParams(mesh, ranks, shards.specs, shards.kind)
+
+
+def params_from_numpy(host_params, device=None, dequantize: bool = False):
+    """Loader pytree (numpy, per-layer lists) → the port's params on
+    `device`; with `dequantize`, also the f32 provider's weights
+    (add_dequantized). Given the per-rank shards of a mesh
+    (parallel.sharding.shard_params or replicate_params), each rank's
+    shard goes to that rank's device (`device` unused) and the result is a
+    parallel.sharding.ShardedParams."""
+    from slimt_tpu_torch.parallel.sharding import HostShards
+
+    if isinstance(host_params, HostShards):
+        return _place_shards(host_params, dequantize)
+    if not isinstance(host_params["encoder"], list):
+        raise ValueError(
+            "params_from_numpy takes per-layer lists (load_weights), "
+            "not stacked layers"
+        )
+    if device is None:
+        raise ValueError("params_from_numpy needs a device")
+    return _place(host_params, resolve_device(device), dequantize)

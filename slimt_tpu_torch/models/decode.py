@@ -56,6 +56,7 @@ import torch
 
 from slimt_tpu_torch.models import loop_graph
 from slimt_tpu_torch.models import transformer as tfm
+from slimt_tpu_torch.ops import decode_attn
 from slimt_tpu_torch.ops import decoder_step as dstep
 from slimt_tpu_torch.ops.qmm import _f32
 
@@ -343,13 +344,37 @@ def greedy_decode(
     bucket's first batch; `_eager` runs it eagerly instead, for the
     checks that compare the two. On the CPU it runs eagerly."""
     check_options(provider, kv_dtype)
-    # The decode-attention kernel serves the alignment-free int16 path
-    # only (it returns no attention weights), as in the JAX package.
-    attn_kernel = bool(attn_kernel) and not with_alignment and (
-        kv_dtype == "int16") and provider != "fused_step"
+    attn_kernel = gate_attn_kernel(attn_kernel, with_alignment, kv_dtype, provider)
     kv_caches = tfm.precompute_cross_kv(
         params, encoder_out, num_heads, cache_dtype(provider, kv_dtype),
         None if provider == "fused_step" else provider)
+    return decode_from_caches(
+        params, kv_caches, mask_add, eos_id, max_steps, num_heads, shortlist,
+        decoder_position_zero, steps_cap, with_alignment, check_every, provider,
+        argmax_method, attn_kernel, loop_unroll, graphs, _eager)
+
+
+def gate_attn_kernel(attn_kernel: bool, with_alignment: bool, kv_dtype: Optional[str],
+                     provider: Optional[str]) -> bool:
+    """The decode-attention kernel serves the alignment-free int16 path
+    only (it returns no attention weights), as in the JAX package."""
+    return bool(attn_kernel) and not with_alignment and (
+        kv_dtype == "int16") and provider != "fused_step"
+
+
+@torch.inference_mode()
+def decode_from_caches(
+    params: dict, kv_caches, mask_add: torch.Tensor, eos_id: int, max_steps: int,
+    num_heads: int, shortlist: Optional[torch.Tensor] = None,
+    decoder_position_zero: bool = True, steps_cap: Optional[int] = None,
+    with_alignment: bool = True, check_every: int = CHECK_EVERY,
+    provider: Optional[str] = None, argmax_method: str = "packed_int",
+    attn_kernel: bool = False, loop_unroll: Optional[int] = None,
+    graphs: Optional[loop_graph.GraphCache] = None, _eager: bool = False,
+) -> GreedyResult:
+    """greedy_decode from its cross-KV caches (precompute_cross_kv's; a
+    mesh's data shard passes its own, gathered along T) and an already
+    gated `attn_kernel`."""
     projection = tfm.prepare_output_projection(params, shortlist, provider)
     limit = max_steps if steps_cap is None else min(max_steps, int(steps_cap))
     loop_args = dict(
@@ -363,7 +388,7 @@ def greedy_decode(
     def make_loop():
         return DecodeLoop(params, kv_caches, mask_add, projection, shortlist, **loop_args)
 
-    if not encoder_out.is_cuda or _eager:
+    if not mask_add.is_cuda or _eager:
         loop = make_loop()
         loop.reset(limit)
         run_loop(loop, limit, check_every)
@@ -372,7 +397,7 @@ def greedy_decode(
         raise ValueError("greedy_decode on CUDA replays its chunks from `graphs`, "
                          "a loop_graph.GraphCache: pass one")
     key = loop_key(params, loop_args, kv_caches, mask_add, projection, shortlist)
-    bucket = graphs.bucket(key, make_loop, encoder_out.device)
+    bucket = graphs.bucket(key, make_loop, mask_add.device)
     with bucket.use() as loop:
         loop.load(kv_caches, mask_add, projection, shortlist)
         loop.reset(limit)
@@ -404,6 +429,7 @@ def translate_batch(
     graphs: Optional[loop_graph.GraphCache] = None,
     _eager: bool = False,
     encoder_dtype: Optional[str] = None,
+    shard_sequence: bool = False,
 ) -> GreedyResult:
     """embed → encoder → greedy decode for a padded [B, T] batch.
     `provider` "fused" runs the decoder's SSRU and FFN block kernels (and
@@ -413,7 +439,21 @@ def translate_batch(
     provider, which under "fused_step" is None, as in the JAX package;
     `encoder_dtype` ("float16"/"bfloat16") runs the embedding and the
     encoder in that dtype. `loop_unroll`, `graphs` and `_eager` go to
-    greedy_decode."""
+    greedy_decode.
+
+    On a mesh (`params` a parallel.sharding.ShardedParams) the batch is
+    split over its data ranks, and with `shard_sequence` its tokens over
+    its seq ranks; translate_mesh runs it (eagerly: `loop_unroll`,
+    `graphs` and `_eager` do not apply) and concatenates the data shards'
+    results in rank order."""
+    from slimt_tpu_torch.parallel.sharding import ShardedParams
+
+    if isinstance(params, ShardedParams):
+        return translate_mesh(
+            params, indices, mask, eos_id, max_steps, num_heads, shortlist,
+            decoder_position_zero, steps_cap, with_alignment, check_every, provider,
+            kv_dtype, argmax_method, attn_kernel, flash_attention, fused_sdpa,
+            fused_layer, encoder_dtype, shard_sequence)
     act = tfm.act_dtype(encoder_dtype)
     word_embedding = tfm.transform_embedding(tfm.embed(params, indices, act))
     mask_add = tfm.make_additive_mask(mask)
@@ -429,6 +469,301 @@ def translate_batch(
         check_every, provider, kv_dtype, argmax_method, attn_kernel,
         loop_unroll, graphs, _eager,
     )
+
+
+# -- a mesh (parallel/) ----------------------------------------------------
+
+# The providers whose decoder takes whole rows (the fused blocks, the whole
+# step, f32 products): under tensor parallelism they decode on the
+# gathered params, once per data shard.
+WHOLE_ROW_PROVIDERS = ("fused", "fused_step", "f32")
+# The caches whose decode attention quantizes q per tensor over the whole
+# batch (int8 K): their data shards step in lockstep.
+BATCH_SCALED_CACHES = ("int8", "k8v16")
+
+
+def lockstep(steps, reduce):
+    """Run generators (tfm.tp_decoder_step, one per data shard) together:
+    each time they yield, their yields (lists over their ranks) go to
+    `reduce` at once, and each gets back its part of the answer. Returns
+    their return values."""
+    results = [None] * len(steps)
+    sends = [None] * len(steps)
+    active = list(range(len(steps)))
+    while active:
+        asked = {}
+        for i in active:
+            try:
+                asked[i] = steps[i].send(sends[i])
+            except StopIteration as stop:
+                results[i] = stop.value
+        active = list(asked)
+        if active:
+            answers = reduce([asked[i] for i in active])
+            for i, answer in zip(active, answers):
+                sends[i] = answer
+    return results
+
+
+def _max_over(parts):
+    """The max of every rank's value (lists over ranks), handed back on
+    each rank's device in the same shape."""
+    from slimt_tpu_torch.parallel.collectives import Local
+
+    flat = [t for part in parts for t in part]
+    best = Local.all_reduce_max(flat)
+    out, at = [], 0
+    for part in parts:
+        out.append(best[at:at + len(part)])
+        at += len(part)
+    return out
+
+
+class _MeshShard:
+    """One data shard of a mesh decode: its model ranks' params, caches,
+    masks and projection shares, and the loop's state (tokens, valid,
+    alignment and the complete rows on rank 0; prev and the cell states
+    on every rank)."""
+
+    def __init__(self, ranks, caches, masks, shortlists, *, num_heads, provider,
+                 argmax_method, attn_kernel, padded, max_steps, with_alignment):
+        self.ranks, self.caches, self.masks = ranks, caches, masks
+        self.num_heads, self.provider = num_heads, provider
+        self.argmax_method, self.attn_kernel = argmax_method, attn_kernel
+        self.padded = padded
+        self.shortlist = shortlists[0] if shortlists is not None else None
+        if ranks.size == 1:
+            w, b = tfm.prepare_output_projection(ranks.ps[0], self.shortlist, provider)
+            self.projections, self.width = [(w, b, 0)], w.shape[1]
+        else:
+            self.projections, self.width = tfm.tp_projections(ranks, shortlists)
+        self.packed_biases = None
+        if tfm.uses_packed_int(provider, argmax_method):
+            self.packed_biases = [tfm.packed_int_bias(p, b)
+                                  for p, (_, b, _) in zip(ranks.ps, self.projections)]
+        mask0 = masks[0]
+        batch, t_src = mask0.shape[0], mask0.shape[-1]
+        device = mask0.device
+        layers = len(ranks.ps[0]["decoder"])
+        self.emb_dim = ranks.ps[0]["emb"]["q"].shape[1]
+        self.sqrt_e = _f32(math.sqrt(self.emb_dim))
+        self.states = [[torch.zeros((batch, 1, p["decoder"][0]["rnn"]["w"]["q"].shape[1]),
+                                    device=m.device) for _ in range(layers)]
+                       for p, m in zip(ranks.ps, masks)]
+        self.prev = [torch.zeros(batch, dtype=torch.int32, device=m.device) for m in masks]
+        self.complete = ~(mask0[:, 0, 0, :] == 0.0).any(-1)
+        self.tokens = torch.zeros((batch, max_steps), dtype=torch.int32, device=device)
+        self.valid = torch.zeros((batch, max_steps), dtype=torch.bool, device=device)
+        self.align = torch.zeros((batch, max_steps, t_src if with_alignment else 0),
+                                 device=device)
+        self.with_alignment = with_alignment
+
+    def step(self, step: int, position_zero: bool):
+        """A generator: one decoder step (tfm.tp_decoder_step)."""
+        embedded = tfm.tp_embed(self.ranks, [prev[:, None] for prev in self.prev])
+        xs = []
+        for x in embedded:
+            if position_zero:
+                signal = tfm.sinusoidal_signal(0, 1, self.emb_dim, device=x.device)
+            else:
+                signal = tfm.sinusoidal_signal(0, 1, self.emb_dim, positions=torch.tensor(
+                    [step], dtype=torch.float32, device=x.device))
+            prev_embed = torch.zeros_like(x) if step == 0 else x
+            xs.append(prev_embed * self.sqrt_e + signal)
+        return (yield from tfm.tp_decoder_step(
+            self.ranks, self.states, xs, self.masks, self.caches, self.num_heads,
+            projections=self.projections, width=self.width, provider=self.provider,
+            argmax_method=self.argmax_method, attn_kernel=self.attn_kernel,
+            packed_biases=self.packed_biases, padded=self.padded))
+
+    def advance(self, step: int, eos_id: int, result) -> None:
+        choices, states, attn = result
+        choice = choices[0]
+        if self.shortlist is not None:
+            choice = self.shortlist[choice.to(torch.long)]
+        word = choice.to(torch.int32)
+        active = ~self.complete
+        self.tokens[:, step] = torch.where(active, word, 0)
+        self.valid[:, step] = active
+        if self.with_alignment:
+            self.align[:, step] = torch.where(active[:, None], attn[:, 0, 0, :], 0.0)
+        self.complete = self.complete | (word == eos_id)
+        self.prev = [word.to(p.device) for p in self.prev]
+        self.states = states
+
+
+def _mesh_loop(shards, eos_id: int, limit: int, check_every: int,
+               position_zero: bool) -> None:
+    """Step every data shard together, up to `limit` steps or until every
+    row of every shard is complete (read every `check_every` steps)."""
+    every = max(1, int(check_every))
+    for step in range(limit):
+        results = lockstep([shard.step(step, position_zero) for shard in shards], _max_over)
+        for shard, result in zip(shards, results):
+            shard.advance(step, eos_id, result)
+        if (step + 1) % every == 0 and all(bool(s.complete.all()) for s in shards):
+            return
+
+
+def _check_tensor_parallel(sharded, num_heads: int) -> None:
+    """Raise where a TP mesh's shards cannot serve: the heads, E and F must
+    split over the model axis (the vocabulary may be replicated)."""
+    model = sharded.mesh.local_shape["model"]
+    if num_heads % model:
+        raise ValueError(f"tensor parallelism over {model} model ranks needs the "
+                         f"heads ({num_heads}) to divide; use sharding='replicate'")
+    replicated = []
+
+    def walk(spec, path):
+        if isinstance(spec, dict):
+            for key, value in spec.items():
+                walk(value, path + (key,))
+        elif isinstance(spec, list):
+            for i, value in enumerate(spec):
+                walk(value, path + (i,))
+        elif path[-1] == "q" and path[0] in ("encoder", "decoder") and "model" not in spec:
+            replicated.append("/".join(map(str, path)))
+
+    walk(sharded.specs, ())
+    if replicated:
+        raise ValueError("tensor parallelism needs every matrix split over the model "
+                         f"axis; these do not divide: {replicated[:4]}; use "
+                         "sharding='replicate'")
+
+
+@torch.inference_mode()
+def translate_mesh(
+    sharded, indices: torch.Tensor, mask: torch.Tensor, eos_id: int, max_steps: int,
+    num_heads: int, shortlist: Optional[torch.Tensor] = None,
+    decoder_position_zero: bool = True, steps_cap: Optional[int] = None,
+    with_alignment: bool = True, check_every: int = CHECK_EVERY,
+    provider: Optional[str] = None, kv_dtype: Optional[str] = "int16",
+    argmax_method: str = "packed_int", attn_kernel: bool = False,
+    flash_attention: bool = False, fused_sdpa: bool = False, fused_layer: bool = False,
+    encoder_dtype: Optional[str] = None, shard_sequence: bool = False,
+) -> GreedyResult:
+    """translate_batch on a mesh (`sharded`, parallel.sharding.
+    ShardedParams): the [B, T] batch of this process split over its data
+    ranks (B a multiple of their count) and, with `shard_sequence`, T over
+    the seq ranks. Per data shard:
+      - the encoder: on the model ranks' column shards and the seq ranks'
+        rows (tfm.tp_encoder); or, where a whole-row piece runs (the whole
+        layer #2, provider "fused" or "f32", an `encoder_dtype`), on the
+        data shard's whole params (gathered under TP) and whole rows;
+      - the cross-KV caches on each rank's rows and columns, gathered along
+        T onto the seq rank 0 (tfm.tp_cross_kv);
+      - the decode: with one rank of whole params and no batch-scaled cache,
+        the one-device loop (eager); else the ranks step together
+        (tfm.tp_decoder_step), every data shard in lockstep.
+    Returns the shards' results concatenated in rank order on the first
+    rank's device."""
+    from slimt_tpu_torch.parallel.collectives import Local
+    from slimt_tpu_torch.parallel.sharding import batch_blocks
+
+    check_options(provider, kv_dtype)
+    mesh = sharded.mesh
+    local = mesh.local_shape
+    data, seqs = local["data"], local["seq"] if shard_sequence else 1
+    tp = sharded.tensor_parallel
+    model = local["model"] if tp else 1
+    gathered_decode = tp and provider in WHOLE_ROW_PROVIDERS
+    dec_model = 1 if gathered_decode else model
+    if tp and not gathered_decode:
+        _check_tensor_parallel(sharded, num_heads)
+    batch, t = indices.shape
+    blocks = batch_blocks(mesh, batch, t, shard_sequence)
+    act = tfm.act_dtype(encoder_dtype)
+    enc_provider = None if provider == "fused_step" else provider
+    vocab = sharded.vocab_size
+    emb_dim = sharded.at(0)["emb"]["q"].shape[1]
+    whole_encoder = ((model == 1 and seqs == 1)
+                     or tfm.layer_kernel_runs(fused_layer, flash_attention, act,
+                                              enc_provider, t, emb_dim, num_heads)
+                     or enc_provider in ("fused", "f32") or act is not None)
+    dtype = cache_dtype(provider, kv_dtype)
+    if dtype in BATCH_SCALED_CACHES and mesh.process_count > 1:
+        raise ValueError(f"kv_dtype={kv_dtype!r} scales the decode's query over the whole "
+                         "batch, which spans processes here: not served across processes")
+    # The decode-attention kernel the whole batch would take, forced on
+    # every shard (tfm._decode_attention_joined reads it from attn_kernel).
+    attn_kernel = gate_attn_kernel(attn_kernel, with_alignment, kv_dtype, provider) and (
+        decode_attn.kernel_for(batch * mesh.process_count, num_heads, t))
+    limit = max_steps if steps_cap is None else min(max_steps, int(steps_cap))
+    shards, results = [], []
+    for d in range(data):
+        rows = blocks[d, 0][0]
+        dev = [[mesh.device(d, m, s) for s in range(seqs)] for m in range(model)]
+        full_mask = Local.all_gather(
+            [mask[rows, blocks[d, s][1]].to(dev[0][s]) for s in range(seqs)], 1)
+        if whole_encoder:
+            params = sharded.gathered(d)
+            ids = indices[rows].to(mesh.device(d))
+            mask_add = tfm.make_additive_mask(full_mask[0].to(mesh.device(d)))
+            x = tfm.transform_embedding(tfm.embed(params, ids, act))
+            out = tfm.encoder_forward(params, x, mask_add, num_heads, enc_provider,
+                                      flash=flash_attention, fused_sdpa=fused_sdpa,
+                                      fused_layer=fused_layer, act_dtype=act)
+            kv_seqs, encoded = 1, [[out] for _ in range(model)]
+        else:
+            grid = [[sharded.at(d, m, s) for s in range(seqs)] for m in range(model)]
+            by_seq = [tfm.ModelRanks([grid[m][s] for m in range(model)], Local, vocab)
+                      for s in range(seqs)]
+            xs = [[None] * seqs for _ in range(model)]
+            masks = [[None] * seqs for _ in range(model)]
+            for s in range(seqs):
+                cols = blocks[d, s][1]
+                embedded = tfm.tp_embed(by_seq[s], [indices[rows, cols].to(dev[m][s])
+                                                     for m in range(model)])
+                for m in range(model):
+                    # The whole sequence's signal on the rank's device (as
+                    # transform_embedding computes it), then its rows.
+                    signal = tfm.sinusoidal_signal(0, t, emb_dim, device=dev[m][s])[cols]
+                    xs[m][s] = embedded[m] * _f32(math.sqrt(emb_dim)) + signal
+                    masks[m][s] = tfm.make_additive_mask(full_mask[s].to(dev[m][s]))
+            encoded = tfm.tp_encoder(grid, by_seq, xs, masks, num_heads, Local,
+                                     provider=enc_provider, fused_sdpa=fused_sdpa,
+                                     flash=flash_attention)
+            kv_seqs = seqs
+        # The decode ranks: (d, m, 0) with their shards, or the gathered params.
+        if gathered_decode:
+            dec_ps = [sharded.gathered(d)]
+            kv_grid = [[dec_ps[0]]]
+            kv_in = [[Local.all_gather([encoded[0][s] for s in range(kv_seqs)], 1)[0]
+                      .to(mesh.device(d))]]
+        else:
+            dec_ps = [sharded.at(d, m) for m in range(dec_model)]
+            kv_grid = [[sharded.at(d, m, s) for s in range(kv_seqs)] for m in range(dec_model)]
+            kv_in = [[encoded[m][s].to(kv_grid[m][s]["emb"]["q"].device)
+                      for s in range(kv_seqs)] for m in range(dec_model)]
+        # Joined caches are padded to the whole row, except where #3 runs on a
+        # rank's own heads: an int16 cache on the card at a width it takes.
+        own_heads = (attn_kernel and dtype == "int16" and mesh.device(d).type == "cuda"
+                     and (emb_dim // dec_model) % 128 == 0)
+        pad = [dec_model > 1 and dtype is not None and not own_heads] * dec_model
+        caches = tfm.tp_cross_kv(kv_grid, kv_in, num_heads, dtype, Local, pad,
+                                 provider=enc_provider)
+        dec_masks = [tfm.make_additive_mask(full_mask[0].to(p["emb"]["q"].device))
+                     for p in dec_ps]
+        shortlists = None if shortlist is None else [
+            shortlist.to(p["emb"]["q"].device) for p in dec_ps]
+        if dec_model == 1 and (dtype not in BATCH_SCALED_CACHES or data == 1):
+            results.append(decode_from_caches(
+                dec_ps[0], caches[0], dec_masks[0], eos_id, max_steps, num_heads,
+                shortlists[0] if shortlists else None, decoder_position_zero, steps_cap,
+                with_alignment, check_every, provider, argmax_method, attn_kernel,
+                _eager=True))
+            continue
+        ranks = tfm.ModelRanks(dec_ps, Local, vocab)
+        shards.append(_MeshShard(
+            ranks, caches, dec_masks, shortlists, num_heads=num_heads, provider=provider,
+            argmax_method=argmax_method, attn_kernel=attn_kernel, padded=pad,
+            max_steps=max_steps, with_alignment=with_alignment))
+    if shards:
+        _mesh_loop(shards, eos_id, limit, check_every, decoder_position_zero)
+        results = [GreedyResult(s.tokens, s.valid, s.align) for s in shards]
+    first = mesh.device(0)
+    return GreedyResult(*(torch.cat([getattr(r, f).to(first) for r in results])
+                          for f in GreedyResult._fields))
 
 
 class CompactResult(NamedTuple):

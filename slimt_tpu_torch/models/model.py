@@ -27,6 +27,18 @@ and `encoder_dtype` "float16"/"bfloat16" (the split encoder in that
 dtype). It loads marian .bin models and the JAX package's native .npz
 checkpoints (io/checkpoint.py). A config value that is none of these
 raises ValueError; nothing is substituted silently.
+
+With a `mesh` (parallel.sharding.Mesh) the Model is multi-device, as the
+JAX Model is with a jax.sharding.Mesh: its weights tensor-parallel over
+"model" (or replicated, sharding="replicate"), each batch data-parallel
+over "data" and, with shard_sequence, its tokens over "seq"
+(models/decode.translate_mesh; the decode loop runs its steps eagerly).
+Where the mesh spans processes (parallel.multihost.global_mesh), each
+process feeds its own block of the batch's rows and the compact results
+are all-gathered, so every process returns the whole batch. On the card a
+meshed Model runs a kernel wherever a shard is a whole problem for it:
+the JAX Model's gates that turn its Pallas kernels off on a mesh are TPU
+lowering limits and are not copied.
 """
 
 from __future__ import annotations
@@ -207,18 +219,32 @@ class Model:
         tgt_length_limit_factor: float = 1.5,
         *,
         device="cuda",
+        mesh=None,
+        sharding: str = "tp",
+        shard_sequence: bool = False,
     ):
         """Load `package` onto `device` (keyword-only): the card unless the
         caller asks for "cpu" ("cuda" without a card raises). The first
         three parameters mean what they mean in the JAX Model. On CUDA
         every int8 product and encoder layer runs the hand-written kernels
-        of ops/; on the CPU their plain versions."""
+        of ops/; on the CPU their plain versions.
+
+        `mesh` (a parallel.sharding.Mesh; `device` is then its first
+        rank's) makes the Model multi-device: weights split over "model"
+        (sharding="tp") or replicated ("replicate"), batches over "data",
+        and with shard_sequence=True (and a "seq" axis > 1) the tokens of
+        every batch over "seq", which must divide the T bucket (16)."""
         if isinstance(tgt_length_limit_factor, (str, torch.device)):
             raise TypeError(
                 "Model's third parameter is tgt_length_limit_factor, as in "
                 f"the JAX Model; pass device={tgt_length_limit_factor!r} by keyword"
             )
         _check_config(config)
+        if sharding not in ("tp", "replicate"):
+            raise ValueError(f"sharding={sharding!r} not in ('tp', 'replicate')")
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device(0)
         self.device = resolve_device(device)
         self.id = next(_model_ids)
         self.config = config
@@ -236,8 +262,25 @@ class Model:
             host_params = load_weights(load_items(model_bytes), config)
             self.vocab_size, self.emb_dim, self.ffn_dim = model_dims(host_params)
         # Under "f32" the weights are dequantized here, once.
-        self.params = params_from_numpy(host_params, self.device,
-                                        dequantize=config.qmm_provider == "f32")
+        dequantize = config.qmm_provider == "f32"
+        self._data_size, self._shard_seq, self._collectives = 1, False, None
+        if mesh is None:
+            self.params = params_from_numpy(host_params, self.device, dequantize=dequantize)
+        else:
+            from slimt_tpu_torch.parallel import sharding as shd
+
+            seq_axis = mesh.shape["seq"]
+            self._shard_seq = shard_sequence and seq_axis > 1
+            if self._shard_seq and SEQ_BUCKET % seq_axis:
+                # T buckets are multiples of 16; the seq axis must divide them.
+                raise ValueError(f"seq axis {seq_axis} must divide the T bucket (16)")
+            split = shd.replicate_params if sharding == "replicate" else shd.shard_params
+            self.params = params_from_numpy(split(host_params, mesh), dequantize=dequantize)
+            self._data_size = mesh.shape["data"]
+            if mesh.process_count > 1:
+                from slimt_tpu_torch.parallel.collectives import Process
+
+                self._collectives = Process()
 
         self.vocabulary = Vocabulary(Package._bytes(package.vocabulary))
         self._ssplit = Package._bytes(package.ssplit)
@@ -253,7 +296,8 @@ class Model:
         # The decode loop's graphs (CUDA); private: the steps a chunk
         # (None: the default) and the eager loop on the card, for the
         # checks that compare them.
-        self._graphs = GraphCache() if self.device.type == "cuda" else None
+        self._graphs = (GraphCache() if self.device.type == "cuda" and mesh is None
+                        else None)
         self._loop_unroll = None
         self._eager_loop = False
         self._worker: Optional[_DispatchWorker] = None
@@ -302,7 +346,8 @@ class Model:
         its callable."""
         batch = len(segments)
         lengths = [len(s) for s in segments]
-        b_pad = _bucket_batch(batch)
+        # power-of-two bucket, rounded to a multiple of the data axis
+        b_pad = -(-_bucket_batch(batch) // self._data_size) * self._data_size
         t_pad = _bucket_seq(max(lengths))
         indices = np.full((b_pad, t_pad), self.vocabulary.pad_id, np.int32)
         mask = np.zeros((b_pad, t_pad), np.float32)
@@ -365,15 +410,23 @@ class Model:
         steps_cap = max(1, int(self.limit_factor * actual_max))
         compact = self.config.compact_transfer and self.vocab_size <= 65535
         device = self.device
+        # A mesh takes the host arrays and places each shard itself; across
+        # processes each process feeds its own block of the rows.
+        feed = device if self.mesh is None else torch.device("cpu")
+        rows = slice(None)
+        if self._collectives is not None:
+            block = indices.shape[0] // self.mesh.process_count
+            rows = slice(self.mesh.process_index * block,
+                         (self.mesh.process_index + 1) * block)
 
         def run():
             shortlist = None
             if shortlist_ids is not None:
-                shortlist = torch.from_numpy(shortlist_ids).to(device)
+                shortlist = torch.from_numpy(shortlist_ids).to(feed)
             result = translate_batch(
                 self.params,
-                torch.from_numpy(indices).to(device),
-                torch.from_numpy(mask).to(device),
+                torch.from_numpy(indices[rows]).to(feed),
+                torch.from_numpy(mask[rows]).to(feed),
                 eos_id=self.vocabulary.eos_id,
                 max_steps=max_steps,
                 num_heads=self.config.num_heads,
@@ -395,11 +448,16 @@ class Model:
                 graphs=self._graphs,
                 _eager=self._eager_loop,
                 encoder_dtype=self.config.encoder_dtype,
+                shard_sequence=self._shard_seq,
             )
-            align = result.alignment.cpu().numpy() if need_alignment else None
+            gather = (self._collectives.all_gather if self._collectives is not None
+                      else (lambda t: t))
+            align = gather(result.alignment).cpu().numpy() if need_alignment else None
             if compact:
-                return unpack_compact(compact_result(result).packed, max_steps), align
-            return (result.tokens.cpu().numpy(), result.valid.cpu().numpy()), align
+                packed = gather(compact_result(result).packed)
+                return unpack_compact(packed, max_steps), align
+            return (gather(result.tokens).cpu().numpy(),
+                    gather(result.valid).cpu().numpy()), align
 
         future = self._dispatch_worker().submit(run)
 
@@ -458,7 +516,8 @@ class Model:
         return runs
 
     def __repr__(self):
+        where = f"mesh={self.mesh.shape}" if self.mesh is not None else f"device={self.device}"
         return (
-            f"Model(id={self.id}, device={self.device}, vocab={self.vocab_size}, "
+            f"Model(id={self.id}, {where}, vocab={self.vocab_size}, "
             f"emb={self.emb_dim}, ffn={self.ffn_dim})"
         )

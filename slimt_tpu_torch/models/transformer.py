@@ -172,11 +172,15 @@ ROW_CACHES = {"int8": (False, False), "k8v16": (False, True),
               "k16v8": (True, False), "int16": (True, True)}
 
 
-def _per_row(a: torch.Tensor, wide: bool):
+def _per_row(a: torch.Tensor, wide: bool, absmax: Optional[torch.Tensor] = None):
     """a [B, T, E] quantized per row (b, t) against its absmax, half to
-    even, to int16 (wide) or int8; and the inverse scales [B, T]."""
+    even, to int16 (wide) or int8; and the inverse scales [B, T]. Under
+    tensor parallelism `absmax` [B, T] is the whole row's, max-reduced over
+    the model ranks' column shards (a.abs().amax(-1) where None)."""
     top, dtype = (INT16_MAX, torch.int16) if wide else (127.0, torch.int8)
-    s = _f32(top) / torch.maximum(a.abs().amax(-1), _f32(1e-6))
+    if absmax is None:
+        absmax = a.abs().amax(-1)
+    s = _f32(top) / torch.maximum(absmax, _f32(1e-6))
     return torch.clamp(torch.round(a * s[..., None]), -top, top).to(dtype), _f32(1.0) / s
 
 
@@ -222,7 +226,7 @@ def _head_selector(emb_dim: int, num_heads: int, device) -> torch.Tensor:
 
 def _decode_attention_joined(
     yq: torch.Tensor, kv: dict, mask_add: torch.Tensor, num_heads: int,
-    attn_kernel: bool = False,
+    attn_kernel=False, q_absmax: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """T_q == 1 cross-attention over a joined [B, T, E] cache, each branch
     of the JAX function. Returns (out [B,1,E], attn [B,H,1,T]).
@@ -237,14 +241,21 @@ def _decode_attention_joined(
 
     The int8 products are exact, as the TPU's int32 sums: the scores stay
     within E * 127^2 < 2^24, so float32 holds them; the attn . V mix
-    reaches 127 * T * 127, past 2^24 at T ~ 1040, so it sums in float64."""
+    reaches 127 * T * 127, past 2^24 at T ~ 1040, so it sums in float64.
+
+    On a mesh, `q_absmax` is the int8 branch's per-tensor absmax of q over
+    the whole batch (max-reduced over the data and model ranks), and
+    `attn_kernel` may name the decode-attention kernel the whole batch
+    would take ("block" or "warp", decode_attn.kernel_for)."""
     q = yq[:, 0, :]
     k, v = kv["k"], kv["v"]
     b, t, e = k.shape
     d = e // num_heads
     scale = _f32(1.0 / math.sqrt(d))
     if k.dtype == torch.int8:
-        aq = _f32(127.0) / torch.maximum(q.abs().amax(), _f32(1e-6))
+        if q_absmax is None:
+            q_absmax = q.abs().amax()
+        aq = _f32(127.0) / torch.maximum(q_absmax, _f32(1e-6))
         q_q = torch.clamp(torch.round(q * aq), -127.0, 127.0)
         q2 = q_q[:, :, None] * _head_selector(e, num_heads, q.device)[None]  # [B, E, H]
         scores = torch.bmm(q2.transpose(1, 2), k.to(torch.float32).transpose(1, 2))
@@ -262,7 +273,8 @@ def _decode_attention_joined(
         return res.reshape(b, 1, e), attn[:, :, None, :]
     if attn_kernel and k.dtype == torch.int16:
         out = decode_attn.decode_attention_int16(
-            q, k, v, kv["kqi"], kv["vqi"], mask_add[:, 0, 0, :], num_heads)
+            q, k, v, kv["kqi"], kv["vqi"], mask_add[:, 0, 0, :], num_heads,
+            attn_kernel if isinstance(attn_kernel, str) else None)
         attn = q.new_zeros((q.shape[0], num_heads, 1, t))
         return out[:, None, :], attn
     sel = _head_selector(e, num_heads, q.device)
@@ -400,6 +412,21 @@ def _ffn_block(
 LAYER_KERNEL_PROVIDERS = ("xla_int8", "pallas", "fused")
 
 
+def layer_kernel_runs(fused_layer: bool, flash: bool, act_dtype, provider: Optional[str],
+                      t: int, e: int, num_heads: int) -> bool:
+    """Whether encoder_layer_forward runs the whole-layer kernel: its gate."""
+    resolved = provider if provider is not None else "xla_int8"
+    return bool(
+        fused_layer
+        and not flash
+        and act_dtype is None
+        and resolved in LAYER_KERNEL_PROVIDERS
+        and 1 < t <= enc.MAX_T
+        and enc.width_ok(e)
+        and e % num_heads == 0
+    )
+
+
 def encoder_layer_forward(
     layer: dict, x: torch.Tensor, mask_add: torch.Tensor, num_heads: int,
     provider: Optional[str] = None, flash: bool = False,
@@ -412,17 +439,8 @@ def encoder_layer_forward(
     (enc.width_ok: the widths the kernel's tiles hold); else the split
     layer: self-attention (attention_forward) then the FFN, under
     "fused" the FFN-block kernel at M = B·T."""
-    resolved = provider if provider is not None else "xla_int8"
-    t, e = x.shape[-2], x.shape[-1]
-    if (
-        fused_layer
-        and not flash
-        and act_dtype is None
-        and resolved in LAYER_KERNEL_PROVIDERS
-        and 1 < t <= enc.MAX_T
-        and enc.width_ok(e)
-        and e % num_heads == 0
-    ):
+    if layer_kernel_runs(fused_layer, flash, act_dtype, provider, x.shape[-2],
+                         x.shape[-1], num_heads):
         return enc.encoder_layer_fused(x, layer, mask_add, num_heads)
     out, _ = attention_forward(
         layer["att"], x, mask_add, num_heads, flash=flash, fused_sdpa=fused_sdpa,
@@ -644,3 +662,386 @@ def output_argmax(
     if method not in logits_argmax.PACKED_DTYPES or w.shape[1] > logits_argmax.MAX_PACKED_WIDTH:
         method = "exact"
     return logits_argmax.argmax_affine(x, w, b, aq, output_inv(params), method)
+
+
+# -- Tensor and sequence parallelism -------------------------------------
+#
+# The pieces a mesh's ranks run (models/decode.translate_batch on a
+# parallel.sharding.ShardedParams). GSPMD partitioned the JAX functions
+# and inserted the collectives; here the single controller runs each
+# piece rank by rank (lists in rank order) and calls the collectives
+# (parallel.collectives.Local) between them. Every result equals one
+# device's, bit for bit:
+#   - column-parallel affines (Q, K, V, W1, the SSRU's W and Wf) are #1 on
+#     the rank's columns; a column's int32 sum does not depend on the split;
+#   - row-parallel affines (O, W2) run #1 in ACCUMULATOR mode, all-reduce
+#     the int32 accumulators, and only then apply #1's epilogue (acc * inv,
+#     then + b, rounded apart) and the residual and LN over the whole row;
+#   - the per-row cross-KV scales take the max of the ranks' absmax over
+#     their columns before they quantize;
+#   - the SSRU gathers its cell's column shards before the LN; the cell
+#     state stays local;
+#   - the vocab-sharded embedding takes each rank's rows (zeros elsewhere)
+#     and sums them as integers; a shortlist's rows likewise, and its
+#     positions are split over the model ranks;
+#   - the greedy choice reduces keys that carry the global column with a
+#     max: packed_int's from #1's accumulators, the others from #4's key
+#     variant;
+#   - the decode attention of a rank's heads runs #3 on them where its
+#     width allows, and the plain branches on the heads padded to the whole
+#     row with zeros (the full call's shapes, so torch's products sum as
+#     one device's do);
+#   - under sequence parallelism a rank's query rows attend to K and V
+#     gathered along T (#8's or #9's query slice).
+# The whole-row kernels (the whole layer #2, the fused blocks #5/#6, the
+# whole step #7) and the f32 provider take whole rows: under a TP mesh
+# they run on the gathered params (ShardedParams.gathered), once per data
+# shard, as GSPMD runs a Pallas call on gathered operands.
+
+
+class ModelRanks:
+    """The model ranks of one data shard: their params in rank order (`ps`,
+    each a column/row shard, or one whole params dict), the collectives,
+    and the vocabulary split: `vocab_sharded` where emb.q is split over the
+    ranks (else every rank holds the whole table)."""
+
+    def __init__(self, ps: Sequence[dict], collectives, vocab_size: int):
+        self.ps = list(ps)
+        self.coll = collectives
+        self.size = len(self.ps)
+        self.vocab_size = vocab_size
+        rows = self.ps[0]["emb"]["q"].shape[0]
+        self.vocab_sharded = self.size > 1 and rows * self.size == vocab_size
+        self.vocab_lo = [m * rows if self.vocab_sharded else 0 for m in range(self.size)]
+
+    def split(self, n: int, m: int) -> Tuple[int, int]:
+        """Rank m's even share [lo, hi) of n positions."""
+        return m * n // self.size, (m + 1) * n // self.size
+
+
+def _owned_rows(table: torch.Tensor, ids: torch.Tensor, lo: int) -> torch.Tensor:
+    """The rows of ids in [lo, lo + len(table)) as int32 (int8 rows; float
+    rows as their bits), zeros elsewhere: a rank's share of a row gather
+    over a vocab-sharded table, summed over the ranks as integers."""
+    n = table.shape[0]
+    local = ids.to(torch.long) - lo
+    inside = (local >= 0) & (local < n)
+    rows = table.index_select(0, local.clamp(0, n - 1).reshape(-1))
+    rows = rows.reshape(*ids.shape, *table.shape[1:])
+    rows = rows.view(torch.int32) if rows.dtype == torch.float32 else rows.to(torch.int32)
+    mask = inside.reshape(*inside.shape, *([1] * (table.dim() - 1)))
+    return torch.where(mask, rows, 0)
+
+
+def tp_embed(ranks: ModelRanks, indices: Sequence[torch.Tensor]) -> list:
+    """embed over the model ranks: each rank's ids (one batch, on its
+    device) give the f32 embeddings on every rank."""
+    if not ranks.vocab_sharded:
+        return [embed(p, idx) for p, idx in zip(ranks.ps, indices)]
+    parts = [_owned_rows(p["emb"]["q"], idx, lo)
+             for p, idx, lo in zip(ranks.ps, indices, ranks.vocab_lo)]
+    return [rows.to(torch.float32) * _f32(p["emb"]["inv"])
+            for p, rows in zip(ranks.ps, ranks.coll.all_reduce_sum(parts))]
+
+
+def tp_affine_row(ranks: ModelRanks, mats: Sequence[dict], xs: Sequence[torch.Tensor]) -> list:
+    """A row-parallel affine: each rank's int8 product of its input columns
+    against its rows of the weight (#1, ACCUMULATOR), the int32
+    accumulators summed over the ranks, then #1's epilogue."""
+    accs = [qmm.int8_matmul(x, p["q"], p["aq"]) for p, x in zip(mats, xs)]
+    return [acc.to(torch.float32) * _f32(p["inv"]) + p["b"]
+            for p, acc in zip(mats, ranks.coll.all_reduce_sum(accs))]
+
+
+def tp_ssru(ranks: ModelRanks, rnns, states, xs) -> Tuple[list, list]:
+    """ssru_forward over the ranks' column shards of W and Wf: the cell
+    c(t) stays local ([B, 1, E / M]); h = LN(x + relu(c)) takes the cell's
+    columns gathered."""
+    cells = []
+    for rnn, state, x in zip(rnns, states, xs):
+        f = torch.sigmoid(_affine(rnn["wf"], x))
+        wx = _affine(rnn["w"], x)
+        cells.append(f * state + (1.0 - f) * wx)
+    whole = ranks.coll.all_gather(cells, dim=-1)
+    hs = [layer_norm(x + torch.relu(c), rnn["ln"]) for rnn, x, c in zip(rnns, xs, whole)]
+    return hs, cells
+
+
+def pad_heads(a: torch.Tensor, m: int, size: int) -> torch.Tensor:
+    """Rank m's columns [..., E / size] in place in a zero [..., E] tensor."""
+    width = a.shape[-1]
+    out = a.new_zeros((*a.shape[:-1], width * size))
+    out[..., m * width:(m + 1) * width] = a
+    return out
+
+
+def tp_cross_kv(grid: Sequence[Sequence[dict]], encoder_out, num_heads: int,
+                dtype: Optional[str], coll, pad: Sequence[bool],
+                provider: Optional[str] = None) -> list:
+    """precompute_cross_kv over a data shard's (model, seq) ranks: grid[m][s]
+    the params and encoder_out[m][s] [B, T / S, E] (replicated over m) of
+    rank (m, s). The K/V affines run on each rank's rows and columns; the
+    per-row scales take the row's absmax, max-reduced over m; the caches
+    are gathered along T over s onto rank (m, 0). Joined caches of the
+    ranks with pad[m] are padded to the whole row (pad_heads). Returns
+    caches[m] per layer."""
+    model, seqs = len(grid), len(grid[0])
+    heads = num_heads // model
+    caches = [[] for _ in range(model)]
+    for li in range(len(grid[0][0]["decoder"])):
+        att = [[grid[m][s]["decoder"][li]["att"] for s in range(seqs)] for m in range(model)]
+        k = [[_affine(att[m][s]["k"], encoder_out[m][s], provider=provider)
+              for s in range(seqs)] for m in range(model)]
+        v = [[_affine(att[m][s]["v"], encoder_out[m][s], provider=provider)
+              for s in range(seqs)] for m in range(model)]
+
+        def gather(parts, dim):
+            return coll.all_gather(parts, dim)[0]
+
+        if dtype is None:
+            for m in range(model):
+                caches[m].append(tuple(
+                    gather([_split_heads(a, heads) for a in kv[m]], 2) for kv in (k, v)))
+            continue
+        if dtype in FLOAT_CACHES:
+            one = _f32(1.0)
+            for m in range(model):
+                kf, vf = (gather([a.to(FLOAT_CACHES[dtype]) for a in kv[m]], 1)
+                          for kv in (k, v))
+                if pad[m]:
+                    kf, vf = pad_heads(kf, m, model), pad_heads(vf, m, model)
+                caches[m].append({"k": kf, "v": vf, "kqi": one, "vqi": one})
+            continue
+        wide = dict(zip(("k", "v"), ROW_CACHES[dtype]))
+        quant = {}
+        for name, kv in (("k", k), ("v", v)):
+            absmax = [coll.all_reduce_max([kv[m][s].abs().amax(-1) for m in range(model)])
+                      for s in range(seqs)]
+            quant[name] = [[_per_row(kv[m][s], wide[name], absmax[s][m])
+                            for s in range(seqs)] for m in range(model)]
+        for m in range(model):
+            cache = {}
+            for name in ("k", "v"):
+                q = gather([quant[name][m][s][0] for s in range(seqs)], 1)
+                cache[name] = pad_heads(q, m, model) if pad[m] else q
+                cache[name + "qi"] = gather([quant[name][m][s][1] for s in range(seqs)], 1)
+            caches[m].append(cache)
+    return [tuple(c) for c in caches]
+
+
+def sp_attention(q, k, v, mask_add, num_heads: int, *, fused_sdpa: bool = False,
+                 flash: bool = False) -> torch.Tensor:
+    """The encoder self-attention of one rank: its query rows q [B, T_q, E']
+    (E' = its heads' columns) against k, v [B, T, E'] gathered along T.
+    The precedence of attention_forward: the fused SDPA (#8) where asked at
+    1 < T <= 256, else blockwise (#9) where asked; on the card a kernel
+    in any case where the head dim is one of its (#8 up to T = 256, else
+    #9): the plain SDPA never serves a mesh there. Else the plain SDPA,
+    each row equal to the full call's (ops/attention's query slice)."""
+    t, e = k.shape[1], q.shape[-1]
+    d = e // num_heads
+    kernel = d in enc.HEAD_DIMS
+    short = 1 < t <= enc.MAX_T
+    if kernel and short and (fused_sdpa or (q.is_cuda and not flash)):
+        return attention.fused_sdpa_joined(q, k, v, mask_add, num_heads, 0, q.shape[1])
+    if kernel and (flash or q.is_cuda):
+        out = attention.blockwise_attention(
+            _split_heads(q, num_heads), _split_heads(k, num_heads),
+            _split_heads(v, num_heads), mask_add, 0, q.shape[1])
+        return _join_heads(out)
+    if q.is_cuda:
+        raise ValueError(f"head dim {d} not in {enc.HEAD_DIMS}: no attention kernel "
+                         "serves this mesh's encoder on the card")
+    return attention.sdpa_rows_plain(q, k, v, mask_add, num_heads, 0, q.shape[1])
+
+
+def tp_encoder(grid: Sequence[Sequence[dict]], ranks_by_seq: Sequence[ModelRanks],
+               xs, masks, num_heads: int, coll, *, provider: Optional[str] = None,
+               fused_sdpa: bool = False, flash: bool = False) -> list:
+    """encoder_forward over a data shard's (model, seq) ranks: xs[m][s]
+    [B, T / S, E] (replicated over m) and masks[m][s] the whole additive
+    mask [B, 1, 1, T]; grid[m][s] the params, ranks_by_seq[s] the model
+    ranks of seq position s. Q/K/V and W1 run on each rank's columns, K
+    and V are gathered along T over s, each rank's query rows attend
+    (sp_attention), O and W2 are row-parallel. Returns xs updated."""
+    model, seqs = len(grid), len(grid[0])
+    heads = num_heads // model
+    xs = [list(row) for row in xs]
+    for li in range(len(grid[0][0]["encoder"])):
+        layer = [[grid[m][s]["encoder"][li] for s in range(seqs)] for m in range(model)]
+        att = [[layer[m][s]["att"] for s in range(seqs)] for m in range(model)]
+        proj = {name: [[_affine(att[m][s][name], xs[m][s], provider=provider)
+                        for s in range(seqs)] for m in range(model)]
+                for name in ("q", "k", "v")}
+        heads_out = [[None] * seqs for _ in range(model)]
+        for m in range(model):
+            keys = coll.all_gather(proj["k"][m], 1)
+            values = coll.all_gather(proj["v"][m], 1)
+            for s in range(seqs):
+                heads_out[m][s] = sp_attention(proj["q"][m][s], keys[s], values[s],
+                                               masks[m][s], heads, fused_sdpa=fused_sdpa,
+                                               flash=flash)
+        for s in range(seqs):
+            ranks = ranks_by_seq[s]
+            if model == 1:
+                ys = [_affine(att[0][s]["o"], heads_out[0][s], provider=provider)]
+            else:
+                ys = tp_affine_row(ranks, [att[m][s]["o"] for m in range(model)],
+                                   [heads_out[m][s] for m in range(model)])
+            x1 = [layer_norm(xs[m][s] + ys[m], att[m][s]["ln"]) for m in range(model)]
+            ffn = [layer[m][s]["ffn"] for m in range(model)]
+            hidden = [_affine(ffn[m]["w1"], x1[m], relu=True, provider=provider)
+                      for m in range(model)]
+            if model == 1:
+                ys = [_affine(ffn[0]["w2"], hidden[0], provider=provider)]
+            else:
+                ys = tp_affine_row(ranks, [f["w2"] for f in ffn], hidden)
+            for m in range(model):
+                xs[m][s] = layer_norm(ys[m] + x1[m], ffn[m]["ln"])
+    return xs
+
+
+def tp_projections(ranks: ModelRanks, shortlists: Optional[Sequence[torch.Tensor]] = None):
+    """Each rank's share of the tied projection: ([(W [E, S_m], b [S_m],
+    col0)], the whole width S). The full vocabulary: a rank's own rows
+    (vocab-sharded) or its even share of the whole table; a shortlist:
+    its rows gathered (owned rows summed as integers where the table is
+    sharded), then split evenly over the ranks by position."""
+    out = []
+    if shortlists is None:
+        width = ranks.vocab_size
+        for m, p in enumerate(ranks.ps):
+            q, b = p["emb"]["q"], p["out"]["b"]
+            if ranks.vocab_sharded:
+                out.append((q.T, b, ranks.vocab_lo[m]))
+            else:
+                lo, hi = ranks.split(width, m)
+                out.append((q[lo:hi].T, b[lo:hi], lo))
+        return out, width
+    width = shortlists[0].shape[0]
+    if ranks.vocab_sharded:
+        rows = ranks.coll.all_reduce_sum(
+            [_owned_rows(p["emb"]["q"], ids, lo)
+             for p, ids, lo in zip(ranks.ps, shortlists, ranks.vocab_lo)])
+        bias = ranks.coll.all_reduce_sum(
+            [_owned_rows(p["out"]["b"], ids, lo)
+             for p, ids, lo in zip(ranks.ps, shortlists, ranks.vocab_lo)])
+        tables = [(r.to(torch.int8), b.view(torch.float32)) for r, b in zip(rows, bias)]
+    else:
+        tables = [(p["emb"]["q"].index_select(0, ids.to(torch.long)),
+                   p["out"]["b"].index_select(0, ids.to(torch.long)))
+                  for p, ids in zip(ranks.ps, shortlists)]
+    for m, (rows, bias) in enumerate(tables):
+        lo, hi = ranks.split(width, m)
+        out.append((rows[lo:hi].T, bias[lo:hi].contiguous(), lo))
+    return out, width
+
+
+def tp_output_argmax(ranks: ModelRanks, xs, projections, width: int,
+                     provider: Optional[str], method: str, packed_biases=None) -> list:
+    """output_argmax over the ranks' shares of the projection: each rank's
+    best key over its columns, keyed by the global column, max-reduced.
+    `packed_int` (declared providers) keys #1's accumulators with the
+    global width's packing; every other method runs #4's key variant
+    (the exact argmax where the method is not packed or the width is past
+    65536, as output_argmax)."""
+    e_dim = ranks.ps[0]["emb"]["q"].shape[1]
+    bests = []
+    if uses_packed_int(provider, method):
+        width_bits, shift = packed_int_params(width, e_dim)
+        mask_col = (1 << width_bits) - 1
+        for p, x, (w, b, col0), bias in zip(ranks.ps, xs, projections,
+                                            packed_biases or [None] * ranks.size):
+            if bias is None:
+                bias = packed_int_bias(p, b)
+            acc = qmm.int8_matmul(x, w, p["out"]["aq"])
+            col = col0 + torch.arange(w.shape[1], dtype=torch.int32, device=x.device)
+            key = (((acc + bias) >> shift) << width_bits) | (mask_col - col)
+            bests.append(key.amax(-1))
+        return [(mask_col - (best & mask_col)).to(torch.int32)
+                for best in ranks.coll.all_reduce_max(bests)]
+    if method not in logits_argmax.PACKED_DTYPES or width > logits_argmax.MAX_PACKED_WIDTH:
+        method = "exact"
+    for p, x, (w, b, col0) in zip(ranks.ps, xs, projections):
+        bests.append(logits_argmax.argmax_keys(
+            x, w, b, p["out"]["aq"], output_inv(p), method, col0)[1])
+    return [logits_argmax.key_column(best, method)
+            for best in ranks.coll.all_reduce_max(bests)]
+
+
+def tp_decoder_step(ranks: ModelRanks, states, xs, masks, caches, num_heads: int, *,
+                    projections, width: int, provider: Optional[str] = None,
+                    argmax_method: str = "packed_int", attn_kernel=False,
+                    packed_biases=None, padded=None):
+    """decoder_step over the model ranks of one data shard, as a generator.
+    states[m]: rank m's cell states per layer ([B, 1, E / M]); xs[m] the
+    step's [B, 1, E] input on its device; caches[m] its cross-KV caches
+    (tp_cross_kv), padded[m] whether its joined caches are padded to the
+    whole row (else #3 runs on its own heads). Where the caches are int8 or k8v16 the step yields, at each
+    layer's cross-attention, the ranks' absmax of q and takes back the
+    whole batch's (models/decode.lockstep max-reduces them over every data
+    shard); else it yields nothing. Returns (choices per rank, new states
+    per rank, rank 0's last cross-attention weights, whose head 0 is the
+    model's). With one rank (whole params) every piece is the one-device
+    function of the provider."""
+    model = ranks.size
+    heads = num_heads // model
+    padded = padded or [False] * model
+    new_states = [[] for _ in range(model)]
+    attn0 = None
+    for li in range(len(ranks.ps[0]["decoder"])):
+        layers = [p["decoder"][li] for p in ranks.ps]
+        if model == 1:
+            h, c = ssru_forward(layers[0]["rnn"], states[0][li], xs[0], provider)
+            hs, cells = [h], [c]
+        else:
+            hs, cells = tp_ssru(ranks, [l["rnn"] for l in layers],
+                                [st[li] for st in states], xs)
+        for m in range(model):
+            new_states[m].append(cells[m])
+        atts = [l["att"] for l in layers]
+        yqs = [_affine(att["q"], h, provider=provider) for att, h in zip(atts, hs)]
+        first = caches[0][li]
+        q_absmax = [None] * model
+        if isinstance(first, dict) and first["k"].dtype == torch.int8:
+            q_absmax = yield [yq.abs().amax() for yq in yqs]
+        outs = []
+        for m in range(model):
+            kv = caches[m][li]
+            if not isinstance(kv, dict):
+                attn_out, attn = enc.sdpa_heads(_split_heads(yqs[m], heads), *kv, masks[m])
+                outs.append(_join_heads(attn_out))
+            elif model == 1 or not padded[m]:
+                out, attn = _decode_attention_joined(yqs[m], kv, masks[m], heads, attn_kernel,
+                                                     q_absmax[m])
+                outs.append(out)
+            else:
+                out, attn = _decode_attention_joined(
+                    pad_heads(yqs[m], m, model), kv, masks[m], num_heads, attn_kernel,
+                    q_absmax[m])
+                width_m = yqs[m].shape[-1]
+                outs.append(out[..., m * width_m:(m + 1) * width_m])
+                attn = attn[:, m * heads:(m + 1) * heads]
+            if m == 0:
+                attn0 = attn
+        if model == 1:
+            ys = [_affine(atts[0]["o"], outs[0], provider=provider)]
+        else:
+            ys = tp_affine_row(ranks, [att["o"] for att in atts], outs)
+        x1 = [layer_norm(h + y, att["ln"]) for h, y, att in zip(hs, ys, atts)]
+        if model == 1:
+            xs = [_ffn_block(layers[0], x1[0], provider)]
+        else:
+            ffn = [l["ffn"] for l in layers]
+            hidden = [_affine(f["w1"], x, relu=True) for f, x in zip(ffn, x1)]
+            ys = tp_affine_row(ranks, [f["w2"] for f in ffn], hidden)
+            xs = [layer_norm(y + x, f["ln"]) for f, y, x in zip(ffn, ys, x1)]
+    rows = [x[:, 0, :] for x in xs]
+    if model == 1:
+        w, b, _ = projections[0]
+        choices = [output_argmax(ranks.ps[0], rows[0], provider, (w, b), argmax_method,
+                                 packed_biases[0] if packed_biases else None)]
+    else:
+        choices = tp_output_argmax(ranks, rows, projections, width, provider,
+                                   argmax_method, packed_biases)
+    return choices, new_states, attn0

@@ -91,6 +91,17 @@ _SIGNATURES = {
     "slimt_fused_sdpa": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # q, k, v, mask, out, bh, heads, t, d, scale, stream
     "slimt_blockwise_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # q, k, v, mask, out, b, q_rows, q0, tq, t, e, heads, scale, stream
+    "slimt_fused_sdpa_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, mask, out, bh, heads, q_rows, q0, tq, t, d, scale, stream
+    "slimt_blockwise_attention_rows": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P
+    ),
+    # y, w, bias, choice, keys, scratch, b, e, s, w_stride_k, w_stride_n,
+    # col0, aq, inv, mode, stream
+    "slimt_argmax_keys": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _F, _F, _I, _P
+    ),
 }
 
 

@@ -27,6 +27,10 @@
 //    feeds four multiply-adds per thread, and the loads of the next key
 //    tile overlap the arithmetic of this one.
 //
+//    A second entry (slimt_fused_sdpa_rows, below) takes a slice of the
+//    query rows against all T keys: sequence parallelism's T / seq rows
+//    a rank, each the row the full launch gives.
+//
 // 2. Blockwise attention on split heads. Replaces
 //    slimt_tpu/ops/attention.py:blockwise_attention (body
 //    _attention_kernel): for q, k, v [B, H, T, D] and the additive mask
@@ -78,4 +82,44 @@ extern "C" int slimt_blockwise_attention(const void* q, const void* k,
                           static_cast<const float*>(v), static_cast<const float*>(mask),
                           static_cast<float*>(out), bh / heads, heads, t, d, split,
                           scale, static_cast<cudaStream_t>(stream));
+}
+
+// The query-slice launches of the same kernel (sequence parallelism: a
+// rank's T / seq query rows against every key). q and out hold q_rows rows
+// a batch row (q_rows * e floats a batch row for the joined form, q_rows * d
+// a head for the split form); the kernel takes rows q0 .. q0 + tq - 1 and
+// writes those rows of out. k, v and the mask hold t keys. A row's result
+// is the row the full launch gives: the key tiles run in the same order.
+extern "C" int slimt_fused_sdpa_rows(const void* q, const void* k, const void* v,
+                                     const void* mask, void* out, int b, int q_rows,
+                                     int q0, int tq, int t, int e, int heads,
+                                     float scale, void* stream) {
+  using namespace slimt;
+  if (b < 1 || t < 1 || heads < 1 || e % heads || tq < 1 || q0 < 0 || q0 + tq > q_rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int d = e / heads;
+  const HeadLayout keys{static_cast<long long>(t) * e, d, e};
+  const QueryRows rows{{static_cast<long long>(q_rows) * e, d, e}, q0, tq};
+  return launch_attention(static_cast<const float*>(q), static_cast<const float*>(k),
+                          static_cast<const float*>(v), static_cast<const float*>(mask),
+                          static_cast<float*>(out), b, heads, t, d, keys, scale,
+                          static_cast<cudaStream_t>(stream), rows);
+}
+
+extern "C" int slimt_blockwise_attention_rows(const void* q, const void* k,
+                                              const void* v, const void* mask,
+                                              void* out, int bh, int heads, int q_rows,
+                                              int q0, int tq, int t, int d, float scale,
+                                              void* stream) {
+  using namespace slimt;
+  if (bh < 1 || heads < 1 || bh % heads || t < 1 || tq < 1 || q0 < 0 || q0 + tq > q_rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long head = static_cast<long long>(t) * d;
+  const long long q_head = static_cast<long long>(q_rows) * d;
+  const HeadLayout keys{heads * head, head, d};
+  const QueryRows rows{{heads * q_head, q_head, d}, q0, tq};
+  return launch_attention(static_cast<const float*>(q), static_cast<const float*>(k),
+                          static_cast<const float*>(v), static_cast<const float*>(mask),
+                          static_cast<float*>(out), bh / heads, heads, t, d, keys, scale,
+                          static_cast<cudaStream_t>(stream), rows);
 }

@@ -278,8 +278,9 @@ decode_attention_warp_kernel(const float* __restrict__ q, const int16_t* __restr
 }  // namespace slimt
 
 // q, out [b, e] f32; k, v [b, t, e] int16; kqi, vqi, mask [b, t] f32; all
-// contiguous, 16-byte aligned device pointers. e % 256 == 0; the head dim
-// e / heads is 8 * 2^i, at most 256. kernel: 0 the choice below, 1 the
+// contiguous, 16-byte aligned device pointers. e % 128 == 0 (a tensor-
+// parallel rank's heads: E / model columns); the head dim e / heads is
+// 8 * 2^i, at most 256. kernel: 0 the choice below, 1 the
 // block kernel, 2 the warp kernel.
 extern "C" int slimt_decode_attention(const void* q, const void* k,
                                       const void* v, const void* kqi,
@@ -289,7 +290,7 @@ extern "C" int slimt_decode_attention(const void* q, const void* k,
   using namespace slimt;
   const int d = heads > 0 ? e / heads : 0;
   const int lanes = d / 8;
-  if (b < 1 || t < 1 || e < 256 || e % 256 || heads < 1 || e % heads ||
+  if (b < 1 || t < 1 || e < 128 || e % 128 || heads < 1 || e % heads ||
       d % 8 || lanes > 32 || (lanes & (lanes - 1)) || kernel < 0 || kernel > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* qf = static_cast<const float*>(q);

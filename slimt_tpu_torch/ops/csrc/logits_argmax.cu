@@ -45,6 +45,9 @@
 //      4 bytes, zero past E, with the same keys. E may be anything up to
 //      kMaxEmb, as the TPU kernel takes the whole of K as one block;
 //   2. pick: a warp per row takes the max of its blocks' keys.
+// The key variant (slimt_argmax_keys) keys global columns col0 + n of a
+// vocab shard and also writes each row's winning key, so that tensor-
+// parallel shards meet by one max over their keys.
 //
 // Bounds on the H100. At B <= 64 one step reads W once: E * S bytes (8.2
 // MB for the 32k vocabulary at E = 256, L2-resident across steps), and
@@ -83,6 +86,7 @@ struct ArgmaxArgs {
   long long sk, sn;
   float aq, inv;
   int mode, groups, y_vec;
+  int col0;  // the global column of W's column 0 (a vocab shard's first)
 };
 
 // The key of column n's logit v (see the header comment).
@@ -264,7 +268,7 @@ __global__ void __launch_bounds__(kThreads) mma_project_kernel(const __grid_cons
 #pragma unroll
             for (int h = 0; h < 2; ++h)
               key[mt][h] = key_max(key[mt][h], argmax_key(
-                  logit(acc[mt][nt][2 * h + j], a, bias[nt][j]), n, a.mode));
+                  logit(acc[mt][nt][2 * h + j], a, bias[nt][j]), a.col0 + n, a.mode));
           }
         }
       }
@@ -335,7 +339,7 @@ __global__ void __launch_bounds__(kThreads) gather_project_kernel(const __grid_c
   const float bias = n < a.s ? a.bias[n] : 0.0f;
 #pragma unroll
   for (int r = 0; r < kGatherRows; ++r) {
-    Key key = n < a.s ? argmax_key(logit(acc[r], a, bias), n, a.mode) : 0;
+    Key key = n < a.s ? argmax_key(logit(acc[r], a, bias), a.col0 + n, a.mode) : 0;
 #pragma unroll
     for (int offset = 16; offset > 0; offset /= 2)
       key = key_max(key, __shfl_xor_sync(0xffffffffu, key, offset));
@@ -345,10 +349,14 @@ __global__ void __launch_bounds__(kThreads) gather_project_kernel(const __grid_c
 }
 
 // choice[row] = the column of the largest of the row's tile keys, a warp
-// per row; a lane's loads are issued together, 8 at a time.
+// per row; a lane's loads are issued together, 8 at a time. Where `keys_out`
+// is given, keys_out[row] = that key with its top bit flipped: as a signed 64-bit
+// integer it orders as the unsigned key, so vocab shards' keys meet by a
+// signed max.
 __global__ void __launch_bounds__(kThreads) pick_kernel(const Key* __restrict__ part, int b,
                                                         int groups, int mode,
-                                                        int* __restrict__ choice) {
+                                                        int* __restrict__ choice,
+                                                        long long* __restrict__ keys_out) {
   constexpr int kBatch = 8;
   const int row = blockIdx.x * kWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -365,7 +373,10 @@ __global__ void __launch_bounds__(kThreads) pick_kernel(const Key* __restrict__ 
 #pragma unroll
   for (int offset = 16; offset > 0; offset /= 2)
     key = key_max(key, __shfl_xor_sync(0xffffffffu, key, offset));
-  if (lane == 0) choice[row] = key_column(key, mode);
+  if (lane == 0) {
+    choice[row] = key_column(key, mode);
+    if (keys_out != nullptr) keys_out[row] = static_cast<long long>(key ^ (1ull << 63));
+  }
 }
 
 // Blocks a launch may keep in flight across the device's SMs before a
@@ -406,15 +417,17 @@ size_t argmax_scratch_bytes(int b, int s) {
 
 int launch_argmax(const float* y, const int8_t* w, const float* bias, int* choice,
                   void* part, int b, int e, int s, long long sk, long long sn, float aq,
-                  float inv, int mode, cudaStream_t stream) {
-  if (b <= 0 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                  float inv, int mode, cudaStream_t stream, int col0,
+                  long long* keys) {
+  if (b <= 0 || s <= 0 || col0 < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (e <= 0 || e > kMaxEmb) return static_cast<int>(cudaErrorInvalidValue);
   if (mode != kArgmaxExact && mode != kArgmaxFp16 && mode != kArgmaxBf16)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (mode != kArgmaxExact && s > 65536) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode != kArgmaxExact && static_cast<long long>(col0) + s > 65536)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(part) % sizeof(Key)) return static_cast<int>(cudaErrorInvalidValue);
   ArgmaxArgs a = {y, w, bias, static_cast<Key*>(part), b, e, s, sk, sn, aq, inv, mode, 0,
-                  reinterpret_cast<uintptr_t>(y) % 16 == 0};
+                  reinterpret_cast<uintptr_t>(y) % 16 == 0, col0};
   const bool columns = sk == 1 && sn % 16 == 0 && e % 64 == 0 && e <= kMaxMmaEmb &&
                        reinterpret_cast<uintptr_t>(w) % 16 == 0;
   int rc;
@@ -435,7 +448,7 @@ int launch_argmax(const float* y, const int8_t* w, const float* bias, int* choic
   }
   if (rc) return rc;
   pick_kernel<<<(b + kWarps - 1) / kWarps, kThreads, 0, stream>>>(a.part, b, a.groups, mode,
-                                                                   choice);
+                                                                   choice, keys);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -459,4 +472,19 @@ extern "C" int slimt_argmax_affine(const void* y, const void* w,
       static_cast<const float*>(y), static_cast<const int8_t*>(w),
       static_cast<const float*>(bias), static_cast<int*>(choice), scratch, b, e, s, sk,
       sn, aq, inv, mode, static_cast<cudaStream_t>(stream));
+}
+
+// The key variant (a vocab shard's argmax): W holds global columns col0 ..
+// col0 + s - 1; choice[b] is the global column and keys[b] (int64) the
+// winning key with its top bit flipped, which the shards reduce by a signed
+// max. Packed methods need col0 + s <= 65536.
+extern "C" int slimt_argmax_keys(const void* y, const void* w, const void* bias,
+                                 void* choice, void* keys, void* scratch, int b, int e,
+                                 int s, long long sk, long long sn, int col0, float aq,
+                                 float inv, int mode, void* stream) {
+  return slimt::launch_argmax(
+      static_cast<const float*>(y), static_cast<const int8_t*>(w),
+      static_cast<const float*>(bias), static_cast<int*>(choice), scratch, b, e, s, sk,
+      sn, aq, inv, mode, static_cast<cudaStream_t>(stream), col0,
+      static_cast<long long*>(keys));
 }

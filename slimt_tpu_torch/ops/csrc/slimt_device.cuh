@@ -783,6 +783,15 @@ struct HeadLayout {
   long long batch, head, row;
 };
 
+// The query rows of an attention launch: rows q0 .. q0 + tq - 1 of q (laid
+// out by `lay`), written at the same rows of out. Sequence parallelism
+// gives a rank T / seq query rows against all T keys; the encoder's own
+// calls take every row (q0 = 0, tq = t, q laid out as K and V).
+struct QueryRows {
+  HeadLayout lay;
+  int q0, tq;
+};
+
 // The weight slices (Slice) slice_of(0), slice_of(1), ... of a kernel's
 // products, in the order the products take them, through a ring of
 // `slots` (2 or 3) buffers of `slot` bytes in shared memory: cp.async
@@ -866,14 +875,16 @@ __device__ __forceinline__ void attention_stage(const float* k, const float* v,
   cp_async_commit();
 }
 
-// grid (batch * heads, ceil(t / (kRows * R))); mask [batch, t]; q, k, v,
-// out 16-byte aligned with every row start a multiple of 4 floats.
+// grid (batch * heads, ceil(qr.tq / (kRows * R))); mask [batch, t] over
+// the t keys; q, k, v, out 16-byte aligned with every row start a multiple
+// of 4 floats. A query row's arithmetic does not depend on qr: every row
+// walks the same key tiles in the same order.
 template <int D, int R, int kRows, int kTile>
 __global__ void __launch_bounds__(kRows)
 attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ mask,
                  float* __restrict__ out, int t, int heads, HeadLayout lay,
-                 float scale) {
+                 QueryRows qr_rows, float scale) {
   static_assert(D % 4 == 0, "rows are read as float4");
   __shared__ __align__(16) float k_s[2][kTile * D];
   __shared__ __align__(16) float v_s[2][kTile * D];
@@ -888,13 +899,15 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float acc[R][D];
   float run_max[R];
   float run_sum[R];
+  const int row_end = qr_rows.q0 + qr_rows.tq;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    rows[r] = blockIdx.y * (kRows * R) + r * kRows + threadIdx.x;
-    const float4* src = reinterpret_cast<const float4*>(q + base + rows[r] * lay.row);
+    rows[r] = qr_rows.q0 + blockIdx.y * (kRows * R) + r * kRows + threadIdx.x;
+    const float4* src = reinterpret_cast<const float4*>(
+        q + b * qr_rows.lay.batch + h * qr_rows.lay.head + rows[r] * qr_rows.lay.row);
 #pragma unroll
     for (int c = 0; c < D / 4; ++c) {
-      const float4 x = rows[r] < t ? __ldg(src + c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float4 x = rows[r] < row_end ? __ldg(src + c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       qr[r][4 * c] = x.x;
       qr[r][4 * c + 1] = x.y;
       qr[r][4 * c + 2] = x.z;
@@ -981,8 +994,9 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    if (rows[r] >= t) continue;
-    float4* dst = reinterpret_cast<float4*>(out + base + rows[r] * lay.row);
+    if (rows[r] >= row_end) continue;
+    float4* dst = reinterpret_cast<float4*>(
+        out + b * qr_rows.lay.batch + h * qr_rows.lay.head + rows[r] * qr_rows.lay.row);
 #pragma unroll
     for (int c = 0; c < D / 4; ++c)
       dst[c] = make_float4(acc[r][4 * c] / run_sum[r], acc[r][4 * c + 1] / run_sum[r],
@@ -993,11 +1007,11 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D, int R, int kRows, int kTile>
 int launch_attention_config(const float* q, const float* k, const float* v,
                             const float* mask, float* out, int batch, int heads,
-                            int t, HeadLayout lay, float scale,
+                            int t, HeadLayout lay, QueryRows rows, float scale,
                             cudaStream_t stream) {
-  const dim3 grid(batch * heads, (t + kRows * R - 1) / (kRows * R));
+  const dim3 grid(batch * heads, (rows.tq + kRows * R - 1) / (kRows * R));
   attention_kernel<D, R, kRows, kTile><<<grid, kRows, 0, stream>>>(
-      q, k, v, mask, out, t, heads, lay, scale);
+      q, k, v, mask, out, t, heads, lay, rows, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1007,15 +1021,20 @@ int launch_attention_config(const float* q, const float* k, const float* v,
 // of the configurations timed on the H100 at T 16-256 and at T = 1024).
 // This and launch_sdpa are templates so that only the sources that launch
 // attention compile its kernels.
+// `rows` picks the query rows (every row of a q laid out as K and V where
+// the caller passes none).
 template <int = 0>
 int launch_attention(const float* q, const float* k, const float* v,
                      const float* mask, float* out, int batch, int heads, int t,
-                     int d, HeadLayout lay, float scale, cudaStream_t stream) {
+                     int d, HeadLayout lay, float scale, cudaStream_t stream,
+                     QueryRows rows = {{0, 0, 0}, 0, -1}) {
+  if (rows.tq < 0) rows = {lay, 0, t};
+  if (rows.tq < 1 || rows.q0 < 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
-    case 8: return launch_attention_config<8, 2, 32, 16>(q, k, v, mask, out, batch, heads, t, lay, scale, stream);
-    case 16: return launch_attention_config<16, 2, 32, 16>(q, k, v, mask, out, batch, heads, t, lay, scale, stream);
-    case 32: return launch_attention_config<32, 2, 32, 16>(q, k, v, mask, out, batch, heads, t, lay, scale, stream);
-    case 64: return launch_attention_config<64, 1, 64, 16>(q, k, v, mask, out, batch, heads, t, lay, scale, stream);
+    case 8: return launch_attention_config<8, 2, 32, 16>(q, k, v, mask, out, batch, heads, t, lay, rows, scale, stream);
+    case 16: return launch_attention_config<16, 2, 32, 16>(q, k, v, mask, out, batch, heads, t, lay, rows, scale, stream);
+    case 32: return launch_attention_config<32, 2, 32, 16>(q, k, v, mask, out, batch, heads, t, lay, rows, scale, stream);
+    case 64: return launch_attention_config<64, 1, 64, 16>(q, k, v, mask, out, batch, heads, t, lay, rows, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

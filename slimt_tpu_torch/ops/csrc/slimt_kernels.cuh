@@ -36,10 +36,13 @@ size_t argmax_scratch_bytes(int b, int s);
 // choice[r] = argmax over n < s of q8(y[r]) W[:, n] inv + bias[n] by
 // `mode`, W[k, n] = w[k * sk + n * sn] int8 [e, s]; the packed modes need
 // s <= 65536. part: argmax_scratch_bytes(b, s) bytes of scratch, 8-byte
-// aligned. Returns cudaGetLastError() after the launches.
+// aligned. Returns cudaGetLastError() after the launches. col0 names W's
+// columns col0 .. col0 + s - 1 (a vocab shard; the packed modes then need
+// col0 + s <= 65536); where `keys` is given, keys[r] is the winning key
+// with its top bit flipped (int64 order = key order).
 int launch_argmax(const float* y, const int8_t* w, const float* bias,
                   int* choice, void* part, int b, int e, int s, long long sk,
                   long long sn, float aq, float inv, int mode,
-                  cudaStream_t stream);
+                  cudaStream_t stream, int col0 = 0, long long* keys = nullptr);
 
 }  // namespace slimt

@@ -54,8 +54,8 @@ def check_shapes(b: int, t: int, e: int, num_heads: int) -> None:
     lanes = d // 8
     if b < 1 or t < 1:
         raise ValueError(f"decode attention: empty batch B={b}, T={t}")
-    if e < 256 or e % 256:
-        raise ValueError(f"decode attention: E={e} must be a multiple of 256")
+    if e < 128 or e % 128:
+        raise ValueError(f"decode attention: E={e} must be a multiple of 128")
     if num_heads < 1 or e % num_heads or d % 8 or lanes > 32 or lanes & (lanes - 1):
         raise ValueError(
             f"decode attention: head dim {d} must be 8 * 2^i, at most 256")
@@ -105,13 +105,28 @@ def decode_attention_kernel(q, k, v, kqi, vqi, mask, num_heads, _kernel=None) ->
 decode_attention_kernel.launches = 0
 
 
-def decode_attention_int16(q, k, v, kqi, vqi, mask, num_heads) -> torch.Tensor:
+# The C entry's choice (csrc/decode_attn.cu): the warp kernel from
+# WARP_KERNEL_ITEMS (row, head) items at T <= WARP_KERNEL_T, else the block
+# kernel. The two sum in different orders.
+WARP_KERNEL_ITEMS = 1600
+WARP_KERNEL_T = 128
+
+
+def kernel_for(b: int, num_heads: int, t: int) -> str:
+    """The kernel the C entry picks for B rows of `num_heads` heads over T
+    positions. A mesh's shard forces the whole batch's choice, so that its
+    rows sum as they would on one device."""
+    return "warp" if b * num_heads >= WARP_KERNEL_ITEMS and t <= WARP_KERNEL_T else "block"
+
+
+def decode_attention_int16(q, k, v, kqi, vqi, mask, num_heads, _kernel=None) -> torch.Tensor:
     """q [B, E] f32 (the Q projection of this step); k, v [B, T, E]
     int16 joined cache; kqi, vqi [B, T] per-row dequant scales; mask
-    [B, T] additive. Returns out [B, E], before the O projection."""
+    [B, T] additive. Returns out [B, E], before the O projection.
+    `_kernel` forces the kernel on CUDA (a mesh's shards)."""
     if q.is_cuda:
         return decode_attention_kernel(
-            q.contiguous(), k, v, kqi, vqi, mask.contiguous(), num_heads)
+            q.contiguous(), k, v, kqi, vqi, mask.contiguous(), num_heads, _kernel)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kqi, vqi, mask, num_heads)[0]
     raise ValueError(f"unsupported device {q.device}")

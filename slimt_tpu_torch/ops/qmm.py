@@ -101,6 +101,8 @@ def affine_kernel(x2, w_q, b, aq, inv, mode=AFFINE) -> torch.Tensor:
     )
     _build.check(lib, code, "slimt_affine")
     launches.count(affine_kernel)
+    if mode == ACCUMULATOR:
+        launches.count(int8_matmul)
     return y
 
 
@@ -130,8 +132,13 @@ def dot(x, w_q, aq, inv) -> torch.Tensor:
 
 
 def int8_matmul(x, w_q, aq) -> torch.Tensor:
-    """quant(x) @ w_q as the raw int32 accumulator [..., N]."""
+    """quant(x) @ w_q as the raw int32 accumulator [..., N]. On CUDA the
+    kernel's ACCUMULATOR launches also count in `launches` here (the
+    row-parallel products of tensor parallelism, packed_int's keys)."""
     return _run(x, w_q, None, aq, 1.0, ACCUMULATOR)
+
+
+int8_matmul.launches = 0
 
 
 def affine_f32(x, w, b=None, relu: bool = False) -> torch.Tensor:

@@ -1566,3 +1566,132 @@ def test_jni_translates_on_the_card(door_package):
     finally:
         capi.release(model)
         capi.release(service)
+
+
+# -- multiple devices: the kernel variants and the mesh on the card -------
+
+
+@pytest.mark.parametrize("b,t,e,heads", [(64, 64, 256, 8), (33, 100, 512, 8), (16, 16, 128, 4)])
+@pytest.mark.parametrize("seq", [2, 4])
+def test_fused_sdpa_query_slice_rows_equal_full_rows(card, b, t, e, heads, seq):
+    """#8's query slice: each seq rank's rows (a slice of q, or an offset
+    into it) bit-equal to the full kernel's rows, and its plain version."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(b * t + e)
+    q, k, v = (torch.randn((b, t, e), device=card, generator=gen) for _ in range(3))
+    mask = torch.zeros((b, 1, 1, t), device=card)
+    mask[0, ..., t - t // 3:] = tfm.MASK_MIN
+    full = attention.fused_sdpa_kernel(q, k, v, mask, heads)
+    n = -(-t // seq)
+    for lo in range(0, t, n):
+        rows = min(n, t - lo)
+        got = attention.fused_sdpa_rows_kernel(q[:, lo:lo + rows].contiguous(), k, v, mask, heads)
+        assert torch.equal(got, full[:, lo:lo + rows])
+        assert torch.equal(attention.fused_sdpa_rows_kernel(q, k, v, mask, heads, lo, rows),
+                           full[:, lo:lo + rows])
+        plain = attention.sdpa_rows_plain(q, k, v, mask, heads, lo, rows)
+        assert float((plain[1:] - got[1:]).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("b,t", [(16, 1024), (3, 1000), (4, 272)])
+def test_blockwise_query_slice_rows_equal_full_rows(card, b, t):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(b + t)
+    q, k, v = (torch.randn((b, 8, t, 32), device=card, generator=gen) for _ in range(3))
+    mask = torch.zeros((b, 1, 1, t), device=card)
+    full = attention.blockwise_kernel(q, k, v, mask)
+    for seq in (2, 4):
+        n = t // seq
+        for s in range(seq):
+            got = attention.blockwise_rows_kernel(q[:, :, s * n:(s + 1) * n].contiguous(),
+                                                  k, v, mask)
+            assert torch.equal(got, full[:, :, s * n:(s + 1) * n])
+    plain = attention.blockwise_rows_plain(q, k, v, mask, 0, t // 2)
+    assert float((plain - full[:, :, :t // 2]).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("rows", [1, 16, 64, 512])
+@pytest.mark.parametrize("method", logits_argmax.METHODS)
+def test_argmax_keys_on_vocab_shards(card, rows, method):
+    """#4's key variant on two vocab shards of the tiny11 projection: each
+    equal to its plain version (column and key), and the max of the keys
+    names the unsharded kernel's choice."""
+    config = ModelConfig(encoder_layers=1, decoder_layers=1)
+    host = load_weights(load_items(synthetic_model_bytes(
+        config=config, vocab_size=32000, emb_dim=256, ffn_dim=512, seed=0)), config)
+    params = params_from_numpy(host, card)
+    w, b = tfm.prepare_output_projection(params)
+    aq, inv = params["out"]["aq"], tfm.output_inv(params)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(rows)
+    y = torch.randn((rows, 256), device=card, generator=gen) * 2
+    want = logits_argmax.argmax_affine_kernel(y, w, b, aq, inv, method)
+    keys = []
+    for lo, hi in ((0, 16000), (16000, 32000)):
+        got = logits_argmax.argmax_keys_kernel(y, w[:, lo:hi], b[lo:hi], aq, inv, method, lo)
+        plain = logits_argmax.argmax_keys_plain(y, w[:, lo:hi], b[lo:hi], aq, inv, method, lo)
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+        keys.append(got[1])
+    assert torch.equal(logits_argmax.key_column(torch.maximum(*keys), method), want)
+
+
+def test_decode_attention_on_a_ranks_heads(card):
+    """#3 on a tensor-parallel rank's heads (E / 2 = 128 columns) equals
+    those heads of the whole-row call, by either kernel."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+    b, t = 16, 64
+    q = torch.randn((b, 256), device=card, generator=gen)
+    k, v = (torch.randint(-32767, 32768, (b, t, 256), device=card, dtype=torch.int16,
+                          generator=gen) for _ in range(2))
+    kqi, vqi = ((torch.rand((b, t), device=card, generator=gen) + 0.5) / 32767 for _ in range(2))
+    mask = torch.zeros((b, t), device=card)
+    for kernel in ("block", "warp"):
+        full = decode_attn.decode_attention_kernel(q, k, v, kqi, vqi, mask, 8, kernel)
+        for m in range(2):
+            cols = slice(128 * m, 128 * (m + 1))
+            got = decode_attn.decode_attention_kernel(
+                q[:, cols].contiguous(), k[..., cols].contiguous(), v[..., cols].contiguous(),
+                kqi, vqi, mask, 4, kernel)
+            assert torch.equal(got, full[:, cols])
+
+
+@pytest.fixture(scope="module")
+def mesh_package():
+    from slimt_tpu_torch.models.model import Package
+    from slimt_tpu_torch.text import spm_proto
+    from slimt_tpu_torch.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
+
+    config = ModelConfig()
+    return config, Package(
+        synthetic_model_bytes(config=config, vocab_size=32000, emb_dim=256, ffn_dim=1536,
+                              seed=0),
+        spm_proto.serialize_model(build_spm_model(DEFAULT_WORDS, target_size=32000)))
+
+
+@pytest.mark.parametrize("layout,sharding,sequence", [
+    ((2, 2, 1), "tp", False), ((4, 1, 1), "replicate", False),
+    ((2, 1, 2), "replicate", True), ((1, 2, 1), "tp", False),
+], ids=["dp-tp", "dp", "dp-sp", "tp"])
+def test_meshed_model_bit_equal_to_the_card(card, mesh_package, layout, sharding, sequence):
+    """Model(mesh=[cuda:0] * n) at the tiny11 widths: the tokens of 64
+    segments (16 rows a data shard) equal the single-card Model's."""
+    from slimt_tpu_torch.models.model import Model
+    from slimt_tpu_torch.parallel import sharding as shd
+
+    config, package = mesh_package
+    rng = np.random.default_rng(7)
+    segments = [list(rng.integers(3, 32000, rng.integers(4, 30))) + [0] for _ in range(64)]
+    want = Model(config, package).forward(segments, need_alignment=False)
+    mesh = shd.repeated_mesh(*layout)
+    model = Model(config, package, mesh=mesh, sharding=sharding, shard_sequence=sequence)
+    got = model.forward(segments, need_alignment=False)
+    assert [h.target for h in got] == [h.target for h in want]
+
+
+def test_dryrun_multichip_on_the_card(card):
+    from slimt_tpu_torch import entry
+
+    report = entry.dryrun_multichip(4)
+    assert all(leg["equal"] for leg in report)
+    assert {leg["leg"] for leg in report} == set(entry.LEG_KERNELS)

@@ -151,7 +151,7 @@ def test_layer_kernel_refuses_before_any_launch(no_build, t, e, ffn, heads, k_ma
 
 @pytest.mark.parametrize("b,t,e,heads,match", [
     (0, 16, 256, 8, "empty batch"), (2, 0, 256, 8, "empty batch"),
-    (2, 16, 128, 8, "E=128"), (2, 16, 384, 8, "E=384"),
+    (2, 16, 64, 8, "E=64"), (2, 16, 320, 8, "E=320"),
     (2, 16, 256, 3, "head dim 85"), (2, 16, 512, 1, "head dim 512"),
     (2, 16, 256, 64, "head dim 4"), (2, 16, 256, 8, "CUDA")])
 @pytest.mark.parametrize("kernel", [None, "warp"])

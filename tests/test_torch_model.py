@@ -249,6 +249,11 @@ def test_import_loads_neither_jax_nor_regex():
         from slimt_tpu_torch.io import checkpoint
         from slimt_tpu_torch.ops import _capi_build
         from slimt_tpu_torch.runtime import health, router
+        # Multiple devices: the mesh, its collectives, multi-process
+        # serving, the pipeline and the entry points.
+        from slimt_tpu_torch import entry
+        from slimt_tpu_torch.parallel import (collectives, demo, multihost, pipeline,
+                                              sharding)
         assert not loaded(block.names), loaded(block.names)
 
         # Serving splits sentences, and the splitter needs regex.
