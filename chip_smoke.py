@@ -153,15 +153,25 @@ without printing a result:
              and serving numerics), DP with the whole layer (#2) and the
              whole step (#7) per data shard, the two-stage pipeline on two
              streams, (data x seq) at T=64 (#8's query slice) and T=1024
-             (#9's); each leg's tokens bit-equal to one card's and the
-             kernels of entry.LEG_KERNELS launched in its mesh run (#1 in
+             (#9's); each leg's tokens bit-equal to one card's, through
+             its graph decode and its eager loop, and the kernels of
+             entry.LEG_KERNELS launched in its mesh run (#1 in
              ACCUMULATOR mode, #2, #3, #4's key variant, #7, #8/#9's query
-             slice), its wall beside one card's for the same batch (a
-             virtual mesh on one card: the shards share one device); then
-             two `python -m slimt_tpu_torch.parallel.demo` processes on the
-             card over gloo, their translations identical and equal to one
-             Model's; with two cards or more also over NCCL (on one card it
-             prints that the legs over distinct cards and NCCL did not run);
+             slice); every leg but a lockstep one across cards replayed
+             every chunk of its warm run from CUDA graphs (per-device
+             caches; their counts printed); its walls in turns through
+             the graph decode, the eager loop and one card for the same
+             batch (a virtual mesh on one card: the shards share one
+             device); then two `python -m slimt_tpu_torch.parallel.demo`
+             processes on the card over gloo, their translations
+             identical and equal to one Model's, each having replayed
+             graphs; with two cards or more also over NCCL (on one card it
+             prints that the legs over distinct cards and NCCL did not
+             run); then Model(mesh=[cuda:0] * 2, replicated) on the
+             declared config: B=64 T=64 and B=1 T=32 forwards through the
+             graph decode, the eager loop and one card's Model in turns,
+             the tokens of all three bit-equal, and its per-device cache
+             counts after the first forward and after the rest;
 9. check   — outputs well formed; CUDA tokens against the plain CPU
              path (>= 99% equal and none stopping short of the other;
              on the long path's arrays and the bfloat16 and int8 kv
@@ -211,6 +221,11 @@ its ACCUMULATOR launches there), the last line {"ok": true, "device": {...}}.
 `python3 chip_smoke.py --unroll` runs no check: the B=1 T=32 latency
 line and the B=64 and B=512 T=64 forward lines of the graph loop at k
 in UNROLL_SWEEP on the declared, fused_step and fused paths.
+
+`python3 chip_smoke.py --mesh-legs OUT` runs the mesh phase's legs alone
+(entry.dryrun_multichip(4), its checks included) and writes their report
+to OUT; a copy of the script beside another tree's package runs that
+tree's legs, so two trees compare on one card in turns.
 
 `python3 chip_smoke.py --trace-sessions N` runs no check: N traced
 fused_step forwards at E=256 F=1536 with utils.TRACE_PAD_S at 0, then N
@@ -1550,8 +1565,13 @@ def demo_processes(torch, backend: str, name: str, smi: str) -> list:
         raise RuntimeError(f"demo ({backend}): the processes' translations differ: {texts}, "
                            f"one Model: {one}")
     done = [line for out in outputs for line in out.splitlines() if "DONE" in line]
+    replays = [int(line.split("replays=", 1)[1].split()[0]) for line in done]
+    if len(replays) != 2 or not all(replays):
+        raise RuntimeError(f"demo ({backend}): a process decoded without replaying CUDA "
+                           f"graphs: {done}")
     log(f"mesh two processes ({backend}): {len(one)} translations identical in both and equal "
-        f"to one Model on the card; {done}; {wall:.1f} s for both on {name} ({smi})")
+        f"to one Model on the card; graph replays per process {replays}; {done}; "
+        f"{wall:.1f} s for both on {name} ({smi})")
     return texts[0]
 
 
@@ -1567,14 +1587,23 @@ def mesh_phase(torch, name: str, smi: str) -> dict:
     cards = torch.cuda.device_count()
     report = entry.dryrun_multichip(4)
     totals = {}
+
+    def ms(walls):
+        return ", ".join(f"{w:.1f}" for w in walls)
+
     for leg in report:
         for key, n in leg["launches"].items():
             totals[key] = totals.get(key, 0) + n
+        replay = (f"{leg['replays']} graph replays of {leg['chunks']} chunks"
+                  if leg["replay"] else
+                  f"lockstep across cards, eager ({leg['replays']} replays)")
         log(f"mesh {leg['leg']} {leg['mesh'] or '(encoder stage, decoder stage)'} over "
             f"{leg['devices'] or 'cuda:0, cuda:' + str(min(1, cards - 1))}: tokens bit-equal to "
-            f"one card's ({leg['tokens']} tokens); wall {leg['mesh_ms']:.1f} ms against one "
-            f"card's {leg['single_ms']:.1f} ms for the same batch (virtual mesh on one card: "
-            f"the shards share one device; no scaling claim) on {name} ({smi}); launches "
+            f"one card's ({leg['tokens']} tokens), graph and eager; walls in turns (graph, "
+            f"eager, one card, one card, eager, graph), ms: graph {ms(leg['mesh_ms'])}, eager "
+            f"{ms(leg['eager_ms'])}, one card {ms(leg['single_ms'])} for the same batch "
+            f"(virtual mesh on one card: the shards share one device; no scaling claim) on "
+            f"{name} ({smi}); {replay}; graph caches {leg['caches']}; launches "
             f"{leg['launches']}")
     demo_processes(torch, "gloo", name, smi)
     if cards >= 2:
@@ -1584,6 +1613,89 @@ def mesh_phase(torch, name: str, smi: str) -> dict:
             "did not run")
     log(f"mesh phase: {time.perf_counter() - start:.1f} s")
     return totals
+
+
+def profiled(torch, fn) -> dict:
+    """One call of `fn` under torch.profiler: the host's launch calls, the
+    device operations, their summed ms and the ms the device was busy with
+    any of them (the union of their intervals: streams may overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    host = [e for e in events if e.device_type == DeviceType.CPU and e.name.startswith("cu")
+            and any(word in e.name for word in HOST_CALLS)]
+    busy, reach = 0.0, None
+    for start, end in spans:
+        if reach is None or start > reach:
+            busy += end - start
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
+    return {"host_calls": len(host), "ops": len(spans),
+            "kernel_ms": sum(end - start for start, end in spans) * 1e-3, "busy_ms": busy * 1e-3}
+
+
+def meshed_model_phase(torch, config, package, name, smi) -> None:
+    """Model(mesh=[cuda:0] * 2, sharding="replicate") on `config`: a B=64
+    T=64 and a B=1 T=32 forward, each timed in turns through the graph
+    loop, its `_eager_loop` and one card's Model (graph, eager, one card,
+    one card, eager, graph; a warm forward before the first of each),
+    the tokens of all three bit-equal; one profiled graph forward of each
+    Model (host launch calls, device busy ms, idle share of the median
+    wall); the
+    per-device graph caches' counts after the first forward (captures)
+    and after the rest (hits)."""
+    from slimt_tpu_torch import Model
+    from slimt_tpu_torch.parallel import sharding as shd
+
+    start = time.perf_counter()
+    model = Model(config, package, mesh=shd.repeated_mesh(2), sharding="replicate")
+    one = Model(config, package)
+    eos = model.vocabulary.eos_id
+    for batch, t in ((64, 64), (1, 32)):
+        segments = [[3 + (i + j) % 1000 for j in range(t - 1)] + [eos] for i in range(batch)]
+        model.forward(segments, need_alignment=False)
+        cold = model._graphs.counts
+        walls = {"graph": [], "eager": [], "one card": []}
+        outs = {}
+        for label in ("graph", "eager", "one card", "one card", "eager", "graph"):
+            target = one if label == "one card" else model
+            with eager_loop(model, label == "eager"):
+                if label not in outs:
+                    target.forward(segments, need_alignment=False)
+                torch.cuda.synchronize()
+                begin = time.perf_counter()
+                hyps = target.forward(segments, need_alignment=False)
+                torch.cuda.synchronize()
+            walls[label].append((time.perf_counter() - begin) * 1e3)
+            outs[label] = [h.target for h in hyps]
+        if not outs["graph"] == outs["eager"] == outs["one card"]:
+            raise RuntimeError(f"meshed Model B={batch} T={t}: graph, eager and one card's "
+                               "tokens differ")
+        tokens = sum(map(len, outs["graph"]))
+        ratio = statistics.median(walls["graph"]) / statistics.median(walls["one card"])
+        for label, target in (("meshed", model), ("one card", one)):
+            got = profiled(torch, lambda: target.forward(segments, need_alignment=False))
+            wall = statistics.median(walls["graph" if label == "meshed" else "one card"])
+            log(f"meshed Model profile B={batch} T={t}, {label} graph forward: "
+                f"{got['host_calls']} host launch calls, {got['ops']} device ops, kernels "
+                f"{got['kernel_ms']:.3f} ms summed, device busy {got['busy_ms']:.3f} ms, idle "
+                f"{1 - got['busy_ms'] / wall:.1%} of the median wall {wall:.3f} ms (profiled) "
+                f"on {name} ({smi})")
+        turns = "; ".join(f"{label} " + ", ".join(f"{w:.3f}" for w in ws)
+                          for label, ws in walls.items())
+        log(f"meshed Model [cuda:0] x 2 replicate B={batch} T={t} full vocab: tokens "
+            f"bit-equal, graph, eager and one card ({tokens} tokens); walls in turns, ms: "
+            f"{turns}; graph over one card {ratio:.2f}x; graph caches after the first "
+            f"forward {cold}, after all {model._graphs.counts} on {name} ({smi})")
+    log(f"meshed Model phase: {time.perf_counter() - start:.1f} s")
 
 
 # The host's CUDA calls that put work on a stream, as torch.profiler names
@@ -3076,6 +3188,26 @@ def layout_times(out: str, kernels=LAYOUT_KERNELS) -> None:
 UNROLL_SWEEP = (1, 2, 4, 8, 16)
 
 
+def mesh_legs(out: str) -> None:
+    """The --mesh-legs mode: slimt_tpu_torch.entry.dryrun_multichip(4) of
+    the package beside the script (every leg checked as in the mesh
+    phase), its report written as one JSON object to OUT with the card's
+    name and power limit. A copy of the script beside another tree's
+    package runs that tree's legs; run both in one call, in turns."""
+    import torch
+
+    name, smi = probe(torch)
+    from slimt_tpu_torch import entry
+
+    start = time.perf_counter()
+    report = entry.dryrun_multichip(4)
+    with open(out, "w") as f:
+        json.dump({"device": name, "smi": smi, "legs": report,
+                   "seconds": time.perf_counter() - start}, f)
+    for leg in report:
+        log(json.dumps(leg))
+
+
 def unroll_times() -> None:
     """The --unroll mode: the graph loop at k in UNROLL_SWEEP (ascending,
     then descending) on the declared, fused_step and fused paths at the
@@ -3508,8 +3640,10 @@ def main() -> None:
     with torch.inference_mode():
         longctx(torch, tfm, paths["declared"].params, name, smi)
 
-    # The mesh phase: the meshed legs, each bit-equal to one card.
+    # The mesh phase: the meshed legs, each bit-equal to one card, then a
+    # meshed Model's graph decode against its eager loop and one card.
     mesh_launches = mesh_phase(torch, name, smi)
+    meshed_model_phase(torch, config, packages["full vocab"], name, smi)
 
     loaded = [m for m in sys.modules if m.startswith("jax")
               or m == "slimt_tpu" or m.startswith("slimt_tpu.")]
@@ -3596,6 +3730,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--layouts"]:
         layout_times(sys.argv[2], tuple(sys.argv[3:]) or LAYOUT_KERNELS)
+    elif sys.argv[1:2] == ["--mesh-legs"]:
+        mesh_legs(sys.argv[2])
     elif sys.argv[1:2] == ["--unroll"]:
         unroll_times()
     elif sys.argv[1:2] == ["--trace-once"]:

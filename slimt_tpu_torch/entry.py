@@ -15,7 +15,11 @@ dryrun_multichip(n) -- every leg of the JAX function on an n-rank mesh
                        T = 1024 (#9's). Each leg's tokens must be bit-equal
                        to one card's with the same options; it raises
                        otherwise, and returns a report of each leg (its
-                       mesh, its walls and the kernels it launched).
+                       mesh, its walls and the kernels it launched). On
+                       the card each leg's decode replays CUDA graphs
+                       (per-device caches, loop_graph.DeviceGraphs), but
+                       a lockstep leg whose ranks span cards; the same
+                       leg through the eager loop is timed beside it.
 
 Every data shard holds 16 rows, so that the LayerNorms' and softmaxes'
 torch reductions take one device's configuration (a torch reduction's
@@ -35,7 +39,7 @@ from slimt_tpu_torch.io import load_items
 from slimt_tpu_torch.io.loader import load_weights
 from slimt_tpu_torch.io.params import params_from_numpy
 from slimt_tpu_torch.io.synthetic import synthetic_model_bytes
-from slimt_tpu_torch.models import loop_graph
+from slimt_tpu_torch.models import decode, loop_graph
 from slimt_tpu_torch.models.decode import translate_batch
 from slimt_tpu_torch.ops import (attention, decode_attn, decoder_step, encoder_layer,
                                  fused_blocks, logits_argmax, qmm)
@@ -131,36 +135,62 @@ def _sync(device) -> None:
 
 
 def _leg(name: str, mesh: Optional[shd.Mesh], run_mesh, run_single, report: list,
-         on_card: bool) -> None:
-    """Run one leg: the single-device run, then the mesh run with the
-    launch counters read around it (each run once to warm, once timed);
-    raise unless tokens and valid are bit-equal, and on the card unless
-    the mesh run launched each kernel of LEG_KERNELS[name]."""
+         on_card: bool, run_eager=None, replay: bool = True, caches=None) -> None:
+    """Run one leg: the single-device run, then the mesh run twice with the
+    launch counters read around the first (which captures the graphs) and
+    the graph replays and loop chunks around the second; then each, and
+    on the card the mesh run through the eager loop (`run_eager`), timed
+    in turns (mesh, eager, single, single, eager, mesh). Raise unless
+    every mesh run's tokens and valid are bit-equal to the single run's,
+    and on the card unless the mesh run launched each kernel of
+    LEG_KERNELS[name] and, where `replay`, its second run replayed every
+    chunk it ran. `caches()` gives the graph caches' counts for the
+    report."""
     want = run_single()
     before = {key: fn.launches for key, fn in COUNTERS.items()}
     got = run_mesh()
     launched = {key: fn.launches - before[key] for key, fn in COUNTERS.items()}
-    walls = {}
-    for label, run in (("single_ms", run_single), ("mesh_ms", run_mesh)):
-        device = got[0].tokens.device if isinstance(got, list) else got.tokens.device
+    replays, chunks = loop_graph.ChunkGraph.replays, decode.run_loop.chunks
+    outs = [got, run_mesh()]
+    replayed = loop_graph.ChunkGraph.replays - replays
+    ran = decode.run_loop.chunks - chunks
+    timed = {"mesh": run_mesh, "single": run_single}
+    turns = ("mesh", "single")
+    if on_card and run_eager is not None:
+        timed["eager"] = run_eager
+        turns = ("mesh", "eager", "single", "single", "eager", "mesh")
+    walls = {f"{label}_ms": [] for label in ("mesh", "eager", "single")}
+    device = got[0].tokens.device if isinstance(got, list) else got.tokens.device
+    for label in turns:
         _sync(device)
         start = time.perf_counter()
-        run()
+        out = timed[label]()
         _sync(device)
-        walls[label] = (time.perf_counter() - start) * 1e3
-    pairs = list(zip(got, want)) if isinstance(got, list) else [(got, want)]
+        walls[f"{label}_ms"].append((time.perf_counter() - start) * 1e3)
+        if label != "single":
+            outs.append(out)
+
+    def pairs(out):
+        return list(zip(out, want)) if isinstance(out, list) else [(out, want)]
+
     equal = all(torch.equal(g.tokens.cpu(), w.tokens.cpu())
-                and torch.equal(g.valid.cpu(), w.valid.cpu()) for g, w in pairs)
+                and torch.equal(g.valid.cpu(), w.valid.cpu())
+                for out in outs for g, w in pairs(out))
     entry_ = {"leg": name, "mesh": None if mesh is None else mesh.shape,
               "devices": sorted({str(d) for d in (mesh.devices if mesh else [])}),
-              "equal": equal, "tokens": int(sum(int(g.valid.sum()) for g, _ in pairs)),
-              **walls, "launches": {k: v for k, v in launched.items() if v}}
+              "equal": equal, "tokens": int(sum(int(g.valid.sum()) for g, _ in pairs(got))),
+              **walls, "replays": replayed, "chunks": ran, "replay": replay,
+              "caches": caches() if caches is not None else None,
+              "launches": {k: v for k, v in launched.items() if v}}
     report.append(entry_)
     if not equal:
         raise AssertionError(f"{name}: tokens differ from one device's: {entry_}")
     missing = [k for k in LEG_KERNELS[name] if not launched[k]]
     if missing and on_card:
         raise AssertionError(f"{name}: kernels never launched on the mesh: {missing}")
+    if on_card and replay and not (replayed and replayed == ran):
+        raise AssertionError(f"{name}: the mesh run replayed {replayed} of its {ran} chunks "
+                             "from CUDA graphs")
 
 
 def dryrun_multichip(n_devices: int, devices=None, long_t: int = 1024) -> list:
@@ -183,9 +213,21 @@ def dryrun_multichip(n_devices: int, devices=None, long_t: int = 1024) -> list:
                                        graphs=graphs, **options)
 
     def meshed(host, mesh, indices, mask, replicate=False, **options):
+        """The mesh leg's keyword arguments of _leg: its graph and eager
+        runs, whether it replays (all but a lockstep loop across cards)
+        and its per-device caches' counts."""
         split = shd.replicate_params if replicate else shd.shard_params
         params = params_from_numpy(split(host, mesh))
-        return lambda: translate_batch(params, indices, mask, **options)
+        caches = loop_graph.DeviceGraphs() if on_card else None
+        spans = len(set(mesh.devices)) > 1
+        lockstep = decode.mesh_lockstep(params, options.get("provider"),
+                                        options.get("kv_dtype", "int16"))
+        return dict(
+            run_mesh=lambda: translate_batch(params, indices, mask, graphs=caches, **options),
+            run_eager=lambda: translate_batch(params, indices, mask, graphs=caches,
+                                              _eager=True, **options),
+            replay=not (lockstep and spans),
+            caches=lambda: caches.counts if caches is not None else None)
 
     # The toy DP x TP step (every product #1; the blockwise kernel, whose
     # gate takes the toy width).
@@ -194,8 +236,8 @@ def dryrun_multichip(n_devices: int, devices=None, long_t: int = 1024) -> list:
     indices, mask = example_batch(ROWS_PER_SHARD * data, 16, vocab=512)
     options = dict(eos_id=0, max_steps=8, num_heads=toy_config.num_heads,
                    provider="xla_int8", flash_attention=True)
-    _leg("toy dp x tp", mesh, meshed(toy, mesh, indices, mask, **options),
-         single(toy, indices, mask, **options), report, on_card)
+    _leg("toy dp x tp", mesh, run_single=single(toy, indices, mask, **options),
+         report=report, on_card=on_card, **meshed(toy, mesh, indices, mask, **options))
 
     # The flagship DP x TP step, exact numerics (the split encoder on #8,
     # the exact argmax by #4's key variant) and the declared serving
@@ -210,8 +252,8 @@ def dryrun_multichip(n_devices: int, devices=None, long_t: int = 1024) -> list:
                          with_alignment=False, attn_kernel=True, fused_layer=on_card)),
     ):
         options.update(eos_id=0, max_steps=8, num_heads=heads, provider="xla_int8")
-        _leg(f"flagship dp x tp, {label}", mesh, meshed(flag, mesh, indices, mask, **options),
-             single(flag, indices, mask, **options), report, on_card)
+        _leg(f"flagship dp x tp, {label}", mesh, run_single=single(flag, indices, mask, **options),
+             report=report, on_card=on_card, **meshed(flag, mesh, indices, mask, **options))
 
     # DP with replicated weights: the whole-layer kernel (and under
     # fused_step the whole decode step) on each data shard.
@@ -221,9 +263,9 @@ def dryrun_multichip(n_devices: int, devices=None, long_t: int = 1024) -> list:
         options = dict(eos_id=0, max_steps=8, num_heads=heads, provider=provider,
                        kv_dtype="int16", argmax_method="packed_int", with_alignment=False,
                        attn_kernel=True, fused_layer=on_card)
-        _leg(f"dp whole layer, {label}", dp,
-             meshed(flag, dp, indices, mask, replicate=True, **options),
-             single(flag, indices, mask, **options), report, on_card)
+        _leg(f"dp whole layer, {label}", dp, run_single=single(flag, indices, mask, **options),
+             report=report, on_card=on_card,
+             **meshed(flag, dp, indices, mask, replicate=True, **options))
 
     # The two-stage pipeline: encoder on rank 0's device, decode on rank 1's.
     if n_devices >= 2:
@@ -232,8 +274,18 @@ def dryrun_multichip(n_devices: int, devices=None, long_t: int = 1024) -> list:
         singles = [single(flag, i, m, eos_id=0, max_steps=8, num_heads=heads,
                           provider="xla_int8", kv_dtype=None, argmax_method="exact",
                           fused_layer=on_card) for i, m in batches]
-        _leg("pipeline", None, lambda: pipe.translate_batches(batches, eos_id=0, max_steps=8),
-             lambda: [run() for run in singles], report, on_card)
+
+        def piped(eager=False):
+            pipe._eager_loop = eager
+            try:
+                return pipe.translate_batches(batches, eos_id=0, max_steps=8)
+            finally:
+                pipe._eager_loop = False
+
+        _leg("pipeline", None, piped, lambda: [run() for run in singles], report, on_card,
+             run_eager=lambda: piped(eager=True),
+             caches=lambda: None if pipe.decoder.graphs is None
+             else {str(pipe.decoder.device): dict(pipe.decoder.graphs.counts)})
 
     # (data x seq): each seq rank's query rows against K and V gathered
     # along T; #8's query slice at T = 64, #9's at T = 1024.
@@ -245,10 +297,10 @@ def dryrun_multichip(n_devices: int, devices=None, long_t: int = 1024) -> list:
             options.update(eos_id=0, max_steps=8, num_heads=heads, provider="xla_int8",
                            kv_dtype="int16", argmax_method="packed_int",
                            with_alignment=False, attn_kernel=True)
-            _leg(f"dp x sp, {label}", sp,
-                 meshed(flag, sp, indices, mask, replicate=True, shard_sequence=True,
-                        **options),
-                 single(flag, indices, mask, **options), report, on_card)
+            _leg(f"dp x sp, {label}", sp, run_single=single(flag, indices, mask, **options),
+                 report=report, on_card=on_card,
+                 **meshed(flag, sp, indices, mask, replicate=True, shard_sequence=True,
+                          **options))
     return report
 
 

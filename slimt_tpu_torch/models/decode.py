@@ -42,14 +42,23 @@ The host reads the flag once every `check_every` steps, rounded up to
 whole chunks. Rows that are complete, and steps past the limit, are
 masked out of tokens, valid and the alignment, so the result depends
 on neither k nor `check_every`.
+
+On a mesh (translate_mesh) the same holds for every data shard: each
+runs its own DecodeLoop on a stream of its own, and `run_loops` advances
+them in turn, a chunk of each a round, as the JAX package's one SPMD
+while_loop runs every shard at once; where the ranks must step together
+(tensor parallelism, an int8 cache over data shards) one MeshLoop holds
+them all in fixed buffers, captured as one graph where every rank is on
+one card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import threading
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -184,7 +193,37 @@ class StepContext:
         )
 
 
-class DecodeLoop(StepContext):
+class _Outputs:
+    """What a greedy loop writes at its device step `step`: tokens, valid
+    and the head-0 alignment, [B, steps padded to whole chunks(, T_src)],
+    behind its step limit. Rows that are complete, and steps past the
+    limit, are masked out of all three."""
+
+    def _make_outputs(self, batch: int, steps_padded: int, t_src: int,
+                      with_alignment: bool, device) -> None:
+        self.with_alignment = with_alignment
+        self.limit = torch.zeros(1, dtype=torch.int32, device=device)
+        self.tokens = torch.zeros((batch, steps_padded), dtype=torch.int32, device=device)
+        self.valid = torch.zeros((batch, steps_padded), dtype=torch.bool, device=device)
+        self.align = torch.zeros((batch, steps_padded, t_src if with_alignment else 0),
+                                 dtype=torch.float32, device=device)
+
+    def _record(self, step, word, attn, complete, eos_id: int):
+        """Write the words `word` [B] int32 chosen at `step` (and head 0 of
+        the cross-attention `attn`); returns the rows complete after it."""
+        # `step < limit` masks the steps of a chunk past the cap.
+        in_limit = step < self.limit
+        active = ~complete & in_limit
+        at = step.to(torch.long)
+        self.tokens.index_copy_(1, at, torch.where(active, word, 0)[:, None])
+        self.valid.index_copy_(1, at, active[:, None])
+        if self.with_alignment:
+            head0 = torch.where(active[:, None], attn[:, 0, 0, :], 0.0)
+            self.align.index_copy_(1, at, head0[:, None, :])
+        return complete | ((word == eos_id) & in_limit)
+
+
+class DecodeLoop(StepContext, _Outputs):
     """A batch's greedy decode in fixed buffers: the inputs it adopts (the
     cross-KV caches, the mask, the projection and the shortlist; a later
     batch of the bucket copies its own into them, `load`), the carried
@@ -201,27 +240,23 @@ class DecodeLoop(StepContext):
         self.shortlist = shortlist
         self.eos_id = eos_id
         self.max_steps, self.unroll = max_steps, unroll
-        self.with_alignment = with_alignment
         self.position_zero = decoder_position_zero
         batch, t_src = mask_add.shape[0], mask_add.shape[-1]
         layers = len(params["decoder"])
         emb_dim = params["emb"]["q"].shape[1]
         device = mask_add.device
-        steps_padded = -(-max_steps // unroll) * unroll
+        self._make_outputs(batch, -(-max_steps // unroll) * unroll, t_src, with_alignment,
+                           device)
 
         def zeros(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=device)
 
-        self.step_at, self.limit = zeros(1), zeros(1)
+        self.step_at = zeros(1)
         self.prev = zeros(batch)
         # One [L, B, 1, E] block: the whole-step kernel reads it in place.
         self.states = zeros(layers, batch, 1, emb_dim, dtype=torch.float32)
         self.complete = zeros(batch, dtype=torch.bool)
         self.done = zeros(1, dtype=torch.bool)
-        self.tokens = zeros(batch, steps_padded)
-        self.valid = zeros(batch, steps_padded, dtype=torch.bool)
-        self.align = zeros(batch, steps_padded, t_src if with_alignment else 0,
-                           dtype=torch.float32)
 
     def load(self, kv_caches, mask_add, projection, shortlist) -> None:
         """Copy a batch of this bucket's shapes into the input buffers."""
@@ -245,16 +280,7 @@ class DecodeLoop(StepContext):
         if self.shortlist is not None:
             choice = self.shortlist[choice.to(torch.long)]
         word = choice.to(torch.int32)
-        # `step < limit` masks the steps of a chunk past the cap.
-        in_limit = step < self.limit
-        active = ~complete & in_limit
-        at = step.to(torch.long)
-        self.tokens.index_copy_(1, at, torch.where(active, word, 0)[:, None])
-        self.valid.index_copy_(1, at, active[:, None])
-        if self.with_alignment:
-            head0 = torch.where(active[:, None], attn[:, 0, 0, :], 0.0)
-            self.align.index_copy_(1, at, head0[:, None, :])
-        complete = complete | ((word == self.eos_id) & in_limit)
+        complete = self._record(step, word, attn, complete, self.eos_id)
         return step + 1, word, new_states, complete
 
     def run_chunk(self) -> None:
@@ -279,27 +305,63 @@ class DecodeLoop(StepContext):
                         self.states, self.tokens, self.valid, self.align))
 
 
-def run_loop(loop: DecodeLoop, limit: int, check_every: int, chunk=None) -> int:
-    """Advance `loop` a chunk at a time until its step reaches `limit` or
-    a read of its all-complete flag says every row is done; the flag is
-    read once every `check_every` steps, rounded up to whole chunks.
-    `chunk` runs one chunk (a graph's `run`, whose flag is read one
-    replay behind); None runs `loop.run_chunk` eagerly and reads the flag
-    at once. Returns the chunks run (`run_loop.chunks` counts them all,
-    over every thread)."""
-    run = chunk if chunk is not None else loop.run_chunk
-    flag = loop_graph.FlagReader(loop.done, lag=1 if chunk is not None else 0)
-    every = -(-max(1, int(check_every)) // loop.unroll)
-    step = chunks = 0
-    while step < limit:
-        run()
-        chunks += 1
-        step += loop.unroll
-        if step < limit and chunks % every == 0 and flag.read():
-            break
+class LoopRun(NamedTuple):
+    """A loop run_loops advances: its state (`unroll`, the flag `done`),
+    `chunk`, which runs one chunk (a graph's `run`, or the state's
+    `run_chunk` run eagerly), the stream its chunks go to (None: the
+    current one), the lag of its flag reads (loop_graph.FlagReader) and
+    whether its buffers are a kept bucket's (loop_graph.GraphCache)."""
+
+    loop: object
+    chunk: Callable[[], None]
+    stream: Optional["torch.cuda.Stream"] = None
+    lag: int = 0
+    kept: bool = False
+
+
+def on_stream(stream):
+    """The context that makes `stream` current (None: the current one)."""
+    return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
+
+
+def run_loops(runs, limit: int, check_every: int) -> list:
+    """Advance several loops (LoopRun) in turn, one chunk of each a round,
+    each on its own stream, until each one's step reaches `limit` or a
+    read of its all-complete flag says every row is done; each flag is
+    read once every `check_every` steps, rounded up to whole chunks. A
+    loop that is done is advanced no further; the call returns when the
+    last one is. With lag 1 a read waits for the loop's last read chunk
+    only, while the chunks queued since run on. Returns the chunks each
+    loop ran (`run_loop.chunks` counts them all, over every thread)."""
+    readers = [loop_graph.FlagReader(run.loop.done, run.lag) for run in runs]
+    steps, chunks = [0] * len(runs), [0] * len(runs)
+    active = list(range(len(runs)))
+    while active:
+        still = []
+        for i in active:
+            run = runs[i]
+            every = -(-max(1, int(check_every)) // run.loop.unroll)
+            with on_stream(run.stream):
+                run.chunk()
+                chunks[i] += 1
+                steps[i] += run.loop.unroll
+                if steps[i] >= limit or (chunks[i] % every == 0 and readers[i].read()):
+                    continue
+            still.append(i)
+        active = still
     with _chunks_lock:
-        run_loop.chunks += chunks
+        run_loop.chunks += sum(chunks)
     return chunks
+
+
+def run_loop(loop: DecodeLoop, limit: int, check_every: int, chunk=None) -> int:
+    """run_loops of one loop on the current stream. `chunk` runs one chunk
+    (a graph's `run`, whose flag is read one replay behind); None runs
+    `loop.run_chunk` eagerly and reads the flag at once. Returns the
+    chunks run."""
+    if chunk is None:
+        return run_loops([LoopRun(loop, loop.run_chunk)], limit, check_every)[0]
+    return run_loops([LoopRun(loop, chunk, lag=1)], limit, check_every)[0]
 
 
 run_loop.chunks = 0
@@ -348,10 +410,14 @@ def greedy_decode(
     kv_caches = tfm.precompute_cross_kv(
         params, encoder_out, num_heads, cache_dtype(provider, kv_dtype),
         None if provider == "fused_step" else provider)
-    return decode_from_caches(
-        params, kv_caches, mask_add, eos_id, max_steps, num_heads, shortlist,
-        decoder_position_zero, steps_cap, with_alignment, check_every, provider,
-        argmax_method, attn_kernel, loop_unroll, graphs, _eager)
+    limit = step_limit(max_steps, steps_cap)
+    loop_args = greedy_args(eos_id, num_heads, max_steps, loop_unroll, provider,
+                            argmax_method, attn_kernel, with_alignment, decoder_position_zero)
+    with contextlib.ExitStack() as stack:
+        run = start_loop(stack, params, kv_caches, mask_add, shortlist, limit, loop_args,
+                         graphs, _eager)
+        run_loops([run], limit, check_every)
+        return finish_loop(run)
 
 
 def gate_attn_kernel(attn_kernel: bool, with_alignment: bool, kv_dtype: Optional[str],
@@ -362,48 +428,66 @@ def gate_attn_kernel(attn_kernel: bool, with_alignment: bool, kv_dtype: Optional
         kv_dtype == "int16") and provider != "fused_step"
 
 
-@torch.inference_mode()
-def decode_from_caches(
-    params: dict, kv_caches, mask_add: torch.Tensor, eos_id: int, max_steps: int,
-    num_heads: int, shortlist: Optional[torch.Tensor] = None,
-    decoder_position_zero: bool = True, steps_cap: Optional[int] = None,
-    with_alignment: bool = True, check_every: int = CHECK_EVERY,
-    provider: Optional[str] = None, argmax_method: str = "packed_int",
-    attn_kernel: bool = False, loop_unroll: Optional[int] = None,
-    graphs: Optional[loop_graph.GraphCache] = None, _eager: bool = False,
-) -> GreedyResult:
-    """greedy_decode from its cross-KV caches (precompute_cross_kv's; a
-    mesh's data shard passes its own, gathered along T) and an already
-    gated `attn_kernel`."""
-    projection = tfm.prepare_output_projection(params, shortlist, provider)
-    limit = max_steps if steps_cap is None else min(max_steps, int(steps_cap))
-    loop_args = dict(
+def step_limit(max_steps: int, steps_cap: Optional[int]) -> int:
+    """The trip count: min(max_steps, steps_cap)."""
+    return max_steps if steps_cap is None else min(max_steps, int(steps_cap))
+
+
+def start_loop(
+    stack: contextlib.ExitStack, params: dict, kv_caches, mask_add: torch.Tensor,
+    shortlist: Optional[torch.Tensor], limit: int, loop_args: dict,
+    graphs: Optional[loop_graph.GraphCache], eager: bool, stream=None,
+) -> LoopRun:
+    """Bind a batch to its loop and load it, on `stream` (None: the
+    current one): on the CPU, or with `eager`, a new DecodeLoop over the
+    batch's tensors, run eagerly with its flag read at once; on CUDA the
+    bucket of `graphs` for the batch's key, held in `stack` (Bucket.use)
+    until the batch is done, its buffers loaded, replayed with its flag
+    read one replay behind. Returns the LoopRun, reset to `limit`."""
+    with on_stream(stream):
+        projection = tfm.prepare_output_projection(params, shortlist, loop_args["provider"])
+
+        def make_loop():
+            return DecodeLoop(params, kv_caches, mask_add, projection, shortlist, **loop_args)
+
+        if not mask_add.is_cuda or eager:
+            loop = make_loop()
+            loop.reset(limit)
+            return LoopRun(loop, loop.run_chunk, stream)
+        if graphs is None:
+            raise ValueError("greedy_decode on CUDA replays its chunks from `graphs`, "
+                             "a loop_graph.GraphCache: pass one")
+        key = loop_key(params, loop_args, kv_caches, mask_add, projection, shortlist)
+        bucket = graphs.bucket(key, make_loop, mask_add.device)
+        loop = stack.enter_context(bucket.use())
+        loop.load(kv_caches, mask_add, projection, shortlist)
+        loop.reset(limit)
+        return LoopRun(loop, bucket.graph.run, stream, lag=1, kept=True)
+
+
+def finish_loop(run: LoopRun):
+    """The result of a run's loop (a GreedyResult, or MeshLoop's list of
+    them): a bucket's buffers serve the bucket's next batch, so a kept
+    loop hands out copies, made on its stream."""
+    result = run.loop.result()
+    if not run.kept:
+        return result
+    with on_stream(run.stream):
+        if isinstance(result, GreedyResult):
+            return GreedyResult(*(t.clone() for t in result))
+        return [GreedyResult(*(t.clone() for t in r)) for r in result]
+
+
+def greedy_args(eos_id, num_heads, max_steps, loop_unroll, provider, argmax_method,
+                attn_kernel, with_alignment, decoder_position_zero) -> dict:
+    """A DecodeLoop's options (and a part of its bucket's key)."""
+    return dict(
         eos_id=int(eos_id), num_heads=num_heads, max_steps=max_steps,
         unroll=resolve_unroll(loop_unroll), provider=provider,
         argmax_method=argmax_method, attn_kernel=attn_kernel,
         with_alignment=bool(with_alignment),
         decoder_position_zero=bool(decoder_position_zero),
     )
-
-    def make_loop():
-        return DecodeLoop(params, kv_caches, mask_add, projection, shortlist, **loop_args)
-
-    if not mask_add.is_cuda or _eager:
-        loop = make_loop()
-        loop.reset(limit)
-        run_loop(loop, limit, check_every)
-        return loop.result()
-    if graphs is None:
-        raise ValueError("greedy_decode on CUDA replays its chunks from `graphs`, "
-                         "a loop_graph.GraphCache: pass one")
-    key = loop_key(params, loop_args, kv_caches, mask_add, projection, shortlist)
-    bucket = graphs.bucket(key, make_loop, mask_add.device)
-    with bucket.use() as loop:
-        loop.load(kv_caches, mask_add, projection, shortlist)
-        loop.reset(limit)
-        run_loop(loop, limit, check_every, bucket.graph.run)
-        # The buffers serve the bucket's next batch: hand out copies.
-        return GreedyResult(*(t.clone() for t in loop.result()))
 
 
 def translate_batch(
@@ -443,9 +527,10 @@ def translate_batch(
 
     On a mesh (`params` a parallel.sharding.ShardedParams) the batch is
     split over its data ranks, and with `shard_sequence` its tokens over
-    its seq ranks; translate_mesh runs it (eagerly: `loop_unroll`,
-    `graphs` and `_eager` do not apply) and concatenates the data shards'
-    results in rank order."""
+    its seq ranks; translate_mesh runs it, with `loop_unroll`, `_eager`
+    and `graphs` (on CUDA a loop_graph.DeviceGraphs: one cache for each
+    device) as here, and concatenates the data shards' results in rank
+    order."""
     from slimt_tpu_torch.parallel.sharding import ShardedParams
 
     if isinstance(params, ShardedParams):
@@ -453,7 +538,7 @@ def translate_batch(
             params, indices, mask, eos_id, max_steps, num_heads, shortlist,
             decoder_position_zero, steps_cap, with_alignment, check_every, provider,
             kv_dtype, argmax_method, attn_kernel, flash_attention, fused_sdpa,
-            fused_layer, encoder_dtype, shard_sequence)
+            fused_layer, encoder_dtype, shard_sequence, loop_unroll, graphs, _eager)
     act = tfm.act_dtype(encoder_dtype)
     word_embedding = tfm.transform_embedding(tfm.embed(params, indices, act))
     mask_add = tfm.make_additive_mask(mask)
@@ -519,90 +604,271 @@ def _max_over(parts):
     return out
 
 
-class _MeshShard:
-    """One data shard of a mesh decode: its model ranks' params, caches,
-    masks and projection shares, and the loop's state (tokens, valid,
-    alignment and the complete rows on rank 0; prev and the cell states
-    on every rank)."""
+class MeshShard(NamedTuple):
+    """The inputs of one data shard of a lockstep decode (MeshLoop): its
+    model ranks (tfm.ModelRanks), each rank's cross-KV caches
+    (tfm.tp_cross_kv) and additive mask, the shortlist on each rank's
+    device (None: the full vocabulary) and whether each rank's joined
+    caches are padded to the whole row."""
 
-    def __init__(self, ranks, caches, masks, shortlists, *, num_heads, provider,
-                 argmax_method, attn_kernel, padded, max_steps, with_alignment):
-        self.ranks, self.caches, self.masks = ranks, caches, masks
-        self.num_heads, self.provider = num_heads, provider
-        self.argmax_method, self.attn_kernel = argmax_method, attn_kernel
-        self.padded = padded
-        self.shortlist = shortlists[0] if shortlists is not None else None
-        if ranks.size == 1:
-            w, b = tfm.prepare_output_projection(ranks.ps[0], self.shortlist, provider)
-            self.projections, self.width = [(w, b, 0)], w.shape[1]
-        else:
-            self.projections, self.width = tfm.tp_projections(ranks, shortlists)
-        self.packed_biases = None
-        if tfm.uses_packed_int(provider, argmax_method):
-            self.packed_biases = [tfm.packed_int_bias(p, b)
-                                  for p, (_, b, _) in zip(ranks.ps, self.projections)]
-        mask0 = masks[0]
+    ranks: object
+    caches: list
+    masks: list
+    shortlists: Optional[list]
+    padded: list
+
+
+class _LockstepShard(_Outputs):
+    """A MeshLoop's state of one data shard: its inputs (adopted; `load`
+    copies a later batch's into them) and projection shares, prev and the
+    stacked cell states [L, B, 1, E / M] on each rank, and on rank 0 the
+    complete rows, the step limit and the outputs."""
+
+    def __init__(self, inputs: MeshShard, provider, argmax_method, steps_padded: int,
+                 with_alignment: bool):
+        self.ranks, self.caches, self.masks, self.shortlists, self.padded = inputs
+        self.provider, self.argmax_method = provider, argmax_method
+        self.shortlist = self.shortlists[0] if self.shortlists is not None else None
+        self.projections, self.width, self.packed_biases = self._projections()
+        mask0 = self.masks[0]
         batch, t_src = mask0.shape[0], mask0.shape[-1]
-        device = mask0.device
-        layers = len(ranks.ps[0]["decoder"])
-        self.emb_dim = ranks.ps[0]["emb"]["q"].shape[1]
-        self.sqrt_e = _f32(math.sqrt(self.emb_dim))
-        self.states = [[torch.zeros((batch, 1, p["decoder"][0]["rnn"]["w"]["q"].shape[1]),
-                                    device=m.device) for _ in range(layers)]
-                       for p, m in zip(ranks.ps, masks)]
-        self.prev = [torch.zeros(batch, dtype=torch.int32, device=m.device) for m in masks]
-        self.complete = ~(mask0[:, 0, 0, :] == 0.0).any(-1)
-        self.tokens = torch.zeros((batch, max_steps), dtype=torch.int32, device=device)
-        self.valid = torch.zeros((batch, max_steps), dtype=torch.bool, device=device)
-        self.align = torch.zeros((batch, max_steps, t_src if with_alignment else 0),
-                                 device=device)
-        self.with_alignment = with_alignment
+        self.device = mask0.device
+        layers = len(self.ranks.ps[0]["decoder"])
+        emb_dim = self.ranks.ps[0]["emb"]["q"].shape[1]
+        self.sqrt_e = _f32(math.sqrt(emb_dim))
+        self.signal0 = [tfm.sinusoidal_signal(0, 1, emb_dim, device=m.device)
+                        for m in self.masks]
+        self.prev = [torch.zeros(batch, dtype=torch.int32, device=m.device) for m in self.masks]
+        self.states = [torch.zeros((layers, batch, 1, p["decoder"][0]["rnn"]["w"]["q"].shape[1]),
+                                   device=m.device) for p, m in zip(self.ranks.ps, self.masks)]
+        self.complete = torch.zeros(batch, dtype=torch.bool, device=self.device)
+        self._make_outputs(batch, steps_padded, t_src, with_alignment, self.device)
 
-    def step(self, step: int, position_zero: bool):
-        """A generator: one decoder step (tfm.tp_decoder_step)."""
-        embedded = tfm.tp_embed(self.ranks, [prev[:, None] for prev in self.prev])
+    def _projections(self):
+        """Each rank's share of the projection (of the shortlist's rows),
+        the whole width, and the packed-int biases where they serve."""
+        if self.ranks.size == 1:
+            w, b = tfm.prepare_output_projection(self.ranks.ps[0], self.shortlist,
+                                                 self.provider)
+            projections, width = [(w, b, 0)], w.shape[1]
+        else:
+            projections, width = tfm.tp_projections(self.ranks, self.shortlists)
+        biases = None
+        if tfm.uses_packed_int(self.provider, self.argmax_method):
+            biases = [tfm.packed_int_bias(p, b)
+                      for p, (_, b, _) in zip(self.ranks.ps, projections)]
+        return projections, width, biases
+
+    def load(self, inputs: MeshShard) -> None:
+        _load((self.caches, self.masks, self.shortlists),
+              (inputs.caches, inputs.masks, inputs.shortlists))
+        if self.shortlists is not None:
+            projections, _, biases = self._projections()
+            _load((self.projections, self.packed_biases), (projections, biases))
+
+    def reset(self, limit: int) -> None:
+        for buffer in (*self.prev, *self.states, self.tokens, self.valid, self.align):
+            buffer.zero_()
+        self.limit.fill_(limit)
+        self.complete.copy_(~(self.masks[0][:, 0, 0, :] == 0.0).any(-1))
+
+    def inputs(self, steps: dict, prev: list, position_zero: bool) -> list:
+        """Each rank's [B, 1, E] step input after the words `prev`: the zero
+        embedding at step 0, and the sinusoid at the device step (or at
+        position 0)."""
         xs = []
-        for x in embedded:
+        for m, x in enumerate(tfm.tp_embed(self.ranks, [p[:, None] for p in prev])):
+            step = steps[x.device]
+            prev_embed = torch.where((step == 0)[:, None, None], 0.0, x)
             if position_zero:
-                signal = tfm.sinusoidal_signal(0, 1, self.emb_dim, device=x.device)
+                signal = self.signal0[m]
             else:
-                signal = tfm.sinusoidal_signal(0, 1, self.emb_dim, positions=torch.tensor(
-                    [step], dtype=torch.float32, device=x.device))
-            prev_embed = torch.zeros_like(x) if step == 0 else x
+                signal = tfm.sinusoidal_signal(0, 1, x.shape[-1],
+                                               positions=step.to(torch.float32))
             xs.append(prev_embed * self.sqrt_e + signal)
-        return (yield from tfm.tp_decoder_step(
-            self.ranks, self.states, xs, self.masks, self.caches, self.num_heads,
-            projections=self.projections, width=self.width, provider=self.provider,
-            argmax_method=self.argmax_method, attn_kernel=self.attn_kernel,
-            packed_biases=self.packed_biases, padded=self.padded))
+        return xs
 
-    def advance(self, step: int, eos_id: int, result) -> None:
-        choices, states, attn = result
-        choice = choices[0]
-        if self.shortlist is not None:
-            choice = self.shortlist[choice.to(torch.long)]
-        word = choice.to(torch.int32)
-        active = ~self.complete
-        self.tokens[:, step] = torch.where(active, word, 0)
-        self.valid[:, step] = active
-        if self.with_alignment:
-            self.align[:, step] = torch.where(active[:, None], attn[:, 0, 0, :], 0.0)
-        self.complete = self.complete | (word == eos_id)
-        self.prev = [word.to(p.device) for p in self.prev]
-        self.states = states
+    def result(self, max_steps: int) -> GreedyResult:
+        return GreedyResult(self.tokens[:, :max_steps], self.valid[:, :max_steps],
+                            self.align[:, :max_steps])
 
 
-def _mesh_loop(shards, eos_id: int, limit: int, check_every: int,
-               position_zero: bool) -> None:
-    """Step every data shard together, up to `limit` steps or until every
-    row of every shard is complete (read every `check_every` steps)."""
-    every = max(1, int(check_every))
-    for step in range(limit):
-        results = lockstep([shard.step(step, position_zero) for shard in shards], _max_over)
-        for shard, result in zip(shards, results):
-            shard.advance(step, eos_id, result)
-        if (step + 1) % every == 0 and all(bool(s.complete.all()) for s in shards):
-            return
+class MeshLoop:
+    """The lockstep decode of a mesh's data shards in fixed buffers, on the
+    pattern of DecodeLoop: each shard's model ranks step together
+    (tfm.tp_decoder_step), and every shard meets the others at each yield
+    of the int8 caches' query absmax (lockstep, max-reduced over every
+    shard and rank). The step is a device tensor on each device, the state
+    (_LockstepShard) is written in place, `run_chunk` advances every shard
+    `unroll` steps and sets `done` where every row of every shard is
+    complete. A chunk holds no host value, so where every rank is on one
+    card loop_graph captures it as one graph, the collectives between the
+    ranks included."""
+
+    def __init__(self, shards, *, eos_id, num_heads, max_steps, unroll, provider,
+                 argmax_method, attn_kernel, with_alignment, decoder_position_zero):
+        steps_padded = -(-max_steps // unroll) * unroll
+        self.shards = [_LockstepShard(s, provider, argmax_method, steps_padded, with_alignment)
+                       for s in shards]
+        self.eos_id, self.num_heads = eos_id, num_heads
+        self.max_steps, self.unroll = max_steps, unroll
+        self.provider, self.argmax_method, self.attn_kernel = provider, argmax_method, attn_kernel
+        self.position_zero = decoder_position_zero
+        devices = dict.fromkeys(m.device for s in self.shards for m in s.masks)
+        self.step_at = {d: torch.zeros(1, dtype=torch.int32, device=d) for d in devices}
+        self.done = torch.zeros(1, dtype=torch.bool, device=self.shards[0].device)
+
+    def load(self, shards) -> None:
+        """Copy a batch of this bucket's shapes into the input buffers."""
+        for state, inputs in zip(self.shards, shards):
+            state.load(inputs)
+
+    def reset(self, limit: int) -> None:
+        for buffer in (*self.step_at.values(), self.done):
+            buffer.zero_()
+        for shard in self.shards:
+            shard.reset(limit)
+
+    def _steps(self, steps, prevs, states):
+        """One decoder step generator per shard."""
+        return [tfm.tp_decoder_step(
+            s.ranks, states[i], s.inputs(steps, prevs[i], self.position_zero), s.masks,
+            s.caches, self.num_heads, projections=s.projections, width=s.width,
+            provider=self.provider, argmax_method=self.argmax_method,
+            attn_kernel=self.attn_kernel, packed_biases=s.packed_biases, padded=s.padded)
+            for i, s in enumerate(self.shards)]
+
+    def run_chunk(self) -> None:
+        steps = dict(self.step_at)
+        prevs = [list(s.prev) for s in self.shards]
+        states = [[list(st.unbind(0)) for st in s.states] for s in self.shards]
+        completes = [s.complete for s in self.shards]
+        for _ in range(self.unroll):
+            results = lockstep(self._steps(steps, prevs, states), _max_over)
+            for i, (shard, (choices, new_states, attn)) in enumerate(zip(self.shards, results)):
+                choice = choices[0]
+                if shard.shortlist is not None:
+                    choice = shard.shortlist[choice.to(torch.long)]
+                word = choice.to(torch.int32)
+                completes[i] = shard._record(steps[shard.device], word, attn, completes[i],
+                                             self.eos_id)
+                prevs[i] = [word.to(p.device) for p in shard.prev]
+                states[i] = new_states
+            steps = {d: step + 1 for d, step in steps.items()}
+        for device, step in steps.items():
+            self.step_at[device].copy_(step)
+        for shard, prev, state, complete in zip(self.shards, prevs, states, completes):
+            for buffer, value in zip(shard.prev, prev):
+                buffer.copy_(value)
+            for buffer, layers in zip(shard.states, state):
+                torch.stack(layers, out=buffer)
+            shard.complete.copy_(complete)
+        first = self.done.device
+        done = torch.stack([c.all().to(first) for c in completes]).all()
+        self.done.copy_(done.reshape(1))
+
+    def result(self) -> list:
+        return [shard.result(self.max_steps) for shard in self.shards]
+
+    def buffer_bytes(self) -> int:
+        return sum(_nbytes((s.caches, s.masks, s.shortlists, s.projections, s.states,
+                            s.tokens, s.valid, s.align)) for s in self.shards)
+
+
+def mesh_lockstep(sharded, provider: Optional[str], kv_dtype: Optional[str]) -> bool:
+    """Whether translate_mesh steps its ranks together (MeshLoop): under
+    tensor parallelism on the ranks' shards, or where the cache scales the
+    decode's query over the whole batch (int8 K) and this process holds
+    several data shards; else each data shard runs the one-device loop."""
+    local = sharded.mesh.local_shape
+    split = sharded.tensor_parallel and provider not in WHOLE_ROW_PROVIDERS
+    return split or (cache_dtype(provider, kv_dtype) in BATCH_SCALED_CACHES
+                     and local["data"] > 1)
+
+
+def mesh_loop_key(shards, loop_args: dict) -> tuple:
+    """What a lockstep capture fixes: every rank's weights, the options,
+    the cache types, the shapes and the padded heads."""
+    first = shards[0].caches[0][0]
+    cache = (first["k"].dtype, first["v"].dtype) if isinstance(first, dict) else "split"
+    return ("lockstep", tuple(id(p) for s in shards for p in s.ranks.ps),
+            tuple(tuple(m.shape) for s in shards for m in s.masks), cache,
+            tuple(s.shortlists[0].shape[0] if s.shortlists else 0 for s in shards),
+            tuple(tuple(s.padded) for s in shards), tuple(sorted(loop_args.items())))
+
+
+def _record_stream(tree, stream) -> None:
+    """Mark the CUDA tensors of `tree` as used on `stream` (their memory
+    is not reused before its work so far is done)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        for item in tree:
+            _record_stream(item, stream)
+    elif isinstance(tree, torch.Tensor) and tree.is_cuda:
+        tree.record_stream(stream)
+
+
+def _loop_stream(graphs, rank: int, device, inputs):
+    """The stream of the loops of mesh rank `rank` (graphs.stream; None on
+    the CPU or without `graphs`: the current one), after the work queued
+    so far on the device's current stream; `inputs`, made on that
+    stream, are marked as used on it."""
+    if device.type != "cuda" or graphs is None:
+        return None
+    stream = graphs.stream(rank, device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    _record_stream(inputs, stream)
+    return stream
+
+
+def _start_lockstep(stack, mesh, shards, limit: int, loop_args: dict, graphs,
+                    eager: bool) -> LoopRun:
+    """The lockstep run of `shards` (MeshShard): where every rank is on one
+    card, the bucket of rank 0's cache in `graphs`, replayed on rank 0's
+    stream (with `eager`, a new MeshLoop run eagerly there); on the CPU,
+    or where the ranks span cards (a CUDA graph is captured on one card's
+    stream), a new MeshLoop run eagerly on the devices' current streams,
+    its flag read one chunk behind on the card (at once on the CPU and
+    with `eager`)."""
+    device = shards[0].masks[0].device
+    one_card = len({m.device for s in shards for m in s.masks}) == 1
+    stream = None
+    if one_card:
+        stream = _loop_stream(graphs, mesh.rank(0), device,
+                              [(s.caches, s.masks, s.shortlists) for s in shards])
+
+    def make_loop():
+        return MeshLoop(shards, **loop_args)
+
+    if device.type != "cuda" or eager or not one_card:
+        with on_stream(stream):
+            loop = make_loop()
+            loop.reset(limit)
+        return LoopRun(loop, loop.run_chunk, stream,
+                       lag=int(device.type == "cuda" and not eager))
+    with on_stream(stream):
+        bucket = graphs.on(mesh.rank(0), device).bucket(
+            mesh_loop_key(shards, loop_args), make_loop, device)
+        loop = stack.enter_context(bucket.use())
+        loop.load(shards)
+        loop.reset(limit)
+    return LoopRun(loop, bucket.graph.run, stream, lag=1, kept=True)
+
+
+def _join(results, runs, first: torch.device) -> GreedyResult:
+    """The shards' results concatenated in rank order on `first`, after
+    every loop's stream: each device's current stream waits for the loops'
+    streams there by an event, and each result is marked as used on it."""
+    for run in runs:
+        if run.stream is not None:
+            torch.cuda.current_stream(run.stream.device).wait_stream(run.stream)
+    for result in results:
+        for t in result:
+            if t.is_cuda:
+                t.record_stream(torch.cuda.current_stream(t.device))
+    return GreedyResult(*(torch.cat([getattr(r, f).to(first) for r in results])
+                          for f in GreedyResult._fields))
 
 
 def _check_tensor_parallel(sharded, num_heads: int) -> None:
@@ -641,6 +907,8 @@ def translate_mesh(
     argmax_method: str = "packed_int", attn_kernel: bool = False,
     flash_attention: bool = False, fused_sdpa: bool = False, fused_layer: bool = False,
     encoder_dtype: Optional[str] = None, shard_sequence: bool = False,
+    loop_unroll: Optional[int] = None, graphs: Optional[loop_graph.DeviceGraphs] = None,
+    _eager: bool = False,
 ) -> GreedyResult:
     """translate_batch on a mesh (`sharded`, parallel.sharding.
     ShardedParams): the [B, T] batch of this process split over its data
@@ -652,16 +920,31 @@ def translate_mesh(
         data shard's whole params (gathered under TP) and whole rows;
       - the cross-KV caches on each rank's rows and columns, gathered along
         T onto the seq rank 0 (tfm.tp_cross_kv);
-      - the decode: with one rank of whole params and no batch-scaled cache,
-        the one-device loop (eager); else the ranks step together
-        (tfm.tp_decoder_step), every data shard in lockstep.
-    Returns the shards' results concatenated in rank order on the first
-    rank's device."""
+      - the decode: with one rank of whole params and no batch-scaled cache
+        (mesh_lockstep), the one-device loop, k = `loop_unroll` steps a
+        chunk; else the ranks step together (MeshLoop), every data shard in
+        lockstep.
+    Every shard's embedding, encoder and caches are queued first, on the
+    devices' current streams; then the loops run at once (run_loops), each
+    data shard's on a stream of its own (`graphs`' stream of its first
+    rank), even where shards share a card. On CUDA each loop replays CUDA
+    graphs from `graphs` (a loop_graph.DeviceGraphs: the cache of the
+    loop's first rank): every one-device loop, and the lockstep loop where
+    every rank is on one card. A lockstep loop whose ranks span cards runs
+    its chunks eagerly on the same fixed buffers (a CUDA graph is captured
+    on one card's stream); `_eager` runs every loop eagerly, for the
+    checks that compare the two (on `graphs`' streams where given, else
+    on the current ones). Returns the shards' results concatenated in rank
+    order on the first rank's device, after every loop's stream."""
     from slimt_tpu_torch.parallel.collectives import Local
     from slimt_tpu_torch.parallel.sharding import batch_blocks
 
     check_options(provider, kv_dtype)
     mesh = sharded.mesh
+    if mesh.device(0).type == "cuda" and not _eager and not isinstance(
+            graphs, loop_graph.DeviceGraphs):
+        raise ValueError("a mesh decode on CUDA replays its chunks from `graphs`, a "
+                         "loop_graph.DeviceGraphs (one cache for each device): pass one")
     local = mesh.local_shape
     data, seqs = local["data"], local["seq"] if shard_sequence else 1
     tp = sharded.tensor_parallel
@@ -688,8 +971,10 @@ def translate_mesh(
     # every shard (tfm._decode_attention_joined reads it from attn_kernel).
     attn_kernel = gate_attn_kernel(attn_kernel, with_alignment, kv_dtype, provider) and (
         decode_attn.kernel_for(batch * mesh.process_count, num_heads, t))
-    limit = max_steps if steps_cap is None else min(max_steps, int(steps_cap))
-    shards, results = [], []
+    limit = step_limit(max_steps, steps_cap)
+    loop_args = greedy_args(eos_id, num_heads, max_steps, loop_unroll, provider,
+                            argmax_method, attn_kernel, with_alignment, decoder_position_zero)
+    shards = []
     for d in range(data):
         rows = blocks[d, 0][0]
         dev = [[mesh.device(d, m, s) for s in range(seqs)] for m in range(model)]
@@ -746,24 +1031,28 @@ def translate_mesh(
                      for p in dec_ps]
         shortlists = None if shortlist is None else [
             shortlist.to(p["emb"]["q"].device) for p in dec_ps]
-        if dec_model == 1 and (dtype not in BATCH_SCALED_CACHES or data == 1):
-            results.append(decode_from_caches(
-                dec_ps[0], caches[0], dec_masks[0], eos_id, max_steps, num_heads,
-                shortlists[0] if shortlists else None, decoder_position_zero, steps_cap,
-                with_alignment, check_every, provider, argmax_method, attn_kernel,
-                _eager=True))
-            continue
-        ranks = tfm.ModelRanks(dec_ps, Local, vocab)
-        shards.append(_MeshShard(
-            ranks, caches, dec_masks, shortlists, num_heads=num_heads, provider=provider,
-            argmax_method=argmax_method, attn_kernel=attn_kernel, padded=pad,
-            max_steps=max_steps, with_alignment=with_alignment))
-    if shards:
-        _mesh_loop(shards, eos_id, limit, check_every, decoder_position_zero)
-        results = [GreedyResult(s.tokens, s.valid, s.align) for s in shards]
-    first = mesh.device(0)
-    return GreedyResult(*(torch.cat([getattr(r, f).to(first) for r in results])
-                          for f in GreedyResult._fields))
+        shards.append(MeshShard(tfm.ModelRanks(dec_ps, Local, vocab), caches, dec_masks,
+                                shortlists, pad))
+    with contextlib.ExitStack() as stack:
+        if mesh_lockstep(sharded, provider, kv_dtype):
+            runs = [_start_lockstep(stack, mesh, shards, limit, loop_args, graphs, _eager)]
+        else:
+            runs = []
+            for d, shard in enumerate(shards):
+                device, rank = shard.masks[0].device, mesh.rank(d)
+                stream = _loop_stream(graphs, rank, device,
+                                      (shard.caches, shard.masks, shard.shortlists))
+                runs.append(start_loop(
+                    stack, shard.ranks.ps[0], shard.caches[0], shard.masks[0],
+                    shard.shortlists[0] if shard.shortlists else None, limit, loop_args,
+                    graphs.on(rank, device) if graphs is not None else None, _eager,
+                    stream))
+        run_loops(runs, limit, check_every)
+        results = []
+        for run in runs:
+            result = finish_loop(run)
+            results.extend([result] if isinstance(result, GreedyResult) else result)
+    return _join(results, runs, mesh.device(0))
 
 
 class CompactResult(NamedTuple):

@@ -20,7 +20,9 @@ threads launch meanwhile.
 `GraphCache` keeps the graphs of one owner (a Model, an engine) in an
 LRU with a bound, keyed by what the capture fixed: the provider, the
 cache type, the shapes, the options and the weights; `counts` holds its
-hits, misses (each a capture) and evictions. `HostCopy` is a
+hits, misses (each a capture) and evictions. `DeviceGraphs` holds one
+GraphCache for each device a multi-device decode runs on (a meshed or
+multi-process Model, a mesh leg): each keeps its own bound. `HostCopy` is a
 non-blocking copy into pinned host memory behind an event: the loops
 read their all-complete flag and the continuous engine its chunk buffer
 through it, one chunk behind, so no replay waits on the host.
@@ -38,7 +40,9 @@ import torch
 
 from slimt_tpu_torch.ops import launches
 
-# Graphs a cache keeps before it drops the least recently used. A key is
+# Graphs a cache keeps before it drops the least recently used: the bound
+# of one device's cache (a meshed Model keeps one cache per device,
+# DeviceGraphs, so its shards do not evict each other's buckets). A key is
 # B x T bucket x shortlist width x alignment x options, so traffic may
 # hold more; chip_smoke.py prints each Model's hits, captures and
 # evictions. There, one Model's whole life (its served traffic, three k,
@@ -170,6 +174,47 @@ class GraphCache:
 
     def __len__(self) -> int:
         return len(self._buckets)
+
+
+class DeviceGraphs:
+    """The graph caches of a multi-device owner: one GraphCache, bounded
+    by `capacity`, for each device a decode loop runs on, made at its
+    first lookup, and the stream that device's loops run on. A device is
+    a rank of the mesh (`on(rank, device)`): on a virtual mesh several
+    ranks share one card, and each still keeps its own cache and stream.
+    The streams last as long as the owner, so the allocator's blocks of
+    each stream serve its next batches. `counts` holds each cache's hits,
+    misses and evictions, by device."""
+
+    def __init__(self, capacity: int = GRAPH_CACHE_SIZE):
+        self.capacity = capacity
+        self._caches: Dict[int, GraphCache] = {}
+        self._names: Dict[int, str] = {}
+        self._streams: Dict[int, "torch.cuda.Stream"] = {}
+        self._lock = threading.Lock()
+
+    def stream(self, rank: int, device: torch.device) -> "torch.cuda.Stream":
+        """The stream of mesh rank `rank`'s loops, on `device`."""
+        with self._lock:
+            stream = self._streams.get(rank)
+            if stream is None:
+                stream = self._streams[rank] = torch.cuda.Stream(device)
+            return stream
+
+    def on(self, rank: int, device: torch.device) -> GraphCache:
+        """The cache of mesh rank `rank`, on `device`."""
+        with self._lock:
+            cache = self._caches.get(rank)
+            if cache is None:
+                cache = self._caches[rank] = GraphCache(self.capacity)
+                self._names[rank] = f"rank {rank} ({device})"
+            return cache
+
+    @property
+    def counts(self) -> Dict[str, Dict[str, int]]:
+        with self._lock:
+            return {self._names[rank]: dict(self._caches[rank].counts)
+                    for rank in sorted(self._caches)}
 
 
 class HostCopy:

@@ -9,7 +9,8 @@ as the JAX Model, so the runtime (`runtime/service.py`,
 Model's dispatch worker (one thread, and on CUDA one side stream), which
 runs the batches in submission order, as the JAX device queue does. On
 CUDA the worker runs the decode loop as CUDA graphs, one per bucket,
-kept in the Model's own LRU (models/loop_graph.py).
+kept in the Model's own LRU (models/loop_graph.py); a meshed Model keeps
+one such LRU for each device it decodes on (loop_graph.DeviceGraphs).
 
 The port implements the declared serving config, the `fused` provider
 (SSRU and FFN block kernels per decoder layer), the decode-attention
@@ -32,10 +33,17 @@ With a `mesh` (parallel.sharding.Mesh) the Model is multi-device, as the
 JAX Model is with a jax.sharding.Mesh: its weights tensor-parallel over
 "model" (or replicated, sharding="replicate"), each batch data-parallel
 over "data" and, with shard_sequence, its tokens over "seq"
-(models/decode.translate_mesh; the decode loop runs its steps eagerly).
+(models/decode.translate_mesh). On the card its decode replays CUDA
+graphs, each data shard's loop on a stream of its own and every shard at
+once: each one-device loop (replicated or gathered weights), and the
+ranks' lockstep loop (tensor parallelism, int8 caches over data shards)
+where every rank is on one card. A lockstep loop whose ranks span cards
+runs the same chunks eagerly: one CUDA graph is captured on one card.
+The embedding, encoder and caches run eagerly, as on one card.
 Where the mesh spans processes (parallel.multihost.global_mesh), each
-process feeds its own block of the batch's rows and the compact results
-are all-gathered, so every process returns the whole batch. On the card a
+process feeds its own block of the batch's rows, decodes it through the
+graphs of its local card, and the compact results are all-gathered after
+its loop, so every process returns the whole batch. On the card a
 meshed Model runs a kernel wherever a shard is a whole problem for it:
 the JAX Model's gates that turn its Pallas kernels off on a mesh are TPU
 lowering limits and are not copied.
@@ -43,7 +51,6 @@ lowering limits and are not copied.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import io
 import itertools
@@ -64,10 +71,11 @@ from slimt_tpu_torch.io.shortlist import ShortlistGenerator
 from slimt_tpu_torch.io.params import params_from_numpy
 from slimt_tpu_torch.models.decode import (
     compact_result,
+    on_stream,
     translate_batch,
     unpack_compact,
 )
-from slimt_tpu_torch.models.loop_graph import GraphCache
+from slimt_tpu_torch.models.loop_graph import DeviceGraphs, GraphCache
 from slimt_tpu_torch.models.transformer import ACT_DTYPES, KV_DTYPES
 from slimt_tpu_torch.ops.encoder_layer import MAX_T
 from slimt_tpu_torch.runtime.request import Hypothesis
@@ -161,11 +169,9 @@ def _run_job(stream, fn, ready, future: Future) -> None:
     CUDA, on `stream` after the caller's `ready` event; its result or
     error goes to `future`."""
     try:
-        on_stream = contextlib.nullcontext()
         if stream is not None:
-            on_stream = torch.cuda.stream(stream)
             stream.wait_event(ready)
-        with torch.inference_mode(), on_stream:
+        with torch.inference_mode(), on_stream(stream):
             result = fn()
     except BaseException as exc:  # noqa: BLE001 -- surfaces from finish()
         future.set_exception(exc)
@@ -293,11 +299,12 @@ class Model:
                 shortlist_bytes, vocab_size=self.vocab_size
             )
         self.shortlist_meter = ShortlistMeter()
-        # The decode loop's graphs (CUDA); private: the steps a chunk
-        # (None: the default) and the eager loop on the card, for the
-        # checks that compare them.
-        self._graphs = (GraphCache() if self.device.type == "cuda" and mesh is None
-                        else None)
+        # The decode loop's graphs (CUDA; on a mesh one cache for each
+        # device); private: the steps a chunk (None: the default) and the
+        # eager loop on the card, for the checks that compare them.
+        self._graphs = None
+        if self.device.type == "cuda":
+            self._graphs = GraphCache() if mesh is None else DeviceGraphs()
         self._loop_unroll = None
         self._eager_loop = False
         self._worker: Optional[_DispatchWorker] = None

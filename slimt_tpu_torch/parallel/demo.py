@@ -5,21 +5,25 @@ the smoke's two-process leg.
 Each process joins one torch.distributed group (gloo on the CPU or for
 processes that share a card, NCCL where each has its own), builds the
 same synthetic model on a global data-parallel mesh of every process's
-devices (replicated weights), and translates the same corpus through the
-port's Blocking service: each batch's rows are split over the processes
-and the results all-gathered, so every process prints every translation.
+devices (replicated weights), and translates the same corpus twice
+through the port's Blocking service: each batch's rows are split over the
+processes and the results all-gathered, so every process prints every
+translation (the second pass, equal to the first).
 
     python -m slimt_tpu_torch.parallel.demo PROCESS_ID NUM_PROCESSES HOST:PORT \
         [--device cpu|cuda] [--backend gloo|nccl]
 
 A process holds four mesh ranks on the CPU (as each JAX demo process holds
 four virtual devices) and one on a card (cuda:0 under gloo, its own card
-under NCCL).
+under NCCL). Its last line also gives the decode's CUDA-graph replays and
+its per-device graph caches' counts (0 and none on the CPU, where the
+loop runs eagerly).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 CORPUS = [f"hello world test {i}" for i in range(8)]
@@ -57,6 +61,7 @@ def main(argv=None) -> int:
     import torch.distributed as dist
 
     from slimt_tpu_torch.config import Config
+    from slimt_tpu_torch.models.loop_graph import ChunkGraph
     from slimt_tpu_torch.models.model import Model
     from slimt_tpu_torch.parallel import multihost
     from slimt_tpu_torch.runtime.service import Blocking
@@ -78,11 +83,20 @@ def main(argv=None) -> int:
     config, package = build_package()
     model = Model(config, package, mesh=mesh, sharding="replicate")
     with Blocking(Config(cache_size=0)) as service:
+        # Twice: on a card the first pass captures the decode's graph and
+        # the second replays it.
+        first = service.translate(model, CORPUS)
         responses = service.translate(model, CORPUS)
+    if [r.target.text for r in responses] != [r.target.text for r in first]:
+        print(f"demo: proc {args.process_id}: the second pass differs from the first",
+              file=sys.stderr)
+        return 1
     for line, response in zip(CORPUS, responses):
         print(f"proc {args.process_id} | {line!r} -> {response.target.text!r}", flush=True)
+    caches = model._graphs.counts if model._graphs is not None else None
     print(f"proc {args.process_id} DONE devices={mesh.shape['data']} local={len(devices)} "
-          f"lines={len(CORPUS)} backend={backend}", flush=True)
+          f"lines={len(CORPUS)} backend={backend} replays={ChunkGraph.replays} "
+          f"caches={json.dumps(caches)}", flush=True)
     if dist.is_initialized():
         dist.destroy_process_group()
     return 0

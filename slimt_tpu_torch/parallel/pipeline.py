@@ -10,31 +10,35 @@ both stages on one card (cuda:0, cuda:0) the overlap comes from the two
 streams. On the CPU the stages run in order. As in the JAX pipeline the
 decode takes translate_batch's exact numerics (the split f32 cache, the
 exact argmax); the encoder stage runs the whole-layer kernel (#2) on a
-card. The decode loop runs its chunks eagerly.
+card. On a card the decoder stage replays its loop's CUDA graphs from
+its own cache (models/loop_graph.GraphCache), on its stream; the private
+`_eager_loop` runs the chunks eagerly instead, for the checks that
+compare the two.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from slimt_tpu_torch.device import resolve_device
 from slimt_tpu_torch.io.params import params_from_numpy
+from slimt_tpu_torch.models import loop_graph
 from slimt_tpu_torch.models import transformer as tfm
-from slimt_tpu_torch.models.decode import GreedyResult, greedy_decode
+from slimt_tpu_torch.models.decode import GreedyResult, greedy_decode, on_stream
 
 
 class _Stage:
     def __init__(self, host_params: dict, device):
         self.device = resolve_device(device)
         self.params = params_from_numpy(host_params, self.device)
-        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        on_card = self.device.type == "cuda"
+        self.stream = torch.cuda.Stream(self.device) if on_card else None
+        self.graphs = loop_graph.GraphCache() if on_card else None
 
     def running(self):
-        return (torch.cuda.stream(self.stream) if self.stream is not None
-                else contextlib.nullcontext())
+        return on_stream(self.stream)
 
 
 class TwoStagePipeline:
@@ -47,6 +51,7 @@ class TwoStagePipeline:
         self.provider = provider
         self.encoder = _Stage(host_params, encoder_device)
         self.decoder = _Stage(host_params, decoder_device)
+        self._eager_loop = False
 
     def _encode(self, indices, mask):
         enc = self.encoder
@@ -97,7 +102,7 @@ class TwoStagePipeline:
                 results.append(greedy_decode(
                     self.decoder.params, out, mask_add, eos_id, max_steps, self.num_heads,
                     provider=self.provider, kv_dtype=None, argmax_method="exact",
-                    _eager=True))
+                    graphs=self.decoder.graphs, _eager=self._eager_loop))
         if self.decoder.stream is not None:
             self.decoder.stream.synchronize()
         return results

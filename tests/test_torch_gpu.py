@@ -1695,3 +1695,90 @@ def test_dryrun_multichip_on_the_card(card):
     report = entry.dryrun_multichip(4)
     assert all(leg["equal"] for leg in report)
     assert {leg["leg"] for leg in report} == set(entry.LEG_KERNELS)
+
+
+def _mesh_segments(count=64, seed=7):
+    rng = np.random.default_rng(seed)
+    return [list(rng.integers(3, 32000, rng.integers(4, 30))) + [0] for _ in range(count)]
+
+
+@pytest.mark.parametrize("layout,sharding", [((4, 1, 1), "replicate"), ((2, 2, 1), "tp")],
+                         ids=["dp", "dp-tp-lockstep"])
+def test_meshed_graph_decode_bit_equal_to_eager_loop(card, mesh_package, layout, sharding):
+    """Model(mesh=[cuda:0] * 4): the graph decode (each data shard's loop
+    on its own stream; the DP x TP lockstep loop captured as one graph on
+    the card) bit-equal to the same Model's `_eager_loop`, and a warm
+    forward replays every chunk it runs."""
+    from slimt_tpu_torch.models import decode
+    from slimt_tpu_torch.models.loop_graph import ChunkGraph
+    from slimt_tpu_torch.models.model import Model
+    from slimt_tpu_torch.parallel import sharding as shd
+
+    config, package = mesh_package
+    model = Model(config, package, mesh=shd.repeated_mesh(*layout), sharding=sharding)
+    segments = _mesh_segments()
+    model._eager_loop = True
+    eager = model.forward(segments, need_alignment=False)
+    model._eager_loop = False
+    graph = model.forward(segments, need_alignment=False)
+    replays, chunks = ChunkGraph.replays, decode.run_loop.chunks
+    again = model.forward(segments, need_alignment=False)
+    assert ChunkGraph.replays - replays == decode.run_loop.chunks - chunks > 0
+    assert [h.target for h in graph] == [h.target for h in eager]
+    assert [h.target for h in again] == [h.target for h in eager]
+    loops = layout[0] if sharding == "replicate" else 1
+    counts = list(model._graphs.counts.values())
+    assert len(counts) == loops and all(c["misses"] >= 1 for c in counts)
+
+
+def test_meshed_model_cache_counts_per_device(card, mesh_package):
+    """Two batches of one bucket on a (4,1,1) replicated mesh: the first
+    misses once on each data shard's device (4 captures), the second hits
+    once on each."""
+    from slimt_tpu_torch.models.model import Model
+    from slimt_tpu_torch.parallel import sharding as shd
+
+    config, package = mesh_package
+    model = Model(config, package, mesh=shd.repeated_mesh(4), sharding="replicate")
+    model.forward(_mesh_segments(seed=1), need_alignment=False)
+    first = model._graphs.counts
+    model.forward(_mesh_segments(seed=2), need_alignment=False)
+    second = model._graphs.counts
+    assert len(first) == 4
+    assert all(c == {"hits": 0, "misses": 1, "evictions": 0} for c in first.values())
+    assert all(c == {"hits": 1, "misses": 1, "evictions": 0} for c in second.values())
+
+
+def test_pipeline_graph_decode_bit_equal_to_eager_loop(card):
+    """TwoStagePipeline on (cuda:0, cuda:0): the decoder stage replays its
+    own cache's graphs, bit-equal to the same pipeline's `_eager_loop` and
+    to one card's translate_batch."""
+    from slimt_tpu_torch.models.decode import translate_batch
+    from slimt_tpu_torch.models.loop_graph import ChunkGraph, GraphCache
+    from slimt_tpu_torch.parallel.pipeline import TwoStagePipeline
+
+    config = ModelConfig(encoder_layers=6, decoder_layers=2, num_heads=8)
+    host = load_weights(load_items(synthetic_model_bytes(
+        config=config, vocab_size=32000, emb_dim=256, ffn_dim=1536, seed=0)), config)
+    rng = np.random.default_rng(3)
+    batches = []
+    for _ in range(3):
+        indices = torch.from_numpy(rng.integers(3, 32000, (16, 16)).astype(np.int32))
+        mask = torch.ones((16, 16))
+        mask[8:, -4:] = 0.0
+        batches.append((indices, mask))
+    pipe = TwoStagePipeline(host, 8, "cuda:0", "cuda:0", provider="xla_int8")
+    pipe._eager_loop = True
+    eager = pipe.translate_batches(batches, eos_id=0, max_steps=12)
+    pipe._eager_loop = False
+    replays = ChunkGraph.replays
+    graph = pipe.translate_batches(batches, eos_id=0, max_steps=12)
+    assert ChunkGraph.replays > replays
+    assert pipe.decoder.graphs.counts == {"hits": 2, "misses": 1, "evictions": 0}
+    single = params_from_numpy(host, card)
+    for (indices, mask), g, e in zip(batches, graph, eager):
+        one = translate_batch(single, indices.to(card), mask.to(card), eos_id=0, max_steps=12,
+                              num_heads=8, provider="xla_int8", kv_dtype=None,
+                              argmax_method="exact", fused_layer=True, graphs=GraphCache())
+        for got in (g, e):
+            assert torch.equal(got.tokens, one.tokens) and torch.equal(got.valid, one.valid)
