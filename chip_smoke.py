@@ -172,6 +172,19 @@ without printing a result:
              graph decode, the eager loop and one card's Model in turns,
              the tokens of all three bit-equal, and its per-device cache
              counts after the first forward and after the rest;
+   host    — (after the mesh phase) the host-path tools on the card,
+             every number beside the card's name and power limit:
+             `host_path path` at HOST_LINES lines through Async and
+             through translate_bulk on the small synthetic Model stubbed
+             (utils.stub_device_forward), no kernel launched;
+             `host_path budget` at HOST_LINES lines, its device rate
+             measured on tiny11 un-stubbed (#1 and #2 launched; the
+             stubbed pass of the same corpus launches nothing); `fleet
+             budget --backends 1 2` (backends under
+             SLIMT_TPU_TORCH_STUB_DEVICE=1, no launch in any) and `fleet
+             scaling --backends 1` (the backend decodes on the card, #1
+             and #2 launched in it) at FLEET_LINES lines, every answer
+             equal to the in-process answer for the same package;
 9. check   — outputs well formed; CUDA tokens against the plain CPU
              path (>= 99% equal and none stopping short of the other;
              on the long path's arrays and the bfloat16 and int8 kv
@@ -274,6 +287,8 @@ from slimt_tpu_torch.runtime.response import Options
 from slimt_tpu_torch.runtime.service import Blocking
 
 VOCAB, EMB, FFN, ENC, DEC, HEADS = 32000, 256, 1536, 6, 2, 8
+# The host phase's corpus sizes (the tools' defaults are 10000 and 2000).
+HOST_LINES, FLEET_LINES = 2000, 500
 AFFINE_SOURCE = "slimt_tpu_torch/ops/csrc/qmm_affine.cu"
 LAYER_SOURCE = "slimt_tpu_torch/ops/csrc/encoder_layer.cu"
 STEP_SOURCE = "slimt_tpu_torch/ops/csrc/decoder_step.cu"
@@ -1518,6 +1533,55 @@ def check_argmax_keys(torch, lam, tfm, params):
         f"({times['graph_ms']:.4f} ms in a CUDA graph), plain {times['plain_ms']:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({by})")
     return 0.0, times
+
+
+def host_phase(name: str, smi: str) -> None:
+    """The host phase (see the module's docstring): host_path's path and
+    budget, fleet's budget and scaling, on the card."""
+    from slimt_tpu_torch import fleet, host_path
+    from slimt_tpu_torch.ops import launches
+    from slimt_tpu_torch.utils import stub_device_forward
+
+    start = time.perf_counter()
+    model = host_path.build_model("cuda")
+    stub_device_forward(model)
+    lines = host_path.corpus(HOST_LINES)
+    launches.reset()
+    for bulk in (False, True):
+        tokens, elapsed, _ = host_path.ceiling(model, lines, 4, bulk=bulk)
+        log(f"host path {'bulk' if bulk else 'async'}: host ceiling {tokens} target tokens "
+            f"in {elapsed:.3f} s = {tokens / elapsed:.1f} tok/s (workers=4, "
+            f"{HOST_LINES} lines) on {name} ({smi})")
+    counts = launches.snapshot()
+    if any(counts.values()):
+        raise RuntimeError(f"host path: the stubbed Model launched {counts}")
+    log(f"host path: launches {counts}: none, stubbed on the card "
+        f"({time.perf_counter() - start:.1f} s)")
+
+    split = time.perf_counter()
+    out = host_path.budget(HOST_LINES, "cuda")
+    run = out["device_rate_run"]
+    if out["device_rate_source"] != "measured" or out["card"] != smi:
+        raise RuntimeError(f"host budget: {out}")
+    log(f"host budget on {name} ({smi}), {time.perf_counter() - split:.1f} s: "
+        f"{json.dumps(out)}")
+    log(f"host budget: tiny11 un-stubbed {run['tokens_per_sec']} tok/s "
+        f"({run['tokens']} tokens in {run['wall_s']:.3f} s; launches {run['launches']}), "
+        f"stubbed {run['stubbed_wall_s']:.3f} s: the host's share of the served corpus "
+        f"{run['host_share_of_wall']}; cores to feed one card "
+        f"{out['cores_to_feed_one_chip']} on {name} ({smi})")
+
+    with tempfile.TemporaryDirectory(prefix="slimt_fleet_pkg_") as root:
+        split = time.perf_counter()
+        pkg = fleet.synth(root)
+        log(f"fleet package: {time.perf_counter() - split:.1f} s")
+        for mode, backends in (("budget", [1, 2]), ("scaling", [1])):
+            split = time.perf_counter()
+            out = fleet.run(mode, FLEET_LINES, backends, "cuda", pkg,
+                            log=lambda line: log(f"fleet {mode}: {line} ({smi})"))
+            log(f"fleet {mode} on {name} ({smi}), {time.perf_counter() - split:.1f} s: "
+                f"{json.dumps(out)}")
+    log(f"host phase: {time.perf_counter() - start:.1f} s")
 
 
 def demo_processes(torch, backend: str, name: str, smi: str) -> list:
@@ -3266,6 +3330,7 @@ def main() -> None:
     from slimt_tpu_torch.ops import decoder_step as dstep
     from slimt_tpu_torch.ops import encoder_layer as enc
     from slimt_tpu_torch.ops import fused_blocks as fblocks
+    from slimt_tpu_torch.ops import launches as launch_counts
     from slimt_tpu_torch.ops import logits_argmax as lam
     from slimt_tpu_torch.ops import qmm
     from slimt_tpu_torch.text import spm_proto
@@ -3340,15 +3405,7 @@ def main() -> None:
     rng = np.random.default_rng(0)
     lines = make_lines(rng, np.array(DEFAULT_WORDS), 96, 8, 120)
     long_lines = make_lines(rng, np.array(DEFAULT_WORDS), 4, 880, 920)
-    counters = {"qmm_affine": qmm.affine_kernel,
-                "encoder_layer": enc.layer_kernel,
-                "whole_decode_step": dstep.whole_step_kernel,
-                "ssru_block": fblocks.ssru_kernel,
-                "ffn_block": fblocks.ffn_kernel,
-                "decode_attention": dattn.decode_attention_kernel,
-                "argmax_affine": lam.argmax_affine_kernel,
-                "fused_sdpa": att.fused_sdpa_kernel,
-                "blockwise_attention": att.blockwise_kernel}
+    counters = launch_counts.serving_wrappers()
     path_kernels = {"declared": ("qmm_affine", "encoder_layer"),
                     "fused_step": ("qmm_affine", "encoder_layer", "whole_decode_step"),
                     "fused": ("qmm_affine", "encoder_layer", "ssru_block", "ffn_block",
@@ -3644,6 +3701,9 @@ def main() -> None:
     # meshed Model's graph decode against its eager loop and one card.
     mesh_launches = mesh_phase(torch, name, smi)
     meshed_model_phase(torch, config, packages["full vocab"], name, smi)
+
+    # The host phase: the host-path tools, stubbed and on the card.
+    host_phase(name, smi)
 
     loaded = [m for m in sys.modules if m.startswith("jax")
               or m == "slimt_tpu" or m.startswith("slimt_tpu.")]

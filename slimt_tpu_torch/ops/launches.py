@@ -48,3 +48,42 @@ def tallied():
         yield _local.tally
     finally:
         _local.tally = None
+
+
+# The serving paths' kernel wrappers, by the names of the smoke's kernels
+# record: (module of slimt_tpu_torch.ops, attribute).
+SERVING = {
+    "qmm_affine": ("qmm", "affine_kernel"),
+    "encoder_layer": ("encoder_layer", "layer_kernel"),
+    "whole_decode_step": ("decoder_step", "whole_step_kernel"),
+    "ssru_block": ("fused_blocks", "ssru_kernel"),
+    "ffn_block": ("fused_blocks", "ffn_kernel"),
+    "decode_attention": ("decode_attn", "decode_attention_kernel"),
+    "argmax_affine": ("logits_argmax", "argmax_affine_kernel"),
+    "fused_sdpa": ("attention", "fused_sdpa_kernel"),
+    "blockwise_attention": ("attention", "blockwise_kernel"),
+}
+
+
+def serving_wrappers() -> Dict[str, object]:
+    """SERVING's wrappers by name (importing a wrapper's module builds
+    nothing)."""
+    import importlib
+
+    return {name: getattr(importlib.import_module(f"slimt_tpu_torch.ops.{module}"), attr)
+            for name, (module, attr) in SERVING.items()}
+
+
+def snapshot() -> Dict[str, int]:
+    """Each serving kernel's launches in this process so far."""
+    wrappers = serving_wrappers()
+    with _lock:
+        return {name: w.launches for name, w in wrappers.items()}
+
+
+def reset() -> None:
+    """Set every serving kernel's count to 0."""
+    wrappers = serving_wrappers()
+    with _lock:
+        for wrapper in wrappers.values():
+            wrapper.launches = 0

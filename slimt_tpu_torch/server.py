@@ -26,9 +26,12 @@ its models run on the card unless `--device cpu` is given.
     GET  /health/devices  a trivial product on each device the models
                       run on (runtime.health.probe_devices): 200 with
                       {"ok": true, "devices": {...}}, else 503
-    GET  /stats       live serving counters and wps/occupancy meters
+    GET  /stats       live serving counters and wps/occupancy meters,
+                      and the kernel launches of this process
 
 Run: python -m slimt_tpu_torch.server --root pkg/ --port 8080
+(SLIMT_TPU_TORCH_STUB_DEVICE=1 in its environment stubs the device
+forward, a measurement tool: `stub_if_asked`.)
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
 import threading
 from concurrent.futures import TimeoutError as FuturesTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -304,6 +308,8 @@ class TranslationServer:
                 "occupancy_avg": round(meters.occupancy.average(), 4),
             }
 
+        from slimt_tpu_torch.ops import launches
+
         with self._stats_lock:
             counts = dict(self._counts)
         return {
@@ -313,6 +319,9 @@ class TranslationServer:
             "workers": self.service.config.workers,
             "bulk_threshold": self.bulk_threshold,
             "models": sorted(self.models),
+            # This process's kernel launches (0 on the CPU, which runs
+            # the plain versions, and under a stubbed device forward).
+            "launches": launches.snapshot(),
         }
 
     def close(self):
@@ -418,6 +427,27 @@ def serve(server: TranslationServer, host: str = "127.0.0.1", port: int = 8080):
     return httpd
 
 
+# The port's own switch: a JAX fleet's SLIMT_TPU_STUB_DEVICE stubs no
+# port server.
+STUB_VARIABLE = "SLIMT_TPU_TORCH_STUB_DEVICE"
+
+
+def stub_if_asked(model, environ=None) -> bool:
+    """Stub `model`'s device forward (utils.stub_device_forward) where
+    SLIMT_TPU_TORCH_STUB_DEVICE=1, and say so; never otherwise. A
+    measurement knob (`python -m slimt_tpu_torch.fleet budget`): N servers
+    then measure host cores and transport, not the card they share. Never
+    a serving mode."""
+    environ = os.environ if environ is None else environ
+    if environ.get(STUB_VARIABLE) != "1":
+        return False
+    from slimt_tpu_torch.utils import stub_device_forward
+
+    stub_device_forward(model)
+    print(f"device forward STUBBED ({STUB_VARIABLE}=1)", flush=True)
+    return True
+
+
 def main(argv=None) -> int:
     from slimt_tpu_torch.config import preset
     from slimt_tpu_torch.models.model import Model, Package
@@ -442,8 +472,6 @@ def main(argv=None) -> int:
     )
     args = parser.parse_args(argv)
 
-    import os
-
     join = lambda p: os.path.join(args.root, p) if p else None
     model = Model(
         getattr(preset, args.preset)(),
@@ -454,13 +482,14 @@ def main(argv=None) -> int:
         ),
         device=args.device,
     )
+    stub_if_asked(model)
     if args.warmup:
         runs = model.warmup()
         print(f"warmed {runs} shape buckets")
     server = TranslationServer(Config(workers=args.workers))
     server.add_model(args.name, model)
     httpd = make_httpd(server, args.host, args.port)
-    print(f"serving {args.name} on {args.host}:{args.port}")
+    print(f"serving {args.name} on {args.host}:{args.port}", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

@@ -1,7 +1,8 @@
 """Utilities the runtime and the model use: timing, running averages,
 the shortlist and service meters, the gc threshold, tensor dumps behind
 SLIMT_TPU_DEBUG and a profiler scope behind SLIMT_TPU_PROFILE (the JAX
-package's variable names).
+package's variable names), and the stubbed device forward of the
+host-path measurements (`stub_device_forward`).
 
 Parity with the reference's Utils.hh: `Timer` (Utils.hh:69-99),
 `AverageMeter` (Utils.hh:101-112).
@@ -177,4 +178,61 @@ class ServiceMeters:
             self.wps.record(words / elapsed)
         if capacity > 0:
             self.occupancy.record(used / capacity)
+
+
+def stub_device_forward(model) -> None:
+    """Replace a Model's device forward with an instant echo (hypothesis
+    tokens = source tokens), keeping every host stage real (ingest,
+    packing, completion, detokenize, response assembly).
+
+    A measurement tool, never a serving mode: it takes the device out of
+    the service path so that what is left is the host's cost
+    (`python -m slimt_tpu_torch.host_path`), and, through
+    SLIMT_TPU_TORCH_STUB_DEVICE=1 in `slimt_tpu_torch.server`, bounds a
+    fleet of N servers sharing one card by host cores and transport alone
+    (`python -m slimt_tpu_torch.fleet budget`).
+
+    The echo runs on the caller's thread in numpy: a stubbed Model
+    launches no kernel, makes no allocation on its device and never
+    queues a batch on its dispatch worker (any path that would raises).
+    A ContinuousEngine built from the Model's params decodes as before."""
+    import numpy as np
+
+    from slimt_tpu_torch.runtime.request import Hypothesis
+
+    def forward_async(segments, need_alignment=True, raw=False):
+        if raw:
+            # The columnar completion contract (Batch.complete_raw): the
+            # padded token matrix and each row's step count.
+            steps = np.asarray([len(s) for s in segments], np.int32)
+            t = max(1, int(steps.max()))
+            toks = np.zeros((len(segments), t), np.int32)
+            for i, s in enumerate(segments):
+                toks[i, : len(s)] = s
+            return lambda: (toks, steps, None)
+        hyps = [Hypothesis(target=list(s), alignment=[]) for s in segments]
+        return lambda: hyps
+
+    def forward_async_arrays(
+        indices, mask, lengths, batch, need_alignment=False,
+        shortlist_words=None, raw=False,
+    ):
+        steps = np.asarray(lengths, np.int32)
+        if raw:
+            return lambda: (indices, steps, None)
+        return lambda: [
+            Hypothesis(target=indices[i, : steps[i]].tolist(), alignment=[])
+            for i in range(batch)
+        ]
+
+    def refuse():
+        raise RuntimeError("this Model's device forward is stubbed "
+                           "(utils.stub_device_forward): it queues no batch")
+
+    model.forward_async = forward_async
+    model.forward_async_arrays = forward_async_arrays
+    model.forward = lambda segments, need_alignment=True: forward_async(
+        segments, need_alignment
+    )()
+    model._dispatch_worker = refuse
 

@@ -1782,3 +1782,84 @@ def test_pipeline_graph_decode_bit_equal_to_eager_loop(card):
                               argmax_method="exact", fused_layer=True, graphs=GraphCache())
         for got in (g, e):
             assert torch.equal(got.tokens, one.tokens) and torch.equal(got.valid, one.valid)
+
+
+def test_stubbed_tiny11_answers_the_corpus_with_no_launch(card):
+    """utils.stub_device_forward on a tiny11 Model on the card: both
+    lanes answer the host-path corpus with its echo, no kernel launches,
+    the dispatch worker never starts and no call allocates on the card."""
+    from slimt_tpu_torch import host_path
+    from slimt_tpu_torch.ops import launches
+    from slimt_tpu_torch.utils import stub_device_forward
+
+    model = host_path.tiny11_model("cuda")
+    stub_device_forward(model)
+    lines = host_path.corpus(300)
+    host_path.run_bulk(model, lines[:16], 4)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    launches.reset()
+    for run in (host_path.run, host_path.run_bulk):
+        assert [r.target.text for r in run(model, lines, 4)] == lines
+    torch.cuda.synchronize()
+    assert not any(launches.snapshot().values())
+    assert model._worker is None
+    assert torch.cuda.memory_allocated() == allocated
+
+
+def _card_server(root, variable):
+    """`python -m slimt_tpu_torch.server --root ROOT` (the card by
+    default) with `variable`=1 and neither stub variable otherwise."""
+    import os
+
+    from slimt_tpu_torch import fleet
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SLIMT_TPU_TORCH_STUB_DEVICE", "SLIMT_TPU_STUB_DEVICE")}
+    env.update({variable: "1", "PYTHONPATH": repo})
+    return fleet.Process(["slimt_tpu_torch.server", "--root", root], env,
+                         os.path.join(root, f"{variable}.log"))
+
+
+def test_server_stub_variable_on_the_card(door_package):
+    """`python -m slimt_tpu_torch.server` on the card: under
+    SLIMT_TPU_TORCH_STUB_DEVICE=1 it says so and answers echoes with no
+    launch; under the JAX package's SLIMT_TPU_STUB_DEVICE=1 alone it
+    decodes on the card (#1 and #2 launched), as Blocking does."""
+    import json
+    import urllib.request
+
+    from slimt_tpu_torch import fleet
+
+    texts = fleet.corpus(40, seed=7)
+    stubbed = _card_server(door_package, "SLIMT_TPU_TORCH_STUB_DEVICE")
+    decoding = _card_server(door_package, "SLIMT_TPU_STUB_DEVICE")
+    try:
+        for process in (stubbed, decoding):
+            process.wait_health()
+        _, echo, _ = fleet.push(stubbed.url, texts)
+        _, served, _ = fleet.push(decoding.url, texts[:1])
+        counts = {p: p.launches() for p in (stubbed, decoding)}
+        with urllib.request.urlopen(stubbed.url + "/health/devices", timeout=60) as resp:
+            assert "cuda:0" in json.loads(resp.read())["devices"]
+    finally:
+        fleet.stop_all([stubbed, decoding])
+    assert echo == texts
+    assert "device forward STUBBED (SLIMT_TPU_TORCH_STUB_DEVICE=1)" in stubbed.tail()
+    assert "STUBBED" not in decoding.tail()
+    assert not any(counts[stubbed].values())
+    assert counts[decoding]["qmm_affine"] and counts[decoding]["encoder_layer"]
+    assert served == [_blocking_text(_door_model(door_package), texts[0])]
+
+
+def test_fleet_scaling_on_the_card_equals_blocking(card):
+    """`fleet scaling --backends 1` on the card: the backend's answers
+    equal in-process Blocking's on the card for the same package (checked
+    by fleet.run), and the backend launched #1 and #2."""
+    from slimt_tpu_torch import fleet
+
+    out = fleet.run("scaling", 64, [1], "cuda", log=lambda line: None)
+    (counts,) = out["launches"]["router1"]
+    assert counts["qmm_affine"] and counts["encoder_layer"]
+    assert out["router_tps"]["1"] > 0 and "share one card" in out["note"]

@@ -215,12 +215,13 @@ def test_native_checkpoint_raises():
 
 
 def test_import_loads_neither_jax_nor_regex():
-    """Importing the port, its front doors and its parity tooling
-    (crosscheck.py, parity.py) included, loads no jax, regex or slimt_tpu
-    module; then a CPU Model built from the port's own synthetic package
-    serves through the port's own Blocking, on both lanes, its native
-    checkpoint serves the same tokens, and parity.py's oracle mode passes,
-    still with no jax or slimt_tpu module loaded."""
+    """Importing the port, its front doors, its parity tooling
+    (crosscheck.py, parity.py) and its host-path tools (host_path.py,
+    fleet.py) included, loads no jax, regex or slimt_tpu module; then a CPU
+    Model built from the port's own synthetic package serves through the
+    port's own Blocking, on both lanes, its native checkpoint serves the
+    same tokens, and parity.py's oracle mode and host_path's two modes
+    pass, still with no jax or slimt_tpu module loaded."""
     code = textwrap.dedent(
         """
         import sys
@@ -254,6 +255,8 @@ def test_import_loads_neither_jax_nor_regex():
         from slimt_tpu_torch import entry
         from slimt_tpu_torch.parallel import (collectives, demo, multihost, pipeline,
                                               sharding)
+        # The host-path tools: the stubbed device's measurements.
+        from slimt_tpu_torch import fleet, host_path
         assert not loaded(block.names), loaded(block.names)
 
         # Serving splits sentences, and the splitter needs regex.
@@ -280,6 +283,10 @@ def test_import_loads_neither_jax_nor_regex():
         segment = [[5, 9, 4, 7, 0]]
         assert npz.forward(segment)[0].target == model.forward(segment)[0].target
         assert parity.main(["oracle", "--device", "cpu", "--lines", "2"]) == 0
+        # The host path's tools run stubbed, still with neither loaded.
+        assert host_path.main(["path", "--device", "cpu", "--lines", "300"]) == 0
+        assert host_path.main(["budget", "--device", "cpu", "--lines", "100",
+                               "--device-rate", "1"]) == 0
         assert not loaded(block.names), loaded(block.names)
         print("ok")
         """
