@@ -123,7 +123,11 @@ class ShortlistGenerator:
     ) -> np.ndarray:
         """Like generate() but padded up to a multiple of `bucket` with
         additional (unused) target ids — a few stable shapes."""
-        indices = self.generate(words)
+        return self.pad(self.generate(words), bucket)
+
+    def pad(self, indices: np.ndarray, bucket: int) -> np.ndarray:
+        """generate()'s `indices` padded as generate_padded pads them (a
+        caller that needs both widths generates once)."""
         want = -(-len(indices) // bucket) * bucket
         want = min(want, self.vocab_size)
         if want > len(indices):

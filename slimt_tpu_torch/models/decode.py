@@ -68,6 +68,7 @@ from slimt_tpu_torch.models import transformer as tfm
 from slimt_tpu_torch.ops import decode_attn
 from slimt_tpu_torch.ops import decoder_step as dstep
 from slimt_tpu_torch.ops.qmm import _f32
+from slimt_tpu_torch.utils import span
 
 CHECK_EVERY = 8
 
@@ -305,6 +306,35 @@ class DecodeLoop(StepContext, _Outputs):
                         self.states, self.tokens, self.valid, self.align))
 
 
+class JobTally:
+    """What a decode tells its caller (translate_batch's `tally`): `steps`,
+    the decode steps its loop ran (chunks x k; on a mesh the longest
+    loop's), and with `timed` (on CUDA) three timing events on the
+    current stream: `mark()` at the job's start (the caller's), at the
+    loop's start (after the cross-K/V) and after the loop."""
+
+    def __init__(self, timed: bool = False):
+        self.steps = 0
+        self.events = [] if timed else None
+
+    def mark(self) -> None:
+        if self.events is not None:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            self.events.append(event)
+
+    def device_ns(self) -> dict:
+        """`device_encode_ns` (job start to loop start: the inputs' copies,
+        embedding, encoder and cross-K/V) and `device_decode_ns` (the loop,
+        its binding included) on the device's clock, once the events have
+        completed; {} without the three."""
+        if self.events is None or len(self.events) != 3:
+            return {}
+        start, loop, end = self.events
+        return {"device_encode_ns": round(start.elapsed_time(loop) * 1e6),
+                "device_decode_ns": round(loop.elapsed_time(end) * 1e6)}
+
+
 class LoopRun(NamedTuple):
     """A loop run_loops advances: its state (`unroll`, the flag `done`),
     `chunk`, which runs one chunk (a graph's `run`, or the state's
@@ -399,24 +429,35 @@ def greedy_decode(
     loop_unroll: Optional[int] = None,
     graphs: Optional[loop_graph.GraphCache] = None,
     _eager: bool = False,
+    tally: Optional[JobTally] = None,
 ) -> GreedyResult:
     """Greedy decode of `encoder_out` [B, T, E], `loop_unroll` steps a
     chunk (None: resolve_unroll's default). On CUDA the chunk runs as a
     CUDA graph of `graphs` (None: the process's cache), captured at the
     bucket's first batch; `_eager` runs it eagerly instead, for the
-    checks that compare the two. On the CPU it runs eagerly."""
+    checks that compare the two. On the CPU it runs eagerly. `tally`
+    (a JobTally) gets the steps run and its loop marks. Spans:
+    decode.cross_kv, decode.bind, decode.loop."""
     check_options(provider, kv_dtype)
     attn_kernel = gate_attn_kernel(attn_kernel, with_alignment, kv_dtype, provider)
-    kv_caches = tfm.precompute_cross_kv(
-        params, encoder_out, num_heads, cache_dtype(provider, kv_dtype),
-        None if provider == "fused_step" else provider)
+    with span("decode.cross_kv"):
+        kv_caches = tfm.precompute_cross_kv(
+            params, encoder_out, num_heads, cache_dtype(provider, kv_dtype),
+            None if provider == "fused_step" else provider)
     limit = step_limit(max_steps, steps_cap)
     loop_args = greedy_args(eos_id, num_heads, max_steps, loop_unroll, provider,
                             argmax_method, attn_kernel, with_alignment, decoder_position_zero)
+    if tally is not None:
+        tally.mark()
     with contextlib.ExitStack() as stack:
-        run = start_loop(stack, params, kv_caches, mask_add, shortlist, limit, loop_args,
-                         graphs, _eager)
-        run_loops([run], limit, check_every)
+        with span("decode.bind"):
+            run = start_loop(stack, params, kv_caches, mask_add, shortlist, limit, loop_args,
+                             graphs, _eager)
+        with span("decode.loop"):
+            chunks = run_loops([run], limit, check_every)[0]
+        if tally is not None:
+            tally.mark()
+            tally.steps = chunks * run.loop.unroll
         return finish_loop(run)
 
 
@@ -514,6 +555,7 @@ def translate_batch(
     _eager: bool = False,
     encoder_dtype: Optional[str] = None,
     shard_sequence: bool = False,
+    tally: Optional[JobTally] = None,
 ) -> GreedyResult:
     """embed → encoder → greedy decode for a padded [B, T] batch.
     `provider` "fused" runs the decoder's SSRU and FFN block kernels (and
@@ -522,8 +564,9 @@ def translate_batch(
     and `fused_layer` (transformer.encoder_layer_forward) and the
     provider, which under "fused_step" is None, as in the JAX package;
     `encoder_dtype` ("float16"/"bfloat16") runs the embedding and the
-    encoder in that dtype. `loop_unroll`, `graphs` and `_eager` go to
-    greedy_decode.
+    encoder in that dtype. `loop_unroll`, `graphs`, `_eager` and `tally`
+    go to greedy_decode. Spans: decode.encoder (embedding and encoder),
+    then greedy_decode's.
 
     On a mesh (`params` a parallel.sharding.ShardedParams) the batch is
     split over its data ranks, and with `shard_sequence` its tokens over
@@ -538,21 +581,23 @@ def translate_batch(
             params, indices, mask, eos_id, max_steps, num_heads, shortlist,
             decoder_position_zero, steps_cap, with_alignment, check_every, provider,
             kv_dtype, argmax_method, attn_kernel, flash_attention, fused_sdpa,
-            fused_layer, encoder_dtype, shard_sequence, loop_unroll, graphs, _eager)
-    act = tfm.act_dtype(encoder_dtype)
-    word_embedding = tfm.transform_embedding(tfm.embed(params, indices, act))
-    mask_add = tfm.make_additive_mask(mask)
-    encoder_out = tfm.encoder_forward(
-        params, word_embedding, mask_add, num_heads,
-        None if provider == "fused_step" else provider,
-        flash=flash_attention, fused_sdpa=fused_sdpa, fused_layer=fused_layer,
-        act_dtype=act,
-    )
+            fused_layer, encoder_dtype, shard_sequence, loop_unroll, graphs, _eager,
+            tally)
+    with span("decode.encoder"):
+        act = tfm.act_dtype(encoder_dtype)
+        word_embedding = tfm.transform_embedding(tfm.embed(params, indices, act))
+        mask_add = tfm.make_additive_mask(mask)
+        encoder_out = tfm.encoder_forward(
+            params, word_embedding, mask_add, num_heads,
+            None if provider == "fused_step" else provider,
+            flash=flash_attention, fused_sdpa=fused_sdpa, fused_layer=fused_layer,
+            act_dtype=act,
+        )
     return greedy_decode(
         params, encoder_out, mask_add, eos_id, max_steps, num_heads,
         shortlist, decoder_position_zero, steps_cap, with_alignment,
         check_every, provider, kv_dtype, argmax_method, attn_kernel,
-        loop_unroll, graphs, _eager,
+        loop_unroll, graphs, _eager, tally,
     )
 
 
@@ -908,7 +953,7 @@ def translate_mesh(
     flash_attention: bool = False, fused_sdpa: bool = False, fused_layer: bool = False,
     encoder_dtype: Optional[str] = None, shard_sequence: bool = False,
     loop_unroll: Optional[int] = None, graphs: Optional[loop_graph.DeviceGraphs] = None,
-    _eager: bool = False,
+    _eager: bool = False, tally: Optional[JobTally] = None,
 ) -> GreedyResult:
     """translate_batch on a mesh (`sharded`, parallel.sharding.
     ShardedParams): the [B, T] batch of this process split over its data
@@ -935,7 +980,9 @@ def translate_mesh(
     on one card's stream); `_eager` runs every loop eagerly, for the
     checks that compare the two (on `graphs`' streams where given, else
     on the current ones). Returns the shards' results concatenated in rank
-    order on the first rank's device, after every loop's stream."""
+    order on the first rank's device, after every loop's stream. `tally`
+    gets the steps of the longest loop (no marks: a mesh's phases are
+    not timed)."""
     from slimt_tpu_torch.parallel.collectives import Local
     from slimt_tpu_torch.parallel.sharding import batch_blocks
 
@@ -1047,7 +1094,9 @@ def translate_mesh(
                     shard.shortlists[0] if shard.shortlists else None, limit, loop_args,
                     graphs.on(rank, device) if graphs is not None else None, _eager,
                     stream))
-        run_loops(runs, limit, check_every)
+        chunks = run_loops(runs, limit, check_every)
+        if tally is not None:
+            tally.steps = max(c * run.loop.unroll for c, run in zip(chunks, runs))
         results = []
         for run in runs:
             result = finish_loop(run)

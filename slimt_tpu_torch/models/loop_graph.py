@@ -39,6 +39,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from slimt_tpu_torch.ops import launches
+from slimt_tpu_torch.utils import span
 
 # Graphs a cache keeps before it drops the least recently used: the bound
 # of one device's cache (a meshed Model keeps one cache per device,
@@ -72,7 +73,8 @@ class ChunkGraph:
         """The chunk: a replay, or on the first run the eager chunk and
         the capture."""
         if self.graph is None:
-            self._first_run()
+            with span("decode.capture"):
+                self._first_run()
             return
         self.graph.replay()
         launches.add(self.launches)
@@ -144,13 +146,14 @@ class GraphCache:
     """Buckets by key, the least recently used dropped past `capacity`.
     `counts`: the lookups that found their bucket (hits), those that made
     one (misses: each captures at its first run) and the buckets dropped
-    (evictions)."""
+    (evictions); `capture_s` the seconds its captures took."""
 
     def __init__(self, capacity: int = GRAPH_CACHE_SIZE):
         self.capacity = capacity
         self._buckets: "collections.OrderedDict[tuple, Bucket]" = collections.OrderedDict()
         self._lock = threading.Lock()
         self.counts = {"hits": 0, "misses": 0, "evictions": 0}
+        self._evicted_capture_ms = 0.0
 
     def bucket(self, key: tuple, make_state: Callable[[], object],
                device: torch.device) -> Bucket:
@@ -164,9 +167,17 @@ class GraphCache:
                 self.counts["hits"] += 1
             self._buckets[key] = bucket
             while len(self._buckets) > self.capacity:
-                self._buckets.popitem(last=False)
+                _, evicted = self._buckets.popitem(last=False)
+                self._evicted_capture_ms += evicted.graph.capture_ms or 0.0
                 self.counts["evictions"] += 1
             return bucket
+
+    @property
+    def capture_s(self) -> float:
+        """The seconds every capture of this cache took, evicted ones too."""
+        with self._lock:
+            kept = sum(b.graph.capture_ms or 0.0 for b in self._buckets.values())
+            return (self._evicted_capture_ms + kept) / 1e3
 
     def items(self):
         with self._lock:
@@ -216,6 +227,12 @@ class DeviceGraphs:
             return {self._names[rank]: dict(self._caches[rank].counts)
                     for rank in sorted(self._caches)}
 
+    @property
+    def capture_s(self) -> float:
+        """The seconds every cache's captures took."""
+        with self._lock:
+            return sum(cache.capture_s for cache in self._caches.values())
+
 
 class HostCopy:
     """A copy of `tensor` on the host. From a CUDA tensor: a non-blocking
@@ -252,9 +269,12 @@ class FlagReader:
         self._pending: "collections.deque[HostCopy]" = collections.deque()
 
     def read(self) -> bool:
+        """Each read that waits for the device is a decode.flag_wait span."""
         if not self.lag:
-            return bool(self.flag.item())
+            with span("decode.flag_wait"):
+                return bool(self.flag.item())
         self._pending.append(HostCopy(self.flag))
         if len(self._pending) <= self.lag:
             return False
-        return bool(self._pending.popleft().numpy()[0])
+        with span("decode.flag_wait"):
+            return bool(self._pending.popleft().numpy()[0])

@@ -56,6 +56,7 @@ import io
 import itertools
 import queue
 import threading
+import time
 import weakref
 from concurrent.futures import Future
 from typing import List, Optional, Sequence, Union
@@ -70,6 +71,7 @@ from slimt_tpu_torch.io.loader import load_weights, model_dims, unstack_layers
 from slimt_tpu_torch.io.shortlist import ShortlistGenerator
 from slimt_tpu_torch.io.params import params_from_numpy
 from slimt_tpu_torch.models.decode import (
+    JobTally,
     compact_result,
     on_stream,
     translate_batch,
@@ -80,7 +82,7 @@ from slimt_tpu_torch.models.transformer import ACT_DTYPES, KV_DTYPES
 from slimt_tpu_torch.ops.encoder_layer import MAX_T
 from slimt_tpu_torch.runtime.request import Hypothesis
 from slimt_tpu_torch.text.vocabulary import Vocabulary
-from slimt_tpu_torch.utils import ShortlistMeter
+from slimt_tpu_torch.utils import ShortlistMeter, new_batch, span
 
 # The bucket helpers and their constants are those of the JAX package's
 # models/model.py (the bulk lane imports them from here). Keep them
@@ -134,6 +136,10 @@ class Package:
         with open(source, "rb") as f:
             return f.read()
 
+
+# Model.counters()' own keys (the graph cache's are added to them).
+COUNTERS = ("forwards", "rows", "rows_padded", "source_tokens", "source_slots",
+            "row_steps", "target_tokens")
 
 ARGMAX_METHODS = ("packed_int", "exact", "packed_fp16", "packed_bf16")
 KV_CACHE_DTYPES = tuple(d for d in KV_DTYPES if d is not None)
@@ -309,6 +315,26 @@ class Model:
         self._eager_loop = False
         self._worker: Optional[_DispatchWorker] = None
         self._worker_lock = threading.Lock()
+        # Added to by the dispatch worker alone, once a batch (counters()).
+        self._counts = dict.fromkeys(COUNTERS, 0)
+
+    def counters(self) -> dict:
+        """What this Model's forwards did, since it was made: `forwards`;
+        `rows` and `rows_padded` (the B bucket); `source_tokens` and
+        `source_slots` (B bucket x T bucket); `row_steps` (B bucket x the
+        decode steps its loop ran, chunks x k) and `target_tokens` (served,
+        EOS included); and its graph cache's `hits`, `misses`,
+        `evictions` and `capture_s` (0 without one: on the CPU)."""
+        out = dict(self._counts)
+        graphs = self._graphs
+        counts = {} if graphs is None else graphs.counts
+        if isinstance(graphs, DeviceGraphs):  # one cache a device: summed
+            counts = {k: sum(c[k] for c in counts.values())
+                      for k in ("hits", "misses", "evictions")}
+        for key in ("hits", "misses", "evictions"):
+            out[key] = counts.get(key, 0)
+        out["capture_s"] = 0.0 if graphs is None else graphs.capture_s
+        return out
 
     def _dispatch_worker(self) -> _DispatchWorker:
         with self._worker_lock:
@@ -392,98 +418,135 @@ class Model:
         """Prepare the batch on the caller's thread (padding, shortlist
         ids, the shortlist meter: errors raise here), then queue the
         decode, the compaction and the device-to-host copy on the
-        dispatch worker. finish() waits for them and builds the result."""
-        # Copies: the caller may reuse its buffers once this returns.
-        indices = np.array(indices, np.int32)
-        mask = np.array(mask, np.float32)
-        t_pad = indices.shape[1]
-        shortlist_ids = None
-        if self.shortlist_generator is not None:
-            words = shortlist_words
-            if words is None:
-                words = []
-            elif isinstance(words, np.ndarray):
-                words = words.tolist()
-            raw_width = len(self.shortlist_generator.generate(words))
-            shortlist_ids = self.shortlist_generator.generate_padded(
-                words, SHORTLIST_BUCKET
-            ).astype(np.int32)
-            self.shortlist_meter.record_widths(raw_width, len(shortlist_ids))
+        dispatch worker. finish() waits for them and builds the result.
 
-        # Static bound (sizes the outputs, from the bucketed T) vs the
-        # reference's limit_factor x the batch's actual longest source.
-        max_steps = max(1, int(self.limit_factor * t_pad))
-        actual_max = max((int(n) for n in lengths), default=t_pad)
-        steps_cap = max(1, int(self.limit_factor * actual_max))
-        compact = self.config.compact_transfer and self.vocab_size <= 65535
-        device = self.device
-        # A mesh takes the host arrays and places each shard itself; across
-        # processes each process feeds its own block of the rows.
-        feed = device if self.mesh is None else torch.device("cpu")
-        rows = slice(None)
-        if self._collectives is not None:
-            block = indices.shape[0] // self.mesh.process_count
-            rows = slice(self.mesh.process_index * block,
-                         (self.mesh.process_index + 1) * block)
+        Spans (utils.span, while recording), all of one `batch` id:
+        model.prepare (child model.shortlist) on the caller's thread;
+        model.job on the worker, with its children model.h2d, the decode's
+        (decode.translate_batch) and model.d2h; model.finish where
+        finish() runs."""
+        batch_id = new_batch()
+        with span("model.prepare", batch=batch_id):
+            # Copies: the caller may reuse its buffers once this returns.
+            indices = np.array(indices, np.int32)
+            mask = np.array(mask, np.float32)
+            b_pad, t_pad = indices.shape
+            shortlist_ids = None
+            if self.shortlist_generator is not None:
+                words = shortlist_words
+                if words is None:
+                    words = []
+                elif isinstance(words, np.ndarray):
+                    words = words.tolist()
+                with span("model.shortlist"):
+                    generated = self.shortlist_generator.generate(words)
+                    shortlist_ids = self.shortlist_generator.pad(
+                        generated, SHORTLIST_BUCKET
+                    ).astype(np.int32)
+                self.shortlist_meter.record_widths(len(generated), len(shortlist_ids))
+
+            # Static bound (sizes the outputs, from the bucketed T) vs the
+            # reference's limit_factor x the batch's actual longest source.
+            max_steps = max(1, int(self.limit_factor * t_pad))
+            actual_max = max((int(n) for n in lengths), default=t_pad)
+            steps_cap = max(1, int(self.limit_factor * actual_max))
+            source_tokens = int(np.sum(lengths))
+            compact = self.config.compact_transfer and self.vocab_size <= 65535
+            device = self.device
+            # A mesh takes the host arrays and places each shard itself; across
+            # processes each process feeds its own block of the rows.
+            feed = device if self.mesh is None else torch.device("cpu")
+            rows = slice(None)
+            if self._collectives is not None:
+                block = indices.shape[0] // self.mesh.process_count
+                rows = slice(self.mesh.process_index * block,
+                             (self.mesh.process_index + 1) * block)
 
         def run():
-            shortlist = None
-            if shortlist_ids is not None:
-                shortlist = torch.from_numpy(shortlist_ids).to(feed)
-            result = translate_batch(
-                self.params,
-                torch.from_numpy(indices[rows]).to(feed),
-                torch.from_numpy(mask[rows]).to(feed),
-                eos_id=self.vocabulary.eos_id,
-                max_steps=max_steps,
-                num_heads=self.config.num_heads,
-                shortlist=shortlist,
-                decoder_position_zero=self.config.decoder_position_zero,
-                steps_cap=steps_cap,
-                with_alignment=bool(need_alignment),
-                provider=self.config.qmm_provider,
-                # "float32" is the exact split cache, as in the JAX Model
-                # (under fused_step the loop then takes int16).
-                kv_dtype=(None if self.config.kv_cache_dtype == "float32"
-                          else self.config.kv_cache_dtype),
-                argmax_method=self.config.argmax_method,
-                attn_kernel=self._attn_kernel(),
-                flash_attention=resolve_flash(self.config.flash_attention, t_pad),
-                fused_sdpa=self._on_card(self.config.encoder_sdpa, t_pad),
-                fused_layer=self._on_card(self.config.encoder_layer_kernel, t_pad),
-                loop_unroll=self._loop_unroll,
-                graphs=self._graphs,
-                _eager=self._eager_loop,
-                encoder_dtype=self.config.encoder_dtype,
-                shard_sequence=self._shard_seq,
-            )
-            gather = (self._collectives.all_gather if self._collectives is not None
-                      else (lambda t: t))
-            align = gather(result.alignment).cpu().numpy() if need_alignment else None
-            if compact:
-                packed = gather(compact_result(result).packed)
-                return unpack_compact(packed, max_steps), align
-            return (gather(result.tokens).cpu().numpy(),
-                    gather(result.valid).cpu().numpy()), align
+            with span("model.job", batch=batch_id, submitted_ns=submitted,
+                      rows=batch, rows_padded=b_pad, t_pad=t_pad) as job:
+                # CUDA events at the job's start, the loop's start and after
+                # the loop, only while the spans record.
+                tally = JobTally(timed=job.on and device.type == "cuda")
+                tally.mark()
+                with span("model.h2d"):
+                    shortlist = None
+                    if shortlist_ids is not None:
+                        shortlist = torch.from_numpy(shortlist_ids).to(feed)
+                    ids = torch.from_numpy(indices[rows]).to(feed)
+                    masks = torch.from_numpy(mask[rows]).to(feed)
+                result = translate_batch(
+                    self.params,
+                    ids,
+                    masks,
+                    eos_id=self.vocabulary.eos_id,
+                    max_steps=max_steps,
+                    num_heads=self.config.num_heads,
+                    shortlist=shortlist,
+                    decoder_position_zero=self.config.decoder_position_zero,
+                    steps_cap=steps_cap,
+                    with_alignment=bool(need_alignment),
+                    provider=self.config.qmm_provider,
+                    # "float32" is the exact split cache, as in the JAX Model
+                    # (under fused_step the loop then takes int16).
+                    kv_dtype=(None if self.config.kv_cache_dtype == "float32"
+                              else self.config.kv_cache_dtype),
+                    argmax_method=self.config.argmax_method,
+                    attn_kernel=self._attn_kernel(),
+                    flash_attention=resolve_flash(self.config.flash_attention, t_pad),
+                    fused_sdpa=self._on_card(self.config.encoder_sdpa, t_pad),
+                    fused_layer=self._on_card(self.config.encoder_layer_kernel, t_pad),
+                    loop_unroll=self._loop_unroll,
+                    graphs=self._graphs,
+                    _eager=self._eager_loop,
+                    encoder_dtype=self.config.encoder_dtype,
+                    shard_sequence=self._shard_seq,
+                    tally=tally,
+                )
+                with span("model.d2h"):
+                    gather = (self._collectives.all_gather if self._collectives is not None
+                              else (lambda t: t))
+                    align = gather(result.alignment).cpu().numpy() if need_alignment else None
+                    if compact:
+                        packed = gather(compact_result(result).packed)
+                        tokens, valid = unpack_compact(packed, max_steps)
+                    else:
+                        tokens = gather(result.tokens).cpu().numpy()
+                        valid = gather(result.valid).cpu().numpy()
+                target_tokens = int(valid[:batch].sum())
+                counts = self._counts
+                counts["forwards"] += 1
+                counts["rows"] += batch
+                counts["rows_padded"] += b_pad
+                counts["source_tokens"] += source_tokens
+                counts["source_slots"] += b_pad * t_pad
+                counts["row_steps"] += b_pad * tally.steps
+                counts["target_tokens"] += target_tokens
+                if job.on:
+                    job.set(steps=tally.steps, target_tokens=target_tokens,
+                            **tally.device_ns())
+            return (tokens, valid), align
 
+        submitted = time.perf_counter_ns()
         future = self._dispatch_worker().submit(run)
 
         def finish():
-            (tokens, valid), align = future.result()
-            if raw:
-                steps = valid[:batch].sum(axis=1).astype(np.int32)
-                return tokens, steps, align
-            histories = []
-            for i in range(batch):
-                steps = int(valid[i].sum())
-                target = tokens[i, :steps].tolist()
-                alignment = (
-                    [align[i, t, : lengths[i]].tolist() for t in range(steps)]
-                    if align is not None
-                    else []
-                )
-                histories.append(Hypothesis(target=target, alignment=alignment))
-            return histories
+            with span("model.finish", batch=batch_id):
+                (tokens, valid), align = future.result()
+                if raw:
+                    steps = valid[:batch].sum(axis=1).astype(np.int32)
+                    return tokens, steps, align
+                histories = []
+                for i in range(batch):
+                    steps = int(valid[i].sum())
+                    target = tokens[i, :steps].tolist()
+                    alignment = (
+                        [align[i, t, : lengths[i]].tolist() for t in range(steps)]
+                        if align is not None
+                        else []
+                    )
+                    histories.append(Hypothesis(target=target, alignment=alignment))
+                return histories
 
         return finish
 

@@ -324,7 +324,11 @@ def _translate_bulk_columnar(
     first access). Output identical to the general bulk path
     (differential-tested); lines touching the translation cache fall
     back to per-line Python assembly (their content lives outside the
-    batch buffers). Alignment/HTML requests use the general path."""
+    batch buffers). Alignment/HTML requests use the general path.
+
+    Spans (utils.span): bulk.ingest (a chunk's split and native ingest),
+    bulk.detokenize (a batch's native decode, where it is fetched) and
+    bulk.assemble (a chunk's responses)."""
     import threading
 
     import numpy as np
@@ -334,7 +338,7 @@ def _translate_bulk_columnar(
     from slimt_tpu_torch.text.annotation import AnnotatedText
     from slimt_tpu_torch.text.splitter import SentenceStream, SplitMode
     from slimt_tpu_torch.text.vocabulary import byte_prefix
-    from slimt_tpu_torch.utils import Timer
+    from slimt_tpu_torch.utils import Timer, span
 
     vocab = model.vocabulary
     nat = vocab._native
@@ -503,9 +507,10 @@ def _translate_bulk_columnar(
         native decode overlap across the pool."""
         tokens, steps, _align = finish()
         n_rows = len(idx)
-        text, text_off, ends, ends_off = nat.decode_padded(
-            tokens[:n_rows], steps
-        )
+        with span("bulk.detokenize", rows=n_rows):
+            text, text_off, ends, ends_off = nat.decode_padded(
+                tokens[:n_rows], steps
+            )
         c.brecs[bno] = (text, text_off, ends, ends_off)
         c.seg_batch[idx] = bno
         c.seg_row[idx] = np.arange(n_rows, dtype=np.int32)
@@ -627,23 +632,24 @@ def _translate_bulk_columnar(
     # ingests/dispatches here; fetches run on the pool; per-chunk
     # assembly overlaps later chunks' fetches (same structure as the
     # general bulk path).
-    spans = [
+    line_chunks = [
         texts[lo : lo + chunk_lines]
         for lo in range(0, len(texts), chunk_lines)
     ]
-    lookahead = THREAD_LOOKAHEAD and pool is not None and len(spans) > 1
-    split_futures: List = [None] * len(spans)
+    lookahead = THREAD_LOOKAHEAD and pool is not None and len(line_chunks) > 1
+    split_futures: List = [None] * len(line_chunks)
     if lookahead:
-        split_futures[1] = pool.submit(split_chunk, spans[1])
+        split_futures[1] = pool.submit(split_chunk, line_chunks[1])
 
     chunk_work = []  # (chunk, [fetch futures or (args) tuples])
     try:
-        for i, span in enumerate(spans):
-            fut = split_futures[i]
-            split = fut.result() if fut is not None else split_chunk(span)
-            if lookahead and i + 2 < len(spans):
-                split_futures[i + 2] = pool.submit(split_chunk, spans[i + 2])
-            c = ingest_chunk(split)
+        for i, lines in enumerate(line_chunks):
+            with span("bulk.ingest", lines=len(lines)):
+                fut = split_futures[i]
+                split = fut.result() if fut is not None else split_chunk(lines)
+                if lookahead and i + 2 < len(line_chunks):
+                    split_futures[i + 2] = pool.submit(split_chunk, line_chunks[i + 2])
+                c = ingest_chunk(split)
             triples = dispatch_chunk(c)
             work = [
                 pool.submit(fetch, c, bno, idx, fin) if pool is not None
@@ -674,7 +680,8 @@ def _translate_bulk_columnar(
                 if first_err is None:
                     first_err = e
         if first_err is None:
-            responses.extend(assemble_chunk(c))
+            with span("bulk.assemble", lines=len(c.line_datas)):
+                responses.extend(assemble_chunk(c))
     if first_err is not None:
         raise first_err
     return responses

@@ -303,8 +303,8 @@ class TranslationServer:
 
         def lane(meters):
             return {
-                "batches": meters.wps.count,
-                "wps_avg": round(meters.wps.average(), 1),
+                "batches": meters.batches,
+                "wps_avg": round(meters.wps(), 1),
                 "occupancy_avg": round(meters.occupancy.average(), 4),
             }
 
@@ -319,6 +319,8 @@ class TranslationServer:
             "workers": self.service.config.workers,
             "bulk_threshold": self.bulk_threshold,
             "models": sorted(self.models),
+            # Each Model's forwards, rows, tokens and graph cache (Model.counters).
+            "model": {name: model.counters() for name, model in sorted(self.models.items())},
             # This process's kernel launches (0 on the CPU, which runs
             # the plain versions, and under a stubbed device forward).
             "launches": launches.snapshot(),

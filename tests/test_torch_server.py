@@ -224,6 +224,9 @@ def test_stats_and_timeout(endpoints):
     assert stats["bulk"]["batches"] >= 1 and stats["streaming"]["batches"] >= 1
     assert stats["streaming"]["wps_avg"] > 0
     assert 0 < stats["streaming"]["occupancy_avg"] <= 1
+    counters = stats["model"]["en-de"]
+    assert counters["forwards"] >= 2 and counters["rows"] >= 7
+    assert counters["target_tokens"] <= counters["row_steps"]
 
 
 def test_job_table_ttl_eviction():
