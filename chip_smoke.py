@@ -31,7 +31,12 @@ without printing a result:
              packed_bf16; a tie across vocab tiles at two row-tile
              heights, a partial last tile of negative logits), at tiny
              and base widths and at E in (32, 40, 64) (the crosscheck
-             cells' widths, and one that is no multiple of 16); #5, #6
+             cells' widths, and one that is no multiple of 16), and in
+             its packed_int mode, the declared path's argmax, bit-equal
+             to #1's int32 accumulator plus packed_int_argmax at the same
+             widths (B 1-512, full vocabulary and shortlists of 1024 and
+             1000, a tie across tiles), timed at B 1, 64, 256 and 512
+             against that chain; #5, #6
              and #7 at WIDTH_CASES (E 32, 40, 64, 256, 512; F 64-2048,
              and 80) as at tiny and base widths (the widths phase); the split encoder's fused SDPA within
              2e-5 at B in (1, 33, 512), T in (16, 17, 64, 100, 256), E in
@@ -228,8 +233,13 @@ torch.profiler; qmm_affine also lists its times at the six timed shapes
 under "shapes"; every kernel lists knobs_launches, its launches under
 each knob; argmax_affine, fused_sdpa and blockwise_attention list
 mesh_variant, the key variant's or the query slice's checks, times, bound
-and launches in the mesh phase; qmm_affine lists accumulator_launches_mesh,
-its ACCUMULATOR launches there), the last line {"ok": true, "device": {...}}.
+and launches in the mesh phase; argmax_affine also lists
+packed_int_variant, the packed_int mode's checks, launches in the
+declared serving phase (where no int8_matmul launch may remain), and its
+times and bound at B = 256, V = 32000 beside the chain's (plain_ms,
+plain_graph_ms, plain_device_ms), each B's under by_b; qmm_affine lists
+accumulator_launches_mesh, its ACCUMULATOR launches there), the last
+line {"ok": true, "device": {...}}.
 
 `python3 chip_smoke.py --unroll` runs no check: the B=1 T=32 latency
 line and the B=64 and B=512 T=64 forward lines of the graph loop at k
@@ -705,7 +715,7 @@ def check_tie(torch, lam, tfm, params):
     ):
         for rows in (3, 20):  # one row tile of 16, then of 32
             y = (w[:, col].float() / 40.0).repeat(rows, 1).contiguous()
-            for method in lam.METHODS:
+            for method in lam.LOGIT_METHODS:
                 got = lam.argmax_affine_kernel(y, w, b, 20.0, 1e-3, method)
                 want = lam.argmax_affine_plain(y, w, b, 20.0, 1e-3, method)
                 torch.cuda.synchronize()
@@ -713,7 +723,7 @@ def check_tie(torch, lam, tfm, params):
                     raise RuntimeError(f"tie ({label}, B={rows}, {method}): kernel "
                                        f"{got.tolist()}, plain {want.tolist()}, first column {col}")
     log("projection tie across vocab tiles: the first column wins "
-        f"(full, shortlist; {', '.join(lam.METHODS)})")
+        f"(full, shortlist; {', '.join(lam.LOGIT_METHODS)})")
 
 
 def layouts_in_turns(torch, name, new, one):
@@ -1212,7 +1222,7 @@ def check_argmax(torch, lam, tfm, widths):
         for label, (w, b) in projections.items():
             for rows in (1, 8, 33, 64, 512):
                 y = torch.randn((rows, emb), device=dev, generator=gen) * 2.0
-                for method in lam.METHODS:
+                for method in lam.LOGIT_METHODS:
                     got = lam.argmax_affine_kernel(y, w, b, aq, inv, method)
                     want = lam.argmax_affine_plain(y, w, b, aq, inv, method)
                     torch.cuda.synchronize()
@@ -1223,7 +1233,7 @@ def check_argmax(torch, lam, tfm, widths):
                     cases += 1
     embs = tuple(params["emb"]["q"].shape[1] for params in widths)
     log(f"argmax: {cases} cases at E in {embs} bit-equal to plain "
-        f"({', '.join(lam.METHODS)})")
+        f"({', '.join(lam.LOGIT_METHODS)})")
     timing = None
     params = widths[0]
     aq, inv = params["out"]["aq"], tfm.output_inv(params)
@@ -1233,7 +1243,7 @@ def check_argmax(torch, lam, tfm, widths):
     by_b = {}
     for rows in (1, 64, 512):
         y = torch.randn((rows, EMB), device=dev, generator=gen)
-        for method in lam.METHODS:
+        for method in lam.LOGIT_METHODS:
             def kernel():
                 return lam.argmax_affine_kernel(y, w, b, aq, inv, method)
 
@@ -1253,6 +1263,88 @@ def check_argmax(torch, lam, tfm, widths):
     timing["graph_ms_by_b"] = {rows: t["graph_ms"] for rows, t in by_b.items()}
     timing["split_ms_by_b"] = {rows: t["split_ms"] for rows, t in by_b.items()}
     return float(differ), timing
+
+
+def check_argmax_packed_int(torch, lam, tfm, widths):
+    """#4's packed_int mode, the declared path's argmax, bit-equal
+    (torch.equal) to its plain chain on the card (#1's int32 accumulator,
+    then packed_int_argmax) at each width's params (E 256 and 512 on the
+    tensor cores, 32, 40 and 64 too), the full vocabulary and shortlists
+    of 1024 and 1000 columns (a partial last tile), B in {1, 20, 64, 256,
+    512}, the bias packed_int_bias of the served one, and a tie planted
+    across tiles: the last tile's column takes column 3's weights and
+    bias, and rows 0 and 1 point along it. Then times it at the tiny
+    width, V = 32000, B in {1, 64, 256, 512}, against the chain, with the
+    bound of each call's inputs (y, W and the bias read, the choices
+    written). Returns (most differing indices in a case, which must be 0;
+    the times, B = 256's at the top, each B's under "by_b")."""
+    cases = differ = ties = 0
+    first = 3
+    for params in widths:
+        dev = params["emb"]["q"].device
+        emb = params["emb"]["q"].shape[1]
+        aq = params["out"]["aq"]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(emb + 1)
+        projections = {"full": tfm.prepare_output_projection(params)}
+        for width in (1024, 1000):
+            ids = torch.randperm(VOCAB, device=dev, generator=gen)[:width].sort().values
+            projections[f"shortlist {width}"] = tfm.prepare_output_projection(params, ids)
+        for label, (w, b) in projections.items():
+            second = w.shape[1] - 2
+            w = w.clone()  # keeps the transposed rows' layout
+            b_i32 = tfm.packed_int_bias(params, b).clone()
+            w[:, second] = w[:, first]
+            b_i32[second] = b_i32[first]
+            for rows in (1, 20, 64, 256, 512):
+                y = torch.randn((rows, emb), device=dev, generator=gen) * 2.0
+                y[:2] = w[:, first].float() / 40.0
+                got = lam.argmax_affine(y, w, b_i32, aq, None, "packed_int")
+                want = lam.argmax_affine_plain(y, w, b_i32, aq, None, "packed_int")
+                torch.cuda.synchronize()
+                differ = max(differ, int((got != want).sum()))
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"argmax packed_int E={emb} {label} B={rows}: not "
+                                       f"bit-equal to the chain")
+                ties += int((want[:2] == first).sum())
+                cases += 1
+    if not ties:
+        raise RuntimeError("argmax packed_int: no row met the planted tie")
+    embs = tuple(params["emb"]["q"].shape[1] for params in widths)
+    log(f"argmax packed_int: {cases} cases at E in {embs} bit-equal to int8_matmul plus "
+        f"packed_int_argmax; {ties} rows chose the first of two tied columns in two tiles")
+    params = widths[0]
+    aq = params["out"]["aq"]
+    w, b = tfm.prepare_output_projection(params)
+    b_i32 = tfm.packed_int_bias(params, b)
+    gen = torch.Generator(device=w.device)
+    gen.manual_seed(6)
+    by_b = {}
+    for rows in (1, 64, 256, 512):
+        y = torch.randn((rows, EMB), device=w.device, generator=gen)
+
+        def kernel():
+            return lam.argmax_packed_int_kernel(y, w, b_i32, aq)
+
+        def chain():
+            return lam.argmax_affine_plain(y, w, b_i32, aq, None, "packed_int")
+
+        split = {("project" if "project" in name else "pick" if "pick" in name else name): ms
+                 for name, ms in kernel_split(torch, kernel).items()}
+        bound_ms, by = bound(4 * rows * EMB + EMB * VOCAB + 4 * VOCAB + 4 * rows,
+                             int8_ops=2 * rows * EMB * VOCAB)
+        by_b[rows] = {"ms": cuda_ms(torch, kernel, 50), "graph_ms": graph_ms(torch, kernel),
+                      "device_ms": sum(split.values()), "split_ms": split,
+                      "plain_ms": cuda_ms(torch, chain, 20), "plain_graph_ms": graph_ms(torch, chain),
+                      "plain_device_ms": sum(kernel_split(torch, chain).values()),
+                      "bound_ms": bound_ms, "bound_by": by}
+        t = by_b[rows]
+        log(f"time argmax packed_int B={rows} V={VOCAB} E={EMB}: kernel {t['ms']:.4f} ms "
+            f"({t['graph_ms']:.4f} ms in a CUDA graph; device {t['device_ms']:.4f} ms, by "
+            f"kernel { {k: round(v, 4) for k, v in split.items()} }), chain {t['plain_ms']:.4f} "
+            f"ms ({t['plain_graph_ms']:.4f} ms in a CUDA graph; device "
+            f"{t['plain_device_ms']:.4f} ms), bound {bound_ms:.4f} ms ({by})")
+    return float(differ), {"shape": f"B=256 V={VOCAB} E={EMB}", **by_b[256], "by_b": by_b}
 
 
 def padded_mask(torch, dev, b, t):
@@ -1492,7 +1584,7 @@ def check_argmax_keys(torch, lam, tfm, params):
         width = w.shape[1]
         for rows in (1, 16, 64, 512):
             y = torch.randn((rows, EMB), device=dev, generator=gen) * 2.0
-            for method in lam.METHODS:
+            for method in lam.LOGIT_METHODS:
                 want = lam.argmax_affine_kernel(y, w, b, aq, inv, method)
                 for shards in (2, 4):
                     keys = []
@@ -3370,6 +3462,7 @@ def main() -> None:
     narrow = [params_from_numpy(load_host(emb, 2 * emb, 1, DEC, vocab=VOCAB), dev)
               for emb in (32, 40, 64)]
     argmax_err, argmax_ms = check_argmax(torch, lam, tfm, widths + narrow)
+    packed_int_err, packed_int_ms = check_argmax_packed_int(torch, lam, tfm, widths + narrow)
     del narrow
     sdpa_err, sdpa_ms = check_fused_sdpa(torch, att, enc, dev)
     blockwise_err, blockwise_ms = check_blockwise(torch, att, dev)
@@ -3406,7 +3499,7 @@ def main() -> None:
     lines = make_lines(rng, np.array(DEFAULT_WORDS), 96, 8, 120)
     long_lines = make_lines(rng, np.array(DEFAULT_WORDS), 4, 880, 920)
     counters = launch_counts.serving_wrappers()
-    path_kernels = {"declared": ("qmm_affine", "encoder_layer"),
+    path_kernels = {"declared": ("qmm_affine", "encoder_layer", "argmax_packed_int"),
                     "fused_step": ("qmm_affine", "encoder_layer", "whole_decode_step"),
                     "fused": ("qmm_affine", "encoder_layer", "ssru_block", "ffn_block",
                               "decode_attention", "argmax_affine"),
@@ -3459,6 +3552,7 @@ def main() -> None:
         models = {label: Model(configs[label], pkg, device="cuda")
                   for label, pkg in packages.items()}
         reset()
+        matmuls = qmm.int8_matmul.launches
         served = {}
         cold = {}
         for label, model in models.items():
@@ -3472,6 +3566,9 @@ def main() -> None:
             log(f"serve {path} {label}: {len(hyps)} segments in "
                 f"{wall:.3f} s; e.g. {sample[0][:60]!r}")
         read(path)
+        if path == "declared" and qmm.int8_matmul.launches != matmuls:
+            raise RuntimeError(f"declared: {qmm.int8_matmul.launches - matmuls} int8_matmul "
+                               "launches; the projection's argmax runs in #4's packed_int mode")
         for label, model in models.items():
             phase_turns(torch, f"serve {path} {label}", model,
                         lambda m: serve(m, lines), cold[label], name, smi, thrash=True)
@@ -3745,12 +3842,17 @@ def main() -> None:
     ]
     # The variants of this kernel the mesh runs (#4's key variant on vocab
     # shards, #8's and #9's query slice): their launches are the mesh
-    # phase's.
+    # phase's. #4's packed_int mode is the declared path's argmax: its
+    # launches are the declared serving phase's.
     variant = "mesh_variant"
     variants = {
         "argmax_affine": {variant: {"name": "argmax_keys", "max_abs_err": keys_err,
                                     "launches": mesh_launches.get("argmax_keys", 0),
-                                    **keys_ms}},
+                                    **keys_ms},
+                          "packed_int_variant": {
+                              "name": "argmax_packed_int", "max_abs_err": packed_int_err,
+                              "launches": launches["argmax_packed_int"],
+                              "launches_from": "serve", **packed_int_ms}},
         "fused_sdpa": {variant: {"name": "fused_sdpa_rows", "max_abs_err": slice_err,
                                  "launches": mesh_launches.get("fused_sdpa_rows", 0),
                                  **slice_ms["fused_sdpa"]}},
@@ -3775,7 +3877,7 @@ def main() -> None:
          **({"shapes": affine_times} if key == "qmm_affine" else {}),
          **({"accumulator_launches_mesh": mesh_launches.get("qmm_accumulator", 0)}
             if key == "qmm_affine" else {}),
-         **({variant: variants[key][variant]} if key in variants else {}),
+         **variants.get(key, {}),
          "knobs_launches": {label: counts.get(key, 0) for label, counts in knob_counts.items()}}
         for key, source, replaces, err, times, (bound_ms, by) in rows
     ]}

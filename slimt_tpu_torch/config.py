@@ -54,7 +54,7 @@ class ModelConfig:
     # integer keys in the accumulator domain — the projection's scale
     # is a positive scalar, so the bias folds to accumulator units once
     # and the float epilogue collapses to an integer add and shift
-    # (models/transformer.packed_int_argmax; first index on ties). The
+    # (ops/logits_argmax.packed_int_argmax; first index on ties). The
     # compared-value truncation and half-unit bias rounding are its
     # only numeric deltas. "packed_fp16"/"packed_bf16": 16-bit-float
     # packed keys; "exact": the f32 first-max argmax (reference

@@ -56,6 +56,7 @@ COUNTERS = {
     "decode_attention": decode_attn.decode_attention_kernel,
     "argmax_affine": logits_argmax.argmax_affine_kernel,
     "argmax_keys": logits_argmax.argmax_keys_kernel,
+    "argmax_packed_int": logits_argmax.argmax_packed_int_kernel,
     "ssru_block": fused_blocks.ssru_kernel,
     "ffn_block": fused_blocks.ffn_kernel,
     "whole_decode_step": decoder_step.whole_step_kernel,

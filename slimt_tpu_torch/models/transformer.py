@@ -557,31 +557,6 @@ def prepare_output_projection(
     return emb_q.T, bias
 
 
-def packed_int_argmax(
-    acc: torch.Tensor, b_i32: torch.Tensor, width_bits: int, shift: int
-) -> torch.Tensor:
-    """argmax over floor((acc + b_i32) / 2**shift), first index on
-    ties, as one int32 max over packed keys (value above, reversed
-    column below)."""
-    v = (acc + b_i32) >> shift
-    col = torch.arange(acc.shape[-1], dtype=torch.int32, device=acc.device)
-    mask_col = (1 << width_bits) - 1
-    key = (v << width_bits) | (mask_col - col)
-    best = key.amax(-1)
-    return (mask_col - (best & mask_col)).to(torch.int32)
-
-
-def packed_int_params(width: int, emb_dim: int) -> Tuple[int, int]:
-    """(width_bits, shift) for packed_int_argmax: the reversed column
-    needs width_bits; the value keeps the rest of the int32 budget
-    against the accumulator bound 2*E*127^2."""
-    width_bits = max(1, (width - 1).bit_length())
-    bound = 2 * emb_dim * 127 * 127 + 1
-    value_bits = 31 - width_bits
-    shift = max(0, bound.bit_length() - (value_bits - 1))
-    return width_bits, shift
-
-
 def output_logits(
     params: dict,
     x: torch.Tensor,
@@ -636,13 +611,16 @@ def output_argmax(
     (the JAX function's f32 branch; no int8 kernel).
     "packed_int" under the providers None, "xla_int8" and "pallas": the
     int8 projection's int32 accumulators plus the bias folded into
-    accumulator units, compared as packed integer keys. Every other
-    case goes to the argmax kernel (ops/logits_argmax), whose index is
-    the JAX package's XLA argmax: "packed_fp16"/"packed_bf16" up to
-    65536 columns, else the exact first maximum. So "fused" with
-    "packed_int" takes the exact argmax, as in the JAX package
-    (transformer.py:1035, :1051-1057). `packed_bias` is packed_int_bias
-    of the projection's bias, where the caller has it."""
+    accumulator units, compared as packed integer keys, by the argmax
+    kernel's packed_int mode (ops/logits_argmax; on the CPU its plain
+    chain, int8_matmul then packed_int_argmax). Every other case goes
+    to the argmax kernel too, whose index is the JAX package's XLA
+    argmax: "packed_fp16"/"packed_bf16" up to 65536 columns, else the
+    exact first maximum. So "fused" with "packed_int" takes the exact
+    argmax, as in the JAX package (transformer.py:1035, :1051-1057).
+    `packed_bias` is packed_int_bias of the projection's bias, where the
+    caller has it. On the card every int8 case takes E up to
+    logits_argmax.MAX_EMB (2048), the kernel's limit."""
     if projection is None:
         projection = prepare_output_projection(params, provider=provider)
     w, b = projection
@@ -653,12 +631,9 @@ def output_argmax(
             return packed_argmax_16(logits, logits_argmax.PACKED_DTYPES[method])
         return first_max(logits)
     if uses_packed_int(provider, method):
-        acc = qmm.int8_matmul(x, w, aq)
-        e_dim, width = w.shape
-        width_bits, shift = packed_int_params(width, e_dim)
         if packed_bias is None:
             packed_bias = packed_int_bias(params, b)
-        return packed_int_argmax(acc, packed_bias, width_bits, shift)
+        return logits_argmax.argmax_affine(x, w, packed_bias, aq, None, "packed_int")
     if method not in logits_argmax.PACKED_DTYPES or w.shape[1] > logits_argmax.MAX_PACKED_WIDTH:
         method = "exact"
     return logits_argmax.argmax_affine(x, w, b, aq, output_inv(params), method)
@@ -948,17 +923,15 @@ def tp_output_argmax(ranks: ModelRanks, xs, projections, width: int,
     e_dim = ranks.ps[0]["emb"]["q"].shape[1]
     bests = []
     if uses_packed_int(provider, method):
-        width_bits, shift = packed_int_params(width, e_dim)
-        mask_col = (1 << width_bits) - 1
+        width_bits, shift = logits_argmax.packed_int_params(width, e_dim)
         for p, x, (w, b, col0), bias in zip(ranks.ps, xs, projections,
                                             packed_biases or [None] * ranks.size):
             if bias is None:
                 bias = packed_int_bias(p, b)
             acc = qmm.int8_matmul(x, w, p["out"]["aq"])
-            col = col0 + torch.arange(w.shape[1], dtype=torch.int32, device=x.device)
-            key = (((acc + bias) >> shift) << width_bits) | (mask_col - col)
+            key = logits_argmax.packed_int_keys(acc, bias, width_bits, shift, col0)[0]
             bests.append(key.amax(-1))
-        return [(mask_col - (best & mask_col)).to(torch.int32)
+        return [logits_argmax.packed_int_column(best, width_bits)
                 for best in ranks.coll.all_reduce_max(bests)]
     if method not in logits_argmax.PACKED_DTYPES or width > logits_argmax.MAX_PACKED_WIDTH:
         method = "exact"

@@ -67,6 +67,11 @@ _SIGNATURES = {
     "slimt_argmax_affine": (
         _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _F, _F, _I, _P
     ),
+    # y, w, b_i32, choice, scratch, b, e, s, w_stride_k, w_stride_n, aq,
+    # width_bits, shift, stream
+    "slimt_argmax_packed_int": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _F, _I, _I, _P
+    ),
     # b, s: floats of scratch slimt_argmax_affine takes
     "slimt_argmax_scratch": (_I, _I),
     # x, c, wf, bf, w, ln_scale, ln_bias, h, c_out, m, e, rows, cs, aq_f,

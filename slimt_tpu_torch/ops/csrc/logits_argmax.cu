@@ -2,16 +2,25 @@
 // logits to device memory.
 //
 // Replaces slimt_tpu/ops/logits_argmax.py:_kernel (entries _argmax_2d,
-// argmax_affine). Per row of y and column n < s of W:
+// argmax_affine); its packed_int mode replaces no TPU kernel, where the
+// JAX package runs XLA ops over #1's accumulator
+// (slimt_tpu/models/transformer.py packed_int_argmax). Per row of y and
+// column n < s of W:
 //
 //   logit = q8(y) W[:, n] inv + bias[n]
 //   exact:        choice = the first index of the maximum logit;
 //   packed_fp16 / packed_bf16: the logit rounds half to even to 16 bits;
 //                 key = ((sortable(bits) - 0x8000) << 16) | (0xFFFF - n)
 //                 choice = 0xFFFF - (max key & 0xFFFF)
+//   packed_int:   no float: with acc = q8(y) W[:, n] (int32) and b_i32[n]
+//                 the bias in accumulator units,
+//                 key = (((acc + b_i32[n]) >> shift) << width_bits)
+//                       | (mask - n),  mask = 2^width_bits - 1
+//                 choice = mask - (max key & mask)
 //
-// the packed key exactly as transformer.packed_argmax_16 builds it
-// (s <= 65536 there).
+// the packed keys exactly as logits_argmax.packed_argmax_16 and
+// packed_int_argmax build them (s <= 65536 for the 16-bit ones; int32
+// arithmetic wraps alike on both sides).
 //
 // Design. The TPU kernel walks a sequential vocab-tile grid and carries
 // the running best in VMEM; CUDA blocks run in no order. So every
@@ -20,9 +29,12 @@
 //   exact:  (order-preserving bits of the logit, -0.0 taken as +0.0) << 32
 //           | (0xFFFFFFFF - n): the larger logit wins, on equal logits the
 //           smaller column (jnp.argmax's first maximum);
-//   packed: the int32 key with its sign bit flipped (the same order,
-//           unsigned).
-// Columns >= s give no key. Two launches from one C entry:
+//   packed_fp16 / packed_bf16: the int32 key with its sign bit flipped
+//           (the same order, unsigned);
+//   packed_int: the int32 key with its sign bit flipped << 32 | (0xFFFFFFFF
+//           - n), so its column reads back as the exact key's
+//           (logits_argmax.packed_int_key models it).
+// Columns >= s give no key. Two launches from each C entry:
 //   1. projection: where W is the transpose of contiguous [s, e] rows (the
 //      embedding or its shortlisted rows, every serving path) a block takes
 //      16, 32 or 64 rows and tiles of 128 columns. Its 8 warps run int8
@@ -37,7 +49,10 @@
 //      blocks an SM, each walking several tiles, so that the rows are
 //      staged once for them (B = 512: 33 blocks a row tile of 64). The keys
 //      then meet over the quad by shuffles and over the warps in shared
-//      memory (one barrier), and the block writes one key per row. Any
+//      memory (one barrier), and the block writes one key per row. The
+//      packed_int epilogue takes the int32 sums straight from the mma
+//      fragments: the #1 launch and the [B, S] int32 accumulator that the
+//      plain chain reads five times never exist. Any
 //      other W layout, and any E that is not a multiple of 64 up to 512
 //      (the crosscheck cells' 32, say), takes a block of 256 columns (a
 //      thread each, bytes gathered down the column, __dp4a) and 16 rows,
@@ -56,6 +71,10 @@
 // GOP at B = 64), are ~0.5 us at the tensor cores' peak. At B = 1 the
 // projection kernel takes ~5 us of device time and the pick ~1.4 us
 // (NVIDIA H100 80GB HBM3, 700 W): W's 8.2 MB through L2 and the launch.
+// packed_int reads b_i32 (4 S bytes) in place of the f32 bias and writes
+// the same keys; the chain it replaces moves 4 B S bytes ten times (#1's
+// write, four passes that each read and write them, the max's read):
+// ~330 MB a step at B = 256, S = 32000.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -80,13 +99,14 @@ constexpr int kTileCols = 8 * kNt * kWarps;  // 128 columns a projection tile
 struct ArgmaxArgs {
   const float* y;  // [b, e]
   const int8_t* w;
-  const float* bias;
+  const unsigned* bias;  // [s] words: f32, or int32 in accumulator units (packed_int)
   Key* part;  // [b, groups]: each block's best key per row
   int b, e, s;
   long long sk, sn;
   float aq, inv;
   int mode, groups, y_vec;
   int col0;  // the global column of W's column 0 (a vocab shard's first)
+  int width_bits, shift;  // packed_int's packing (logits_argmax.packed_int_params)
 };
 
 // The key of column n's logit v (see the header comment).
@@ -108,12 +128,24 @@ __device__ __forceinline__ Key key_max(Key a, Key b) { return a > b ? a : b; }
 
 // The column a row's best key names.
 __device__ __forceinline__ int key_column(Key key, int mode) {
-  if (mode == kArgmaxExact) return static_cast<int>(0xFFFFFFFFu - static_cast<unsigned>(key));
+  if (mode == kArgmaxExact || mode == kArgmaxPackedInt)
+    return static_cast<int>(0xFFFFFFFFu - static_cast<unsigned>(key));
   return static_cast<int>(0xFFFFu - static_cast<unsigned>(key & 0xFFFFu));
 }
 
-__device__ __forceinline__ float logit(int acc, const ArgmaxArgs& a, float bias) {
-  return __fadd_rn(__fmul_rn(__int2float_rn(acc), a.inv), bias);
+// The key of column n < s from its int32 sum and its bias word (see the
+// header comment). packed_int's int32 arithmetic runs on unsigned words,
+// so that it wraps as the plain version's does.
+__device__ __forceinline__ Key column_key(int acc, const ArgmaxArgs& a, unsigned bias, int n) {
+  if (a.mode == kArgmaxPackedInt) {
+    const int v = static_cast<int>(static_cast<unsigned>(acc) + bias) >> a.shift;
+    const unsigned mask = (1u << a.width_bits) - 1u;
+    const unsigned col = static_cast<unsigned>(n);
+    const unsigned key = static_cast<unsigned>(v) << a.width_bits | (mask - col);
+    return static_cast<Key>(key ^ 0x80000000u) << 32 | (0xFFFFFFFFu - col);
+  }
+  const float logit = __fadd_rn(__fmul_rn(__int2float_rn(acc), a.inv), __uint_as_float(bias));
+  return argmax_key(logit, a.col0 + n, a.mode);
 }
 
 // The best keys of a block's rows, best[warp * rows_cap + r] for each warp,
@@ -196,7 +228,7 @@ __global__ void __launch_bounds__(kThreads) mma_project_kernel(const __grid_cons
   const int tiles = (a.s + kTileCols - 1) / kTileCols;
 
   int4 wv[kSlices][kNt];
-  float bias[kNt][2];  // of the lane's columns col0 + 8 nt + 2 q + j
+  unsigned bias[kNt][2];  // the bias words of the lane's columns col0 + 8 nt + 2 q + j
   // W's slices k0 .. k0 + 64 kSlices of the lane's columns from col0.
   auto load = [&](int col0, int k0) {
 #pragma unroll
@@ -217,7 +249,7 @@ __global__ void __launch_bounds__(kThreads) mma_project_kernel(const __grid_cons
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int n = col0 + 8 * nt + 2 * q + j;
-        bias[nt][j] = n < a.s ? __ldg(a.bias + n) : 0.0f;
+        bias[nt][j] = n < a.s ? __ldg(a.bias + n) : 0u;
       }
     }
   };
@@ -267,8 +299,8 @@ __global__ void __launch_bounds__(kThreads) mma_project_kernel(const __grid_cons
           for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
             for (int h = 0; h < 2; ++h)
-              key[mt][h] = key_max(key[mt][h], argmax_key(
-                  logit(acc[mt][nt][2 * h + j], a, bias[nt][j]), a.col0 + n, a.mode));
+              key[mt][h] = key_max(key[mt][h], column_key(acc[mt][nt][2 * h + j], a,
+                                                          bias[nt][j], n));
           }
         }
       }
@@ -336,10 +368,10 @@ __global__ void __launch_bounds__(kThreads) gather_project_kernel(const __grid_c
       }
     }
   }
-  const float bias = n < a.s ? a.bias[n] : 0.0f;
+  const unsigned bias = n < a.s ? a.bias[n] : 0u;
 #pragma unroll
   for (int r = 0; r < kGatherRows; ++r) {
-    Key key = n < a.s ? argmax_key(logit(acc[r], a, bias), a.col0 + n, a.mode) : 0;
+    Key key = n < a.s ? column_key(acc[r], a, bias, n) : 0;
 #pragma unroll
     for (int offset = 16; offset > 0; offset /= 2)
       key = key_max(key, __shfl_xor_sync(0xffffffffu, key, offset));
@@ -415,19 +447,27 @@ size_t argmax_scratch_bytes(int b, int s) {
   return sizeof(Key) * static_cast<size_t>(b) * ((s + kTileCols - 1) / kTileCols);
 }
 
-int launch_argmax(const float* y, const int8_t* w, const float* bias, int* choice,
+int launch_argmax(const float* y, const int8_t* w, const void* bias, int* choice,
                   void* part, int b, int e, int s, long long sk, long long sn, float aq,
                   float inv, int mode, cudaStream_t stream, int col0,
-                  long long* keys) {
+                  long long* keys, int width_bits, int shift) {
   if (b <= 0 || s <= 0 || col0 < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (e <= 0 || e > kMaxEmb) return static_cast<int>(cudaErrorInvalidValue);
-  if (mode != kArgmaxExact && mode != kArgmaxFp16 && mode != kArgmaxBf16)
+  if (mode != kArgmaxExact && mode != kArgmaxFp16 && mode != kArgmaxBf16 &&
+      mode != kArgmaxPackedInt)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (mode != kArgmaxExact && static_cast<long long>(col0) + s > 65536)
+  if ((mode == kArgmaxFp16 || mode == kArgmaxBf16) && static_cast<long long>(col0) + s > 65536)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // packed_int: whole projections only (no key variant), every column
+  // below 2^width_bits, the shifts within an int32.
+  if (mode == kArgmaxPackedInt &&
+      (col0 != 0 || keys != nullptr || width_bits < 1 || width_bits > 30 || shift < 0 ||
+       shift > 31 || s > (1 << width_bits)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(part) % sizeof(Key)) return static_cast<int>(cudaErrorInvalidValue);
-  ArgmaxArgs a = {y, w, bias, static_cast<Key*>(part), b, e, s, sk, sn, aq, inv, mode, 0,
-                  reinterpret_cast<uintptr_t>(y) % 16 == 0, col0};
+  ArgmaxArgs a = {y, w, static_cast<const unsigned*>(bias), static_cast<Key*>(part), b, e, s,
+                  sk, sn, aq, inv, mode, 0, reinterpret_cast<uintptr_t>(y) % 16 == 0, col0,
+                  width_bits, shift};
   const bool columns = sk == 1 && sn % 16 == 0 && e % 64 == 0 && e <= kMaxMmaEmb &&
                        reinterpret_cast<uintptr_t>(w) % 16 == 0;
   int rc;
@@ -472,6 +512,20 @@ extern "C" int slimt_argmax_affine(const void* y, const void* w,
       static_cast<const float*>(y), static_cast<const int8_t*>(w),
       static_cast<const float*>(bias), static_cast<int*>(choice), scratch, b, e, s, sk,
       sn, aq, inv, mode, static_cast<cudaStream_t>(stream));
+}
+
+// The packed_int method: choice[b] = packed_int_argmax of q8(y[b]) W's
+// int32 sums and b_i32 (int32 [s], the bias in accumulator units), with
+// the packing (width_bits, shift) of logits_argmax.packed_int_params.
+// W and scratch as for slimt_argmax_affine.
+extern "C" int slimt_argmax_packed_int(const void* y, const void* w, const void* b_i32,
+                                       void* choice, void* scratch, int b, int e, int s,
+                                       long long sk, long long sn, float aq, int width_bits,
+                                       int shift, void* stream) {
+  return slimt::launch_argmax(
+      static_cast<const float*>(y), static_cast<const int8_t*>(w), b_i32,
+      static_cast<int*>(choice), scratch, b, e, s, sk, sn, aq, 1.0f, slimt::kArgmaxPackedInt,
+      static_cast<cudaStream_t>(stream), 0, nullptr, width_bits, shift);
 }
 
 // The key variant (a vocab shard's argmax): W holds global columns col0 ..

@@ -60,6 +60,7 @@ SERVING = {
     "ffn_block": ("fused_blocks", "ffn_kernel"),
     "decode_attention": ("decode_attn", "decode_attention_kernel"),
     "argmax_affine": ("logits_argmax", "argmax_affine_kernel"),
+    "argmax_packed_int": ("logits_argmax", "argmax_packed_int_kernel"),
     "fused_sdpa": ("attention", "fused_sdpa_kernel"),
     "blockwise_attention": ("attention", "blockwise_kernel"),
 }

@@ -134,7 +134,8 @@ def dot(x, w_q, aq, inv) -> torch.Tensor:
 def int8_matmul(x, w_q, aq) -> torch.Tensor:
     """quant(x) @ w_q as the raw int32 accumulator [..., N]. On CUDA the
     kernel's ACCUMULATOR launches also count in `launches` here (the
-    row-parallel products of tensor parallelism, packed_int's keys)."""
+    row-parallel products of tensor parallelism, the mesh's packed_int
+    keys)."""
     return _run(x, w_q, None, aq, 1.0, ACCUMULATOR)
 
 

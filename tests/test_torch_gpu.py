@@ -236,7 +236,7 @@ def test_decode_attention_kernel_matches_plain(card, emb, b, t):
     assert float((got - want).abs().max()) <= 2e-5
 
 
-@pytest.mark.parametrize("method", logits_argmax.METHODS)
+@pytest.mark.parametrize("method", logits_argmax.LOGIT_METHODS)
 @pytest.mark.parametrize("with_shortlist", [False, True], ids=["full", "shortlist"])
 def test_argmax_kernel_methods_bit_equal_with_tie(card, method, with_shortlist):
     rng = np.random.default_rng(9)
@@ -274,7 +274,7 @@ def test_argmax_kernel_shortlist_off_the_tile_width(card, width, b):
     ids = torch.from_numpy(np.sort(rng.choice(8000, width, replace=False))).to(card)
     w, bb = emb.index_select(0, ids).T, bias.index_select(0, ids)
     y = torch.from_numpy(rng.standard_normal((b, 256)).astype(np.float32)).to(card)
-    for method in logits_argmax.METHODS:
+    for method in logits_argmax.LOGIT_METHODS:
         got = logits_argmax.argmax_affine(y, w, bb, 20.0, 1e-4, method)
         want = logits_argmax.argmax_affine_plain(y, w, bb, 20.0, 1e-4, method)
         assert torch.equal(got, want), method
@@ -1199,7 +1199,8 @@ def test_continuous_engine_matches_batch_at_a_time(card, provider):
 
 # -- The numerics knobs on the card ------------------------------------------
 INT8_COUNTERS = (qmm.affine_kernel, enc.layer_kernel, logits_argmax.argmax_affine_kernel,
-                 dstep.whole_step_kernel, fused_blocks.ssru_kernel, fused_blocks.ffn_kernel)
+                 logits_argmax.argmax_packed_int_kernel, dstep.whole_step_kernel,
+                 fused_blocks.ssru_kernel, fused_blocks.ffn_kernel)
 
 
 def _launches(counters):
@@ -1281,7 +1282,7 @@ def test_argmax_at_a_narrow_width_on_the_card(card, method, emb):
                  tfm.prepare_output_projection(params, ids)):
         for rows in (1, 8, 33):
             y = torch.randn((rows, emb), device=card, generator=gen) * 2.0
-            for m in logits_argmax.METHODS:
+            for m in logits_argmax.LOGIT_METHODS:
                 got = logits_argmax.argmax_affine_kernel(y, w, b, aq, inv, m)
                 want = logits_argmax.argmax_affine_plain(y, w, b, aq, inv, m)
                 assert torch.equal(got, want), (m, rows, tuple(w.shape))
@@ -1611,7 +1612,7 @@ def test_blockwise_query_slice_rows_equal_full_rows(card, b, t):
 
 
 @pytest.mark.parametrize("rows", [1, 16, 64, 512])
-@pytest.mark.parametrize("method", logits_argmax.METHODS)
+@pytest.mark.parametrize("method", logits_argmax.LOGIT_METHODS)
 def test_argmax_keys_on_vocab_shards(card, rows, method):
     """#4's key variant on two vocab shards of the tiny11 projection: each
     equal to its plain version (column and key), and the max of the keys
@@ -1863,3 +1864,111 @@ def test_fleet_scaling_on_the_card_equals_blocking(card):
     (counts,) = out["launches"]["router1"]
     assert counts["qmm_affine"] and counts["encoder_layer"]
     assert out["router_tps"]["1"] > 0 and "share one card" in out["note"]
+
+
+# -- #4's packed_int mode: the declared argmax in one kernel -----------------
+def _packed_int_chain(y, w, b_i32, aq):
+    """The declared argmax as two steps on the card: #1's int32
+    accumulator [B, S], then packed_int_argmax over it."""
+    width_bits, shift = logits_argmax.packed_int_params(w.shape[1], w.shape[0])
+    return logits_argmax.packed_int_argmax(qmm.int8_matmul(y, w, aq), b_i32, width_bits, shift)
+
+
+def _packed_int_case(card, b, width, e, seed):
+    """(y, W, b_i32, first): W the transposed rows of a 32000-word int8
+    embedding (all of them, or a shortlist's), the bias in accumulator
+    units of both signs with some at the negative clamp, and column
+    `first` tied with a column of a later tile; rows 0 and 1 point along
+    it."""
+    rng = np.random.default_rng(seed)
+    cap = e * 127 * 127
+    emb = torch.from_numpy(rng.integers(-127, 128, (32000, e)).astype(np.int8)).to(card)
+    if width == 32000:
+        w = emb.T
+    else:
+        ids = np.sort(rng.choice(32000, width, replace=False))
+        w = emb.index_select(0, torch.from_numpy(ids).to(card)).T
+    b_i32 = rng.integers(-cap // 50, cap // 50, width).astype(np.int32)
+    b_i32[rng.integers(10, width - 10, 4)] = -cap
+    first, second = 3, width - 2  # tiles 0 and the last (partial where 128 does not divide)
+    b_i32[second] = b_i32[first]
+    w[:, second] = w[:, first]
+    y = torch.from_numpy(rng.standard_normal((b, e)).astype(np.float32)).to(card)
+    y[:2] = w[:, first].float() / 40.0
+    return y, w, torch.from_numpy(b_i32).to(card), first
+
+
+@pytest.mark.parametrize("e", [256, 512])
+@pytest.mark.parametrize("width", [32000, 1000, 1024, 3072])
+@pytest.mark.parametrize("b", [1, 20, 64, 256, 512])
+def test_argmax_packed_int_bit_equal_to_the_chain(card, b, width, e):
+    """#4's packed_int mode against #1 plus packed_int_argmax: the same
+    choice in every row, the tie across tiles going to its first column."""
+    y, w, b_i32, first = _packed_int_case(card, b, width, e, seed=b * width + e)
+    before = logits_argmax.argmax_packed_int_kernel.launches
+    got = logits_argmax.argmax_affine(y, w, b_i32, 20.0, None, "packed_int")
+    assert logits_argmax.argmax_packed_int_kernel.launches == before + 1
+    want = _packed_int_chain(y, w, b_i32, 20.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got[:min(b, 2)].tolist() == [first] * min(b, 2)
+
+
+@pytest.mark.parametrize("e", [32, 256, 520])
+@pytest.mark.parametrize("b", [1, 33])
+def test_argmax_packed_int_on_the_strided_path(card, b, e):
+    """W as a row-major [E, S] matrix (no transposed rows) and E off the
+    tensor-core path's multiples of 64: #4's gather path in its
+    packed_int mode, bit-equal to the chain, a tie included."""
+    rng = np.random.default_rng(b + e)
+    cap = e * 127 * 127
+    w = torch.from_numpy(rng.integers(-127, 128, (e, 3000)).astype(np.int8)).to(card)
+    w[:, 2900] = w[:, 7]
+    b_i32 = torch.from_numpy(rng.integers(-cap // 50, cap // 50, 3000).astype(np.int32)).to(card)
+    b_i32[2900] = b_i32[7]
+    y = torch.from_numpy(rng.standard_normal((b, e)).astype(np.float32)).to(card)
+    y[0] = w[:, 7].float() / 40.0
+    for view in (w, w.T.contiguous().T):
+        got = logits_argmax.argmax_packed_int_kernel(y, view, b_i32, 20.0)
+        assert torch.equal(got, _packed_int_chain(y, view, b_i32, 20.0))
+        assert int(got[0]) == 7
+
+
+@pytest.mark.parametrize("shortlist", [False, True], ids=["full", "shortlist"])
+def test_declared_graph_loop_takes_packed_int_in_one_kernel(card, monkeypatch, shortlist):
+    """The declared translate_batch, captured and replayed as CUDA graphs:
+    its tokens equal those of the same loop with the argmax as #1 plus
+    packed_int_argmax, #4's packed_int launches once a decode step, and
+    no int8_matmul launch is left."""
+    from slimt_tpu_torch.models import decode
+    from slimt_tpu_torch.models.loop_graph import GraphCache
+
+    params = _loop_params(card)
+    ids, mask = _loop_batch(card, b=9)
+    kwargs = dict(kv_dtype="int16", loop_unroll=4, eos_id=-1)
+    if shortlist:
+        kwargs["shortlist"] = torch.arange(0, LOOP_VOCAB, 3, dtype=torch.int32, device=card)
+    real = logits_argmax.argmax_affine
+
+    def chain(x, w, b, aq, inv, method="exact"):
+        if method == "packed_int":
+            return _packed_int_chain(x, w, b, aq)
+        return real(x, w, b, aq, inv, method)
+
+    monkeypatch.setattr(logits_argmax, "argmax_affine", chain)
+    matmuls = qmm.int8_matmul.launches
+    want = _decode(params, ids, mask, graphs=GraphCache(), **kwargs)
+    torch.cuda.synchronize()
+    assert qmm.int8_matmul.launches > matmuls
+    monkeypatch.setattr(logits_argmax, "argmax_affine", real)
+    graphs = GraphCache()
+    for _ in range(2):  # the first captures, the second only replays
+        chunks, matmuls = decode.run_loop.chunks, qmm.int8_matmul.launches
+        picks = logits_argmax.argmax_packed_int_kernel.launches
+        got = _decode(params, ids, mask, graphs=graphs, **kwargs)
+        torch.cuda.synchronize()
+        ran = decode.run_loop.chunks - chunks
+        assert ran == 5  # 17 steps in chunks of 4
+        assert logits_argmax.argmax_packed_int_kernel.launches - picks == 4 * ran
+        assert qmm.int8_matmul.launches == matmuls
+        assert _same(got, want)

@@ -153,4 +153,6 @@ def test_kernel_wrapper_rejects():
     with pytest.raises(ValueError, match="CUDA"):
         logits_argmax.argmax_affine_kernel(y, w, b, 1.0, 1.0)
     with pytest.raises(ValueError, match="method"):
+        logits_argmax.argmax_affine_kernel(y, w, b, 1.0, 1.0, "packed_int8")
+    with pytest.raises(ValueError, match="b_i32"):  # packed_int takes the bias in accumulator units
         logits_argmax.argmax_affine_kernel(y, w, b, 1.0, 1.0, "packed_int")

@@ -405,10 +405,10 @@ def test_continuous_engine_matches_jax(weights, op_by_op, knob):
 @pytest.mark.parametrize("method", ["exact", "packed_fp16", "packed_bf16", "packed_int"])
 def test_argmax_kernel_takes_the_narrow_width(weights, monkeypatch, method):
     """output_argmax at E=32 (the crosscheck cells' width) sends every
-    method but packed_int to the argmax kernel's wrapper, as at E=256, and
-    the index is the kernel's plain version's; the kernel's gate takes any
-    E up to logits_argmax.MAX_EMB (past the gate on E, a CPU tensor fails
-    only the device check)."""
+    method to the argmax kernel's wrapper, as at E=256 (packed_int with
+    the bias in accumulator units), and the index is the kernel's plain
+    version's; the kernel's gate takes any E up to logits_argmax.MAX_EMB
+    (past the gate on E, a CPU tensor fails only the device check)."""
     from slimt_tpu_torch.ops import logits_argmax
 
     _, tp = weights
@@ -420,21 +420,22 @@ def test_argmax_kernel_takes_the_narrow_width(weights, monkeypatch, method):
     monkeypatch.setattr(logits_argmax, "argmax_affine",
                         lambda *a, **k: calls.append(a) or real(*a, **k))
     got = tfm.output_argmax(tp, x, None, (w, b), method)
-    assert len(calls) == (method != "packed_int")
-    if method != "packed_int":
-        want = logits_argmax.argmax_affine_plain(x, w, b, tp["out"]["aq"], tfm.output_inv(tp),
-                                                 method)
-        assert torch.equal(got, want)
-        for emb in (EMB, 40, 64, logits_argmax.MAX_EMB):
-            y = torch.zeros((2, emb))
-            ww = torch.zeros((emb, 8), dtype=torch.int8)
-            with pytest.raises(ValueError, match="CUDA tensor"):
-                logits_argmax.argmax_affine_kernel(y, ww, torch.zeros(8), 1.0, 1.0, method)
-        with pytest.raises(ValueError, match="range"):
-            logits_argmax.argmax_affine_kernel(
-                torch.zeros((2, logits_argmax.MAX_EMB + 1)),
-                torch.zeros((logits_argmax.MAX_EMB + 1, 8), dtype=torch.int8),
-                torch.zeros(8), 1.0, 1.0, method)
+    assert len(calls) == 1
+    bias = tfm.packed_int_bias(tp, b) if method == "packed_int" else b
+    want = logits_argmax.argmax_affine_plain(x, w, bias, tp["out"]["aq"], tfm.output_inv(tp),
+                                             method)
+    assert torch.equal(got, want)
+    bias = torch.zeros(8, dtype=torch.int32 if method == "packed_int" else torch.float32)
+    for emb in (EMB, 40, 64, logits_argmax.MAX_EMB):
+        y = torch.zeros((2, emb))
+        ww = torch.zeros((emb, 8), dtype=torch.int8)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            logits_argmax.argmax_affine_kernel(y, ww, bias, 1.0, 1.0, method)
+    with pytest.raises(ValueError, match="range"):
+        logits_argmax.argmax_affine_kernel(
+            torch.zeros((2, logits_argmax.MAX_EMB + 1)),
+            torch.zeros((logits_argmax.MAX_EMB + 1, 8), dtype=torch.int8),
+            bias, 1.0, 1.0, method)
 
 
 def test_f32_needs_the_dequantized_weights():

@@ -236,7 +236,7 @@ def test_query_slice_checks_its_rows():
         attention.fused_sdpa_joined(q, q, q, torch.zeros((1, 1, 1, 8)), 2, 6, 4)
 
 
-@pytest.mark.parametrize("method", lam.METHODS)
+@pytest.mark.parametrize("method", lam.LOGIT_METHODS)
 @pytest.mark.parametrize("shards", [2, 4])
 def test_vocab_sharded_keys_equal_unsharded_choice(method, shards):
     """#4's key variant over vocab shards (plain version): the max of the

@@ -20,6 +20,7 @@ from slimt_tpu.io.synthetic import synthetic_model_bytes  # noqa: E402
 from slimt_tpu.models import transformer as jtfm  # noqa: E402
 from slimt_tpu_torch.io.params import params_from_numpy  # noqa: E402
 from slimt_tpu_torch.models import transformer as tfm  # noqa: E402
+from slimt_tpu_torch.ops import logits_argmax  # noqa: E402
 
 HEADS = 4
 VOCAB, EMB, FFN = 500, 64, 128
@@ -165,10 +166,10 @@ def test_packed_int_argmax_equal(width):
     acc = rng.integers(-5_000_000, 5_000_000, (4, width)).astype(np.int32)
     acc[0, 3 % width] = acc[0].max()  # a tie: the first index wins
     b = rng.integers(-1000, 1000, width).astype(np.int32)
-    width_bits, shift = tfm.packed_int_params(width, 256)
+    width_bits, shift = logits_argmax.packed_int_params(width, 256)
     assert (width_bits, shift) == jtfm.packed_int_params(width, 256)
     want = np.asarray(
         jtfm.packed_int_argmax(jnp.asarray(acc), jnp.asarray(b), width_bits, shift)
     )
-    got = tfm.packed_int_argmax(_t(acc), _t(b), width_bits, shift)
+    got = logits_argmax.packed_int_argmax(_t(acc), _t(b), width_bits, shift)
     np.testing.assert_array_equal(got.numpy(), want)
