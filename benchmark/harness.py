@@ -2,9 +2,12 @@
 and the comparison that decides `correct`.
 
 Everything the run needs is found by name under the benchmark's roots
-(`configs/`, `traffic/`, `lanes/`, `cells/`, `metrics/`, `work/`), so a
-new cell, configuration, mix, lane or metric is new files and entries,
-never an edit here. The program under test is slimt_tpu_torch, imported only here.
+(`configs/`, `traffic/`, `lanes/`, `cells/`, `metrics/`, `work/`, and the
+architecture file that a configuration's "reference" key names, which
+supplies the plain reference, the weights' layout and the work counts), so
+a new cell, configuration, architecture, mix, lane or metric is new files
+and entries, never an edit here. The program under test is slimt_tpu_torch,
+imported only here.
 """
 
 from __future__ import annotations
@@ -26,7 +29,6 @@ from benchmark import inputs, readers, trace as tracing, traffic
 from benchmark.probe import Forward, ForwardProbe
 from benchmark.reference import check
 from benchmark.reference import shortlist as shortlist_columns
-from benchmark.reference.bergamot import Bergamot
 from benchmark.reference.text import Text
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -59,6 +61,11 @@ class Finder:
     def module(self, kind: str, name: str):
         return readers.load_file(self.path(kind, name, ".py"), f"{kind}_{name}")
 
+    def architecture(self, cfg: dict):
+        """The module of the configuration's architecture: the file that its
+        "reference" key names ("reference/<name>.py")."""
+        return self.module(*readers.reference_name(cfg))
+
 
 def cell_metrics(bench: dict, cell: str, per_layer: bool) -> List[dict]:
     """The cell's end-to-end metrics, or its per-layer metrics: those that
@@ -86,9 +93,11 @@ class Context:
     peaks: Optional[dict]
     phases: Dict[str, object]
     shortlist_width: Optional[Callable[[Forward], int]]
+    architecture: object
 
     def work(self, phase: str) -> dict:
-        return self.phases[phase].count(self.config, self.forwards, self.shortlist_width)
+        return self.phases[phase].count(self.config, self.forwards, self.shortlist_width,
+                                        self.architecture)
 
 
 def process_start() -> float:
@@ -133,12 +142,12 @@ class Inputs:
     lexicon: inputs.Lexicon
 
 
-def make_inputs(cfg: dict, spec: dict, seed: int, device) -> Inputs:
+def make_inputs(cfg: dict, architecture, spec: dict, seed: int, device) -> Inputs:
     vocab = cfg["vocab_size"]
     lexicon = inputs.make_lexicon(seed, vocab - inputs.FIRST_WORD_ID - inputs.CHAR_PIECES,
                                   cfg["zipf_s"])
     pieces = inputs.vocabulary_pieces(lexicon)
-    weights = inputs.make_weights(cfg, seed, device)
+    weights = inputs.make_weights(cfg, seed, device, architecture)
     listed = file = None
     if spec.get("shortlist"):
         lex = spec["shortlist"]
@@ -163,12 +172,13 @@ def run_cell(bench: dict, finder: Finder, cell_name: str, seed: int, seconds: fl
     device = torch.device(device)
     cell = next(w for w in bench["workloads"] if w["name"] == cell_name)
     cfg = finder.json("configs", cell["config"])
+    architecture = finder.architecture(cfg)
     spec = finder.json("traffic", cell["traffic"])
     limits = finder.json("cells", cell_name)
     metrics = cell_metrics(bench, cell_name, traced)
 
     marks = {"start": time.perf_counter()}
-    made = make_inputs(cfg, spec, seed, device)
+    made = make_inputs(cfg, architecture, spec, seed, device)
     marks["inputs"] = time.perf_counter()
     model = Model(ModelConfig(**cfg["model_config"]),
                   Package(made.model, made.vocabulary, made.shortlist_file),
@@ -221,7 +231,7 @@ def run_cell(bench: dict, finder: Finder, cell_name: str, seed: int, seconds: fl
     with open(os.path.join(HERE, "peaks.json")) as f:
         peaks = json.load(f).get(kind)
     ctx = Context(cfg, spec, window, forwards, setup_s, window_s, delta, device_trace, peaks,
-                  readers.phases(HERE), width)
+                  readers.phases(HERE), width, architecture)
     values = {}
     for metric in metrics:
         value = finder.module("metrics", metric["name"]).read(ctx)
@@ -257,8 +267,8 @@ def run_cell(bench: dict, finder: Finder, cell_name: str, seed: int, seconds: fl
     if device.type == "cuda":
         torch.cuda.empty_cache()
     judged = time.perf_counter()
-    checks, faults, readings = judge(made, cfg, spec, limits, window, every_forward, seed, device,
-                                     control)
+    checks, faults, readings = judge(made, cfg, architecture, spec, limits, window, every_forward,
+                                     seed, device, control)
     for fault in faults[:20]:
         log("fault: " + fault)
     log(json.dumps({"check_s": time.perf_counter() - judged, **readings}))
@@ -268,11 +278,12 @@ def run_cell(bench: dict, finder: Finder, cell_name: str, seed: int, seconds: fl
     return result
 
 
-def judge(made: Inputs, cfg: dict, spec: dict, limits: dict, window: traffic.Window,
-          forwards_all, seed: int, device, control: bool = False):
+def judge(made: Inputs, cfg: dict, architecture, spec: dict, limits: dict,
+          window: traffic.Window, forwards_all, seed: int, device, control: bool = False):
     """(checks, faults, readings): the numbers compared, each with its
     limit, a line for each request judged wrong (see reference/check.py),
-    and the counts of tokens compared with the gaps read. With `control`
+    and the counts of tokens compared with the gaps read. The reference
+    and its int4 control are the architecture's `Reference`. With `control`
     the int4 control takes the program's place in the comparison of
     logits: `max_logit_gap` is then the widest gap of the token that the
     control puts first at each served position (the control need not
@@ -285,8 +296,10 @@ def judge(made: Inputs, cfg: dict, spec: dict, limits: dict, window: traffic.Win
     faults, segments = check.judge_answers(
         window.texts, window.answers, picked, forwards_all, text,
         spec["service"]["wrap_length"], cfg["tgt_length_limit_factor"], made.shortlist)
-    reference = Bergamot(made.weights, cfg, device)
-    lower = Bergamot(made.weights, cfg, device, precision="int4") if control else None
+    reference = architecture.Reference(made.weights, cfg, device)
+    lower = None
+    if control:
+        lower = architecture.Reference(made.weights, cfg, device, precision="int4")
     gaps = check.logit_gaps(reference, segments, lower)
     readings = {k: gaps[k] for k in ("tokens_compared", "tokens_outside_columns",
                                       "tokens_in_bucket_padding")}

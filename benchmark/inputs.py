@@ -14,10 +14,12 @@ import dataclasses
 import math
 import struct
 import zlib
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from benchmark import readers
 
 SPACE = "▁"  # sentencepiece's word-start marker
 LETTERS = "abcdefghijklmnopqrstuvwxyz"
@@ -137,48 +139,12 @@ def spm_model_bytes(pieces: Sequence[Tuple[str, float, int]]) -> bytes:
 @dataclasses.dataclass
 class Weights:
     """The model's arrays under marian's names: int8 matrices with their
-    multipliers (f32 = q / mult) in `int8`, f32 arrays in `f32`."""
+    multipliers (f32 = q / mult) in `int8`, f32 arrays in `f32`, and the
+    name of the embedding matrix, [vocabulary, emb]."""
 
     int8: Dict[str, Tuple[np.ndarray, float]]
     f32: Dict[str, np.ndarray]
-
-
-def layout(cfg: dict) -> Tuple[list, list]:
-    """(matrices, vectors) of a Bergamot student under marian's names:
-    matrices as (name, rows, cols), vectors as (name, length, kind) with
-    kind "bias", "scale" (LayerNorm gain) or "shift" (LayerNorm bias)."""
-    emb, ffn, vocab = cfg["emb_dim"], cfg["ffn_dim"], cfg["vocab_size"]
-    matrices, vectors = [("Wemb", vocab, emb)], [("decoder_ff_logit_out_b", vocab, "bias")]
-
-    def affine(name, rows, cols, bias):
-        matrices.append((name, rows, cols))
-        if bias is not None:
-            vectors.append((bias, cols, "bias"))
-
-    def norm(prefix):
-        vectors.extend([(prefix + "_ln_scale", emb, "scale"), (prefix + "_ln_bias", emb, "shift")])
-
-    def attention(prefix):
-        for key in "qkvo":
-            affine(f"{prefix}_W{key}", emb, emb, f"{prefix}_b{key}")
-        norm(prefix + "_Wo")
-
-    def ffn_block(prefix):
-        affine(prefix + "_ffn_W1", emb, ffn, prefix + "_ffn_b1")
-        affine(prefix + "_ffn_W2", ffn, emb, prefix + "_ffn_b2")
-        norm(prefix + "_ffn_ffn")
-
-    for i in range(1, cfg["encoder_layers"] + 1):
-        attention(f"encoder_l{i}_self")
-        ffn_block(f"encoder_l{i}")
-    for i in range(1, cfg["decoder_layers"] + 1):
-        prefix = f"decoder_l{i}"
-        attention(prefix + "_context")
-        affine(prefix + "_rnn_W", emb, emb, None)
-        affine(prefix + "_rnn_Wf", emb, emb, prefix + "_rnn_bf")
-        norm(prefix + "_rnn_ffn")
-        ffn_block(prefix)
-    return matrices, vectors
+    embedding: Optional[str] = None
 
 
 # Weights are N(0, 1/rows) (the embedding N(0, 1/E)), quantized per
@@ -186,28 +152,15 @@ def layout(cfg: dict) -> Tuple[list, list]:
 CLIP_SIGMAS = 4.0
 
 
-def _planted(name: str, init: dict) -> tuple:
-    """(gain, mean) of a matrix or vector of the decoder's SSRU layers.
-
-    At gain 1 every row decodes to one repeated token: the residual path
-    carries the previous token's embedding to the tied projection, which
-    picks it again, and the SSRU cell cannot change that. The candidate
-    matrix W at `ssru_candidate_gain` makes relu(cell) outweigh the
-    residual, and the forget gate's bias `ssru_forget_bias` keeps more of
-    the cell a step, so that each served token depends on the token
-    before it and on the cell carried through the steps."""
-    if name.endswith("_rnn_W"):
-        return init["ssru_candidate_gain"], 0.0
-    if name.endswith("_rnn_bf"):
-        return 1.0, init["ssru_forget_bias"]
-    return 1.0, 0.0
-
-
-def make_weights(cfg: dict, seed: int, device) -> Weights:
-    """Every matrix from one normal draw on `device`, rounded to int8
+def make_weights(cfg: dict, seed: int, device, architecture=None) -> Weights:
+    """The arrays of the configuration's architecture (its `layout`, with
+    the settings it `planted`; found by readers.architecture where not
+    given): every matrix from one normal draw on `device`, rounded to int8
     there; every vector from a second draw. The weight multipliers follow
     from the widths; the activation multipliers are the configuration's."""
-    matrices, vectors = layout(cfg)
+    architecture = architecture or readers.architecture(cfg)
+    matrices, vectors = architecture.layout(cfg)
+    embedding = architecture.EMBEDDING
     generator = torch_generator(seed, "weights", device)
     total = sum(rows * cols for _, rows, cols in matrices)
     draw = torch.randn(total, generator=generator, device=device)
@@ -218,8 +171,8 @@ def make_weights(cfg: dict, seed: int, device) -> Weights:
                         device=device).cpu().numpy()
     int8, f32, at = {}, {}, 0
     for name, rows, cols in matrices:
-        sigma = _planted(name, cfg["init"])[0] / math.sqrt(cfg["emb_dim"] if name == "Wemb"
-                                                            else rows)
+        sigma = architecture.planted(name, cfg["init"])[0] / math.sqrt(
+            cfg["emb_dim"] if name == embedding else rows)
         int8[name] = (q[at:at + rows * cols].reshape(rows, cols), 127.0 / (CLIP_SIGMAS * sigma))
         at += rows * cols
     spread = cfg["init"]
@@ -228,14 +181,13 @@ def make_weights(cfg: dict, seed: int, device) -> Weights:
         part = small[at:at + n] * np.float32(spread[kind + "_std"])
         if kind == "scale":
             part = part + np.float32(1.0)
-        part = part + np.float32(_planted(name, spread)[1])
+        part = part + np.float32(architecture.planted(name, spread)[1])
         f32[name] = part.astype(np.float32).reshape(1, n)
         at += n
     activation = np.array([[cfg["activation_multiplier"]]], np.float32)
     for name, _, _ in matrices:
-        quant = "none_QuantMultA" if name == "Wemb" else name + "_QuantMultA"
-        f32[quant] = activation
-    return Weights(int8, f32)
+        f32[architecture.activation_name(name)] = activation
+    return Weights(int8, f32, embedding)
 
 
 TYPE_FLOAT32 = 0x0404
@@ -245,11 +197,11 @@ TYPE_INTGEMM8 = 0x4101
 def marian_bytes(weights: Weights) -> bytes:
     """The weights as a marian v1 .bin: headers, names, shapes, a pad to
     256 bytes and the payloads. intgemm8 payloads are the int8 matrix
-    stored transposed (all but Wemb, as marian exports them) followed by
-    the f32 multiplier."""
+    stored transposed (all but the embedding, as marian exports them)
+    followed by the f32 multiplier."""
     items = []
     for name, (q, mult) in weights.int8.items():
-        stored = q if name == "Wemb" else q.T
+        stored = q if name == weights.embedding else q.T
         items.append((name, TYPE_INTGEMM8, q.shape,
                       np.ascontiguousarray(stored).tobytes() + struct.pack("<f", mult)))
     for name, array in weights.f32.items():

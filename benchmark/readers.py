@@ -9,7 +9,9 @@ import glob
 import importlib.util
 import os
 import statistics
-from typing import Optional
+from typing import Optional, Tuple
+
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def load_file(path: str, name: str):
@@ -18,6 +20,23 @@ def load_file(path: str, name: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def reference_name(cfg: dict) -> Tuple[str, str]:
+    """(kind, name) of the file that a configuration's "reference" key
+    names, "reference/<name>.py": the module of its architecture."""
+    kind, _, file = cfg["reference"].partition("/")
+    if not kind or "/" in file or not file.endswith(".py"):
+        raise ValueError(f"reference {cfg['reference']!r} is not <kind>/<name>.py")
+    return kind, file[:-3]
+
+
+def architecture(cfg: dict):
+    """The module of the configuration's architecture among the benchmark's
+    own files (the harness finds it through its Finder, which searches other
+    roots first)."""
+    kind, name = reference_name(cfg)
+    return load_file(os.path.join(HERE, kind, name + ".py"), f"{kind}_{name}")
 
 
 def phases(root: str):

@@ -1,21 +1,30 @@
-"""Plain PyTorch reference of a Bergamot student model.
+"""The Bergamot student's architecture: everything of the benchmark that
+depends on it, found through a configuration's `"reference"` key
+("reference/bergamot.py"). It supplies
 
-A marian transformer encoder (post-LayerNorm layers of multi-head
-self-attention and a ReLU feed-forward block over sinusoidal positions)
-and a decoder of SSRU layers (simpler simple recurrent units) with
-cross-attention and a feed-forward block, the output projection tied to
-the embedding (Kim et al., "From Research to Production and Back", WNGT
+- `Reference`: the plain PyTorch reference of the model (below);
+- `layout(cfg)`, `EMBEDDING`, `activation_name(name)`: its arrays under
+  marian's names, which inputs.make_weights draws;
+- `planted(name, init)`: the decoder settings planted in those draws;
+- `WORK`: the work counts of each phase (`encoder`, `decode`), which the
+  phase files in `work/` and the roofline and mfu readers use.
+
+The model is a marian transformer encoder (post-LayerNorm layers of
+multi-head self-attention and a ReLU feed-forward block over sinusoidal
+positions) and a decoder of SSRU layers (simpler simple recurrent units)
+with cross-attention and a feed-forward block, the output projection tied
+to the embedding (Kim et al., "From Research to Production and Back", WNGT
 2019; slimt's Transformer.cc and Modules.cc). The decoder adds the
 position-0 sinusoid at every step where the configuration says
 "decoder_position": "zero", as slimt does.
 
-Everything is float32 against the weights dequantized from the int8
-matrices the benchmark made (w = q / multiplier), with no activation
-quantization, no caches and no batching tricks: the decoder is run
-teacher-forced over the tokens the program served. `precision="int4"`
-is the control: every matrix re-quantized per tensor to 4 bits and every
-product's input quantized to 4 bits over the same range as the model's
-8-bit activation multiplier.
+The reference computes everything in float32 against the weights
+dequantized from the int8 matrices the benchmark made (w = q / multiplier),
+with no activation quantization, no caches and no batching tricks: the
+decoder is run teacher-forced over the tokens the program served.
+`precision="int4"` is the control: every matrix re-quantized per tensor to
+4 bits and every product's input quantized to 4 bits over the same range
+as the model's 8-bit activation multiplier.
 
 It imports neither JAX nor the program.
 """
@@ -23,13 +32,20 @@ It imports neither JAX nor the program.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 LN_EPS = 1e-6  # marian's LayerNorm epsilon
 INT4 = 7.0
+EMBEDDING = "Wemb"  # the tied embedding and output projection, [vocabulary, emb]
+
+
+def activation_name(name: str) -> str:
+    """The name of a matrix's activation multiplier (marian's QuantMultA):
+    the tied projection's is "none_QuantMultA"."""
+    return "none_QuantMultA" if name == EMBEDDING else name + "_QuantMultA"
 
 
 def sinusoid(positions: torch.Tensor, dim: int) -> torch.Tensor:
@@ -70,10 +86,13 @@ class Bergamot:
                 scale = INT4 / w.abs().amax()
                 w = torch.clamp(torch.round(w * scale), -INT4, INT4) / scale
             self.w[name] = w
-            quant = "none_QuantMultA" if name == "Wemb" else name + "_QuantMultA"
-            self.act[name] = float(np.asarray(weights.f32[quant]).reshape(-1)[0])
+            self.act[name] = float(np.asarray(weights.f32[activation_name(name)]).reshape(-1)[0])
         self.v = {name: torch.from_numpy(np.asarray(a).reshape(-1)).to(self.device, torch.float32)
                   for name, a in weights.f32.items()}
+
+    @property
+    def vocab_size(self) -> int:
+        return self.w[EMBEDDING].shape[0]
 
     # -- pieces ------------------------------------------------------------
 
@@ -166,12 +185,122 @@ class Bergamot:
         return self._input(y, "Wemb") @ table.T + bias
 
 
-def pad(rows: Sequence[Sequence[int]], device, fill: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Ragged id rows → ([N, L] long, [N, L] bool mask)."""
-    width = max(1, max(len(r) for r in rows))
-    ids = np.full((len(rows), width), fill, np.int64)
-    mask = np.zeros((len(rows), width), bool)
-    for i, row in enumerate(rows):
-        ids[i, :len(row)] = row
-        mask[i, :len(row)] = True
-    return torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device)
+Reference = Bergamot
+
+
+# -- the weights ------------------------------------------------------------
+
+
+def layout(cfg: dict) -> Tuple[list, list]:
+    """(matrices, vectors) of a Bergamot student under marian's names:
+    matrices as (name, rows, cols), vectors as (name, length, kind) with
+    kind "bias", "scale" (LayerNorm gain) or "shift" (LayerNorm bias)."""
+    emb, ffn, vocab = cfg["emb_dim"], cfg["ffn_dim"], cfg["vocab_size"]
+    matrices, vectors = [("Wemb", vocab, emb)], [("decoder_ff_logit_out_b", vocab, "bias")]
+
+    def affine(name, rows, cols, bias):
+        matrices.append((name, rows, cols))
+        if bias is not None:
+            vectors.append((bias, cols, "bias"))
+
+    def norm(prefix):
+        vectors.extend([(prefix + "_ln_scale", emb, "scale"), (prefix + "_ln_bias", emb, "shift")])
+
+    def attention(prefix):
+        for key in "qkvo":
+            affine(f"{prefix}_W{key}", emb, emb, f"{prefix}_b{key}")
+        norm(prefix + "_Wo")
+
+    def ffn_block(prefix):
+        affine(prefix + "_ffn_W1", emb, ffn, prefix + "_ffn_b1")
+        affine(prefix + "_ffn_W2", ffn, emb, prefix + "_ffn_b2")
+        norm(prefix + "_ffn_ffn")
+
+    for i in range(1, cfg["encoder_layers"] + 1):
+        attention(f"encoder_l{i}_self")
+        ffn_block(f"encoder_l{i}")
+    for i in range(1, cfg["decoder_layers"] + 1):
+        prefix = f"decoder_l{i}"
+        attention(prefix + "_context")
+        affine(prefix + "_rnn_W", emb, emb, None)
+        affine(prefix + "_rnn_Wf", emb, emb, prefix + "_rnn_bf")
+        norm(prefix + "_rnn_ffn")
+        ffn_block(prefix)
+    return matrices, vectors
+
+
+def planted(name: str, init: dict) -> tuple:
+    """(gain, mean) of a matrix or vector of the decoder's SSRU layers.
+
+    At gain 1 every row decodes to one repeated token: the residual path
+    carries the previous token's embedding to the tied projection, which
+    picks it again, and the SSRU cell cannot change that. The candidate
+    matrix W at `ssru_candidate_gain` makes relu(cell) outweigh the
+    residual, and the forget gate's bias `ssru_forget_bias` keeps more of
+    the cell a step, so that each served token depends on the token
+    before it and on the cell carried through the steps."""
+    if name.endswith("_rnn_W"):
+        return init["ssru_candidate_gain"], 0.0
+    if name.endswith("_rnn_bf"):
+        return 1.0, init["ssru_forget_bias"]
+    return 1.0, 0.0
+
+
+# -- the work counts ----------------------------------------------------------
+
+
+def encoder_work(cfg: dict, forwards, shortlist_width=None) -> dict:
+    """The encoder phase's work in a set of forwards: the embedding, every
+    encoder layer and the decoder layers' cross-attention K/V cache, counted
+    for the tokens each row really holds (padding is waste, not work).
+
+    - int8 products: per token, Q, K, V, O (4 E^2) and the FFN (2 E F) of
+      each encoder layer and the cross K and V (2 E^2) of each decoder layer;
+      two operations a multiply-add.
+    - float32 attention: per row of length L, Q K^T and the weighted sum of
+      V, 4 L^2 E operations a layer.
+    - bytes: each weight once a forward, the embedding row of each token
+      (int8), and the int16 cross K/V cache written.
+    """
+    e, f = cfg["emb_dim"], cfg["ffn_dim"]
+    enc, dec = cfg["encoder_layers"], cfg["decoder_layers"]
+    per_token_macs = enc * (4 * e * e + 2 * e * f) + dec * 2 * e * e
+    weight_bytes = enc * (4 * e * e + 2 * e * f) + dec * 2 * e * e
+    int8_ops = f32_ops = n_bytes = 0
+    for forward in forwards:
+        tokens = forward.real_tokens
+        int8_ops += 2 * per_token_macs * tokens
+        f32_ops += enc * 4 * e * int((forward.lengths ** 2).sum())
+        n_bytes += weight_bytes + tokens * e + dec * 2 * tokens * e * 2
+    return {"int8_ops": int8_ops, "f32_ops": f32_ops, "bytes": n_bytes}
+
+
+def decode_work(cfg: dict, forwards, shortlist_width=None) -> dict:
+    """Every decode step's work in a set of forwards, counted for the steps
+    each row served (a row that is done needs no further step).
+
+    - int8 products: per row and step, each decoder layer's SSRU (W and Wf,
+      2 E^2), the cross-attention's Q and O (2 E^2) and the FFN (2 E F), and
+      the output projection over the batch's columns (E x the vocabulary, or
+      x the shortlist's width); two operations a multiply-add.
+    - float32 attention: per row and step, 4 L E a decoder layer over the
+      row's source length L.
+    - bytes: each step of a batch reads the decoder layers' weights and the
+      projection's columns once (int8), and each row's int16 cross K/V.
+    """
+    e, f, vocab = cfg["emb_dim"], cfg["ffn_dim"], cfg["vocab_size"]
+    dec = cfg["decoder_layers"]
+    layer_macs = dec * (4 * e * e + 2 * e * f)
+    int8_ops = f32_ops = n_bytes = 0
+    for forward in forwards:
+        steps = forward.steps
+        width = vocab if shortlist_width is None else shortlist_width(forward)
+        row_steps = int(steps.sum())
+        int8_ops += 2 * (layer_macs + e * width) * row_steps
+        f32_ops += dec * 4 * e * int((forward.lengths * steps).sum())
+        n_bytes += int(steps.max(initial=0)) * (layer_macs + e * width)
+        n_bytes += dec * 2 * e * 2 * int((forward.lengths * steps).sum())
+    return {"int8_ops": int8_ops, "f32_ops": f32_ops, "bytes": n_bytes}
+
+
+WORK = {"encoder": encoder_work, "decode": decode_work}

@@ -15,18 +15,41 @@ the seed and holding the longest, is judged against the plain reference:
 
 `control_gap` reads the same gap for the token that the int4 control
 puts first at each of those positions.
+
+The reference and the control are the configuration's architecture's
+`Reference` (see `Model`), so nothing here depends on the architecture.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Protocol, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from benchmark.reference import shortlist as shortlist_columns
-from benchmark.reference.bergamot import Bergamot, pad
+from benchmark.reference.batch import pad
+
+
+class Model(Protocol):
+    """What the comparison uses of an architecture's plain reference (the
+    `Reference` of its file), built as `Reference(weights, cfg, device,
+    precision="float32" | "int4")`."""
+
+    device: torch.device
+    vocab_size: int
+
+    def encode(self, src: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """src [B, T] ids, mask [B, T] bool → (encoder output, mask_add)."""
+
+    def decode(self, memory: torch.Tensor, mask_add: torch.Tensor,
+               tgt: torch.Tensor) -> torch.Tensor:
+        """The last decoder layer's output [B, S, E], teacher-forced over the
+        served tokens tgt [B, S]."""
+
+    def logits(self, y: torch.Tensor, columns: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The output projection of y over `columns` (all if None)."""
 
 
 @dataclasses.dataclass
@@ -142,7 +165,7 @@ def _blocks(segments: Sequence[Segment], vocab: int, budget: int):
         yield block
 
 
-def _logits(model: Bergamot, block: Sequence[Segment]):
+def _logits(model: Model, block: Sequence[Segment]):
     """Per segment, the logits [steps, columns] at each served position."""
     src, src_mask = pad([s.source for s in block], model.device)
     tgt, _ = pad([s.served for s in block], model.device)
@@ -157,7 +180,7 @@ def _logits(model: Bergamot, block: Sequence[Segment]):
     return out
 
 
-def _positions(segment: Segment, model: Bergamot) -> torch.Tensor:
+def _positions(segment: Segment, model: Model) -> torch.Tensor:
     """The served tokens as column positions (-1 where outside the columns)."""
     served = torch.from_numpy(segment.served.astype(np.int64)).to(model.device)
     if segment.columns is None:
@@ -168,14 +191,14 @@ def _positions(segment: Segment, model: Bergamot) -> torch.Tensor:
 
 
 @torch.inference_mode()
-def logit_gaps(reference: Bergamot, segments: Sequence[Segment],
-               control: Optional[Bergamot] = None, budget: int = 1 << 28) -> dict:
+def logit_gaps(reference: Model, segments: Sequence[Segment],
+               control: Optional[Model] = None, budget: int = 1 << 28) -> dict:
     """The widest gap of a served token below the reference's best, the
     tokens compared, the served tokens outside the batch's columns (an
     infinite gap), those in the columns that only pad the shortlist to its
     bucket and, with a control, the widest gap of the token the control
     puts first."""
-    vocab = reference.w["Wemb"].shape[0]
+    vocab = reference.vocab_size
     worst, worst_control, tokens, outside, padding = 0.0, 0.0, 0, 0, 0
     for block in _blocks(segments, vocab, budget):
         logits = _logits(reference, block)

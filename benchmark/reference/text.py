@@ -2,14 +2,16 @@
 generated text is one whole-word piece, so a line tokenizes word by word,
 is wrapped into segments of `wrap_length - 1` pieces and an EOS, and
 ids detokenize by sentencepiece's rule (control pieces are empty, the
-word-start marker is a space, the first piece's leading space dropped)."""
+unknown piece is its unk_surface " ⁇ ", the word-start marker is a space,
+the first piece's leading space dropped)."""
 
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Tuple
 
 SPACE = "▁"
-CONTROL = 3
+UNKNOWN, CONTROL = 2, 3
+UNK_SURFACE = " \u2047 "  # sentencepiece's default unk_surface
 
 
 class Text:
@@ -31,7 +33,9 @@ class Text:
         out = []
         for i in ids:
             piece, kind = self.pieces[i]
-            if kind != CONTROL:
+            if kind == UNKNOWN:
+                out.append(UNK_SURFACE)
+            elif kind != CONTROL:
                 out.append(piece.replace(SPACE, " "))
         text = "".join(out)
         return text[1:] if text.startswith(" ") else text

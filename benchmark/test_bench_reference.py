@@ -63,6 +63,21 @@ def test_text_matches_the_port_tokenizer(made):
         assert text.decode(ids) == vocabulary.decode(ids)[0]
 
 
+@pytest.mark.parametrize("where", ["first", "inside", "last", "alone"])
+def test_unknown_ids_detokenize_as_the_port_does(made, where):
+    """A served <unk> (id 1) reads as sentencepiece's " ⁇ " on both sides."""
+    from slimt_tpu_torch.text.vocabulary import Vocabulary
+
+    _, lexicon, pieces, _ = made
+    vocabulary = Vocabulary(inputs.spm_model_bytes(pieces))
+    text = Text(pieces, inputs.EOS_ID)
+    words = text.encode(inputs.make_lines(inputs.rng(SEED, "u"), lexicon, np.array([6]))[0])
+    ids = {"first": [inputs.UNK_ID] + words, "inside": words[:3] + [inputs.UNK_ID] + words[3:],
+           "last": words + [inputs.UNK_ID], "alone": [inputs.UNK_ID]}[where] + [inputs.EOS_ID]
+    assert "\u2047" in text.decode(ids)
+    assert text.decode(ids) == vocabulary.decode(ids)[0]
+
+
 @pytest.mark.parametrize("draw", range(4))
 def test_shortlist_columns_match_the_port(made, draw):
     from slimt_tpu_torch.io.shortlist import ShortlistGenerator

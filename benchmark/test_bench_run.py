@@ -3,6 +3,7 @@ benchmark's contract, and a cell, configuration, mix and metric added as
 files elsewhere running without an edit to the harness."""
 
 import ast
+import dataclasses
 import glob
 import json
 import math
@@ -11,10 +12,12 @@ import re
 import shutil
 import subprocess
 import sys
+import types
 
 import pytest
 
-from benchmark import harness, testing
+from benchmark import harness, inputs, readers, testing
+from benchmark.reference import bergamot, check
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -108,6 +111,99 @@ def test_added_files_run_without_an_edit(tmp_path):
     assert '"calls_made_in_window"' in plain["log"][0]
     traced = testing.run(str(tmp_path), "wide-short", traced=True, bench_object=bench)
     assert traced["metrics"]["lines_seen"]["value"] == traced["attempted"]
+
+
+# A copy of Bergamot's architecture file whose SSRU candidate matrices are
+# drawn at half the gain and whose work counts are tripled.
+HALVED = """
+
+_bergamot_planted = planted
+
+
+def planted(name, init):
+    gain, mean = _bergamot_planted(name, init)
+    return (gain / 2 if name.endswith("_rnn_W") else gain), mean
+
+
+def _tripled(count):
+    return lambda *args: {key: 3 * value for key, value in count(*args).items()}
+
+
+WORK = {phase: _tripled(count) for phase, count in WORK.items()}
+"""
+
+
+def test_an_added_architecture_runs_without_an_edit(tmp_path, monkeypatch):
+    """A configuration in another directory names an architecture file
+    there (HALVED). The run is correct, and its weights, its reference and
+    the numerators of mfu and the rooflines come from that file."""
+    bench = testing.tiny_cells(str(tmp_path))
+    os.makedirs(tmp_path / "reference")
+    with open(os.path.join(HERE, "reference", "bergamot.py")) as f:
+        (tmp_path / "reference" / "halved.py").write_text(f.read() + HALVED)
+    with open(tmp_path / "configs" / "tiny.json") as f:
+        cfg = dict(json.load(f), name="tiny-halved", reference="reference/halved.py")
+    testing.write(str(tmp_path), "configs", "tiny-halved", cfg)
+    testing.write(str(tmp_path), "cells", "halved-bulk", testing.LIMITS)
+    bench["workloads"].append({"name": "halved-bulk", "config": "tiny-halved",
+                               "traffic": "tiny-bulk", "chips": 1, "why": "test"})
+    for metric in bench["end_to_end"]:
+        if "workloads" in metric:
+            metric["workloads"].append("halved-bulk")
+
+    made, references, contexts = [], [], []
+    make_inputs, logit_gaps = harness.make_inputs, check.logit_gaps
+
+    def keep_inputs(*args):
+        made.append(make_inputs(*args))
+        return made[-1]
+
+    def keep_reference(reference, *args):
+        references.append(reference)
+        return logit_gaps(reference, *args)
+
+    monkeypatch.setattr(harness, "make_inputs", keep_inputs)
+    monkeypatch.setattr(check, "logit_gaps", keep_reference)
+
+    class Keeping(harness.Finder):
+        """The cell's files, with metric readers that keep the run's context."""
+
+        def module(self, kind, name):
+            module = super().module(kind, name)
+            if kind != "metrics":
+                return module
+
+            def read(ctx):
+                contexts.append(ctx)
+                return module.read(ctx)
+
+            return types.SimpleNamespace(read=read)
+
+    seed = 2**31 + 9
+    result = harness.run_cell(bench, Keeping([str(tmp_path), HERE]), "halved-bulk", seed, 1.0,
+                              False, "cpu", harness.process_start(), lambda line: None)
+    assert result["correct"], result["checks"]
+    assert [type(r).__module__ for r in references] == ["reference_halved"]
+
+    plain = inputs.make_weights(cfg, seed, "cpu", bergamot)
+    assert made[0].weights.f32.keys() == plain.f32.keys()
+    for name, (q, mult) in made[0].weights.int8.items():
+        assert (q == plain.int8[name][0]).all()
+        gain = 0.5 if name.endswith("_rnn_W") else 1.0
+        assert mult == pytest.approx(plain.int8[name][1] / gain, rel=1e-12), name
+
+    ctx = contexts[0]
+    assert ctx.forwards
+    unit = {"int8_ops_per_s": 1.0, "f32_flops_per_s": 1.0, "bytes_per_s": 1.0}
+    trace = types.SimpleNamespace(op_ns=lambda graph: 1e9)
+    mfu = harness.Finder([HERE]).module("metrics", "mfu")
+
+    def numerators(architecture):
+        at = dataclasses.replace(ctx, peaks=unit, trace=trace, architecture=architecture)
+        return [mfu.read(at), readers.roofline(at, "encoder", graph=False),
+                readers.roofline(at, "decode", graph=True)]
+
+    assert numerators(ctx.architecture) == pytest.approx([3 * v for v in numerators(bergamot)])
 
 
 # -- BENCHMARK.json against the contract -------------------------------------

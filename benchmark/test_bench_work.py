@@ -8,7 +8,8 @@ import pytest
 from benchmark import readers
 from benchmark.probe import Forward
 
-CFG = {"emb_dim": 4, "ffn_dim": 8, "vocab_size": 10, "encoder_layers": 1, "decoder_layers": 1}
+CFG = {"emb_dim": 4, "ffn_dim": 8, "vocab_size": 10, "encoder_layers": 1, "decoder_layers": 1,
+       "reference": "reference/bergamot.py"}
 PEAKS = {"int8_ops_per_s": 100.0, "f32_flops_per_s": 10.0, "bytes_per_s": 1000.0}
 
 
