@@ -65,6 +65,9 @@ without printing a result:
              and 4 vocab shards (each shard bit-equal to plain, the max
              of the shards' keys the unsharded choice), timed at T/2 query
              rows and at a half-vocabulary shard;
+   big     — the transformer-big phase (`--transformer-big` below):
+             #12, and #1, #2 and #4's packed_int mode at E=1024, then a
+             transformer-big Model served on the declared path;
 4. serve   — a tiny11-width model (32k vocab, emb 256, ffn 1536, 6+2
              layers, 8 heads; random weights from seed 0) answers
              request batches of text through Model.forward_async,
@@ -219,9 +222,12 @@ without printing a result:
              the fused SDPA): median of 5 by CUDA events, tokens/s;
              neither JAX nor any slimt_tpu module was imported.
 
-The second-to-last line is the kernels' JSON record (eleven kernels;
+The second-to-last line is the kernels' JSON record (twelve kernels;
 launches from the serving paths, but for #10 and #11, which no serving
-path reaches: theirs are the kernels phase's; graph_ms, the device ms a
+path reaches: theirs are the kernels phase's; #12's,
+decode_self_attention, are the transformer-big serving phase's, and its
+row lists its cases and, under transformer_big, that phase's launches
+by kernel and the checks and times of #1, #2 and #4 at E=1024; graph_ms, the device ms a
 call from a CUDA graph; cs1_ms and cs1_graph_ms, the times on one block
 a row tile, for the kernels on a cluster; ssru_block, argmax_affine
 and decode_attention also list graph_ms_by_b, the device ms at B = 1,
@@ -244,6 +250,23 @@ line {"ok": true, "device": {...}}.
 `python3 chip_smoke.py --unroll` runs no check: the B=1 T=32 latency
 line and the B=64 and B=512 T=64 forward lines of the graph loop at k
 in UNROLL_SWEEP on the declared, fused_step and fused paths.
+
+`python3 chip_smoke.py --transformer-big` runs the build and the
+transformer-big phase alone (the full smoke runs it after the kernels
+phase): the self-attention decoder's valid-length kernel (#12) against
+its plain path at B=256, E=1024, 16 heads, capacities 128 and 192 and
+valid lengths 32, 96 and the capacity, timed at 32 and 96 beside its
+bytes bound and #3 reading the whole capacity; #1 bit-equal in every
+mode at transformer-big's products (E=1024, F=4096, the 32000-column
+projection; B 1, 64, 256 and 4096 encoder rows), #2 at E=1024, F=4096,
+16 heads (>= 98% of positions within 2e-5, every one within 0.25) and
+#4's packed_int mode at E=1024, V=32000, each timed beside its bound;
+then a Model of transformer-big's widths and decoder (synthetic
+weights) served on the declared path with the launch counters zeroed
+just before (#12, #1, #2 and packed_int must launch, int8_matmul must
+not), its graph loop bit-equal to its eager loop and its tokens equal
+across loop_unroll. It prints the kernels record's
+decode_self_attention row as one JSON line.
 
 `python3 chip_smoke.py --mesh-legs OUT` runs the mesh phase's legs alone
 (entry.dryrun_multichip(4), its checks included) and writes their report
@@ -1194,6 +1217,302 @@ def check_attention(torch, dattn, dev):
     return worst, timing
 
 
+# The self-attention decoder's valid-length kernel (#12) at transformer-big's
+# widths: B rows, a loop's step capacities (the warp grid at 128, the block
+# grid past it) and the positions a step reads.
+SELF_ATTN_E, SELF_ATTN_HEADS, SELF_ATTN_B = 1024, 16, 256
+SELF_ATTN_CAPACITIES = (128, 192)
+SELF_ATTN_VALID = (32, 96)
+
+
+def self_attention_bound(b, valid, e):
+    """#12's bound: `valid` positions of int16 K and V with their scales
+    read per row, q read and the output written."""
+    return bound(b * (valid * (4 * e + 8) + 8 * e), f32_ops=4 * b * valid * e)
+
+
+def check_self_attention(torch, dattn, dev):
+    """#12 against its plain path at B=256, E=1024, 16 heads, each capacity
+    and valid length, then its times: CUDA-event ms, the device ms a call
+    in a CUDA graph, the plain path's ms, and #3 reading the whole
+    capacity (no valid length, a zero mask) in a graph, beside the bound.
+    Returns (max |diff|, one dict a (capacity, valid))."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    b, e, heads = SELF_ATTN_B, SELF_ATTN_E, SELF_ATTN_HEADS
+    worst, rows = 0.0, []
+    for cap in SELF_ATTN_CAPACITIES:
+        q = torch.randn((b, e), device=dev, generator=gen)
+        k, v = (torch.randint(-32767, 32768, (b, cap, e), device=dev, dtype=torch.int16,
+                              generator=gen) for _ in range(2))
+        kqi, vqi = ((torch.rand((b, cap), device=dev, generator=gen) * 1.5 + 0.5) / 32767.0
+                    for _ in range(2))
+        zero = torch.zeros((b, cap), device=dev)
+        for n in SELF_ATTN_VALID + (cap,):
+            valid = torch.tensor([n], dtype=torch.int32, device=dev)
+            args = (q, k, v, kqi, vqi, valid, heads)
+            got = dattn.decode_self_attention_kernel(*args)
+            want = dattn.self_attention_plain(*args)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            if not (bool(torch.isfinite(got).all()) and err <= ATTN_TOL):
+                raise RuntimeError(f"#12 B={b} cap={cap} valid={n}: max |diff| {err}")
+            if n == cap:
+                continue
+            bound_ms, by = self_attention_bound(b, n, e)
+            row = {"capacity": cap, "valid": n, "max_abs_err": err,
+                   "ms": cuda_ms(torch, lambda: dattn.decode_self_attention_kernel(*args), 50),
+                   "graph_ms": graph_ms(torch, lambda: dattn.decode_self_attention_kernel(*args)),
+                   "plain_ms": cuda_ms(torch, lambda: dattn.self_attention_plain(*args), 20),
+                   "whole_capacity_graph_ms": graph_ms(torch, lambda: dattn.decode_attention_kernel(
+                       q, k, v, kqi, vqi, zero, heads)),
+                   "bound_ms": bound_ms, "bound_by": by}
+            rows.append(row)
+            log(f"time #12 B={b} E={e} cap={cap} valid={n}: kernel {row['ms']:.4f} ms "
+                f"({row['graph_ms']:.4f} in a CUDA graph; #3 over the whole capacity "
+                f"{row['whole_capacity_graph_ms']:.4f}), plain {row['plain_ms']:.4f}, "
+                f"bound {bound_ms:.4f} ({by})")
+    log(f"#12: {len(SELF_ATTN_CAPACITIES) * (len(SELF_ATTN_VALID) + 1)} cases within "
+        f"{ATTN_TOL}, max |diff| {worst:.3g}")
+    return worst, rows
+
+
+# transformer-big (marian --task transformer-big, the `big-bulk` cell's
+# configuration): its widths, the batches its decode runs #1 and #4 at,
+# the kernels its declared serving path launches, and the share of #2's
+# positions held to LAYER_TOL at E=1024 (as the card test
+# test_encoder_layer_kernel_at_transformer_big_widths: the two SDPAs' heads
+# agree to ~1e-6 but sum in another order, and a head on an int8 rounding
+# boundary of the O affine's input moves its position by one product step;
+# every position stays within FLIP_BOUND).
+BIG_E, BIG_F, BIG_HEADS, BIG_LAYERS = 1024, 4096, 16, 6
+BIG_BATCHES = (1, 64, 256)
+BIG_KERNELS = ("qmm_affine", "encoder_layer", "decode_self_attention", "argmax_packed_int")
+BIG_LAYER_SHARE = 0.98
+
+
+def check_big_affine(torch, qmm, dev):
+    """#1 bit-equal to plain in every mode at transformer-big's products:
+    the decoder's rows (M = B in BIG_BATCHES) and 4096 encoder rows
+    through the E x E, E x F and F x E weights, and the decoder's rows
+    through the 32000-column projection; timed at the decoder's FFN1 and
+    the projection at B=256 beside the bound. Returns (max |diff|, the
+    times)."""
+    rng = np.random.default_rng(1024)
+    shapes = ((BIG_E, BIG_E), (BIG_E, BIG_F), (BIG_F, BIG_E))
+    cases = [(m, k, n) for m in BIG_BATCHES + (4096,) for k, n in shapes]
+    cases += [(m, BIG_E, VOCAB) for m in BIG_BATCHES]
+    weights = {}
+    worst = 0.0
+    for m, k, n in cases:
+        if (k, n) not in weights:
+            weights[k, n] = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(dev)
+        w = weights[k, n]
+        x = torch.randn((m, k), device=dev) * 2.0
+        b = torch.randn((n,), device=dev) * 0.05
+        aq, inv = np.float32(20.0), np.float32(1) / np.float32(20.0 * 93.0)
+        for mode in (qmm.AFFINE, qmm.AFFINE_RELU, qmm.ACCUMULATOR):
+            got = qmm.affine_kernel(x, w, b, aq, inv, mode)
+            want = qmm.affine_plain(x, w, b, aq, inv, mode)
+            torch.cuda.synchronize()
+            worst = max(worst, float((got.double() - want.double()).abs().max()))
+            if not torch.equal(got, want):
+                raise RuntimeError(f"affine E={BIG_E} M={m} K={k} N={n} mode={mode}: "
+                                   "not bit-equal")
+    log(f"affine at transformer-big's products: {len(cases)} shapes x 3 modes bit-equal to "
+        f"plain (max |diff| {worst})")
+    times = []
+    for label, k, n, mode in (("decode FFN1 B=256", BIG_E, BIG_F, qmm.AFFINE_RELU),
+                              ("projection B=256 V=32000", BIG_E, VOCAB, qmm.ACCUMULATOR)):
+        w, m = weights[k, n], 256
+        x = torch.randn((m, k), device=dev)
+        b = torch.randn((n,), device=dev)
+        bound_ms, by = affine_bound(m, k, n, mode)
+        entry = {"shape": f"{label} E={BIG_E}",
+                 "ms": cuda_ms(torch, lambda: qmm.affine_kernel(x, w, b, 20.0, 1e-4, mode)),
+                 "graph_ms": graph_ms(torch, lambda: qmm.affine_kernel(x, w, b, 20.0, 1e-4, mode)),
+                 "plain_ms": cuda_ms(torch, lambda: qmm.affine_plain(x, w, b, 20.0, 1e-4, mode)),
+                 "bound_ms": bound_ms, "bound_by": by}
+        times.append(entry)
+        log(f"time affine {entry['shape']} (M={m} K={k} N={n}): kernel {entry['ms']:.4f} ms, "
+            f"{entry['graph_ms']:.4f} ms in a CUDA graph, plain {entry['plain_ms']:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({by})")
+    return worst, times
+
+
+def check_big_layer(torch, enc, dev, load_host, params_from_numpy):
+    """#2 at E=1024, F=4096, 16 heads against its plain path, B=4 with a
+    half-padded row and a padding row, T in (16, 64, 128): >=
+    BIG_LAYER_SHARE of positions within LAYER_TOL, every one within
+    FLIP_BOUND; timed at B=64 T=64 beside the bound. Returns (max |diff|,
+    the times)."""
+    layer = params_from_numpy(load_host(BIG_E, BIG_F, 1, 1), dev)["encoder"][0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(BIG_E)
+    worst = 0.0
+    positions = within = 0
+    for t in (16, 64, 128):
+        b = 4
+        x = torch.randn((b, t, BIG_E), device=dev, generator=gen)
+        mask = torch.ones((b, t), device=dev)
+        mask[1, t // 2:] = 0
+        mask[3] = 0
+        mask_add = ((1.0 - mask) * MASK_MIN)[:, None, None, :]
+        got = enc.layer_kernel(x, layer, mask_add, BIG_HEADS)
+        want = enc.layer_plain(x, layer, mask_add, BIG_HEADS)
+        torch.cuda.synchronize()
+        label = f"encoder layer E={BIG_E} F={BIG_F} T={t}"
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"{label}: non-finite")
+        n, ok, err = rows_check(label, (got - want).abs().amax(-1).flatten(), LAYER_TOL,
+                                FLIP_BOUND)
+        positions += n
+        within += ok
+        worst = max(worst, err)
+    log(f"encoder layer E={BIG_E}: {within}/{positions} positions within {LAYER_TOL}, max "
+        f"|diff| {worst:.3g}")
+    if within / positions < BIG_LAYER_SHARE:
+        raise RuntimeError(f"encoder layer E={BIG_E}: positions within {LAYER_TOL} "
+                           f"{within / positions} < {BIG_LAYER_SHARE}")
+    b, t = 64, 64
+    x = torch.randn((b, t, BIG_E), device=dev, generator=gen)
+    mask_add = torch.zeros((b, 1, 1, t), device=dev)
+    bound_ms, by = layer_bound(b, t, BIG_E, BIG_F)
+    times = {"shape": f"B={b} T={t} E={BIG_E} F={BIG_F} heads={BIG_HEADS}",
+             "ms": cuda_ms(torch, lambda: enc.layer_kernel(x, layer, mask_add, BIG_HEADS), 10),
+             "graph_ms": graph_ms(torch, lambda: enc.layer_kernel(x, layer, mask_add, BIG_HEADS),
+                                  5),
+             "plain_ms": cuda_ms(torch, lambda: enc.layer_plain(x, layer, mask_add, BIG_HEADS),
+                                 10),
+             "bound_ms": bound_ms, "bound_by": by}
+    log(f"time encoder layer {times['shape']}: kernel {times['ms']:.4f} ms "
+        f"({times['graph_ms']:.4f} ms in a CUDA graph), plain {times['plain_ms']:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({by})")
+    return worst, times
+
+
+def serve_transformer_big(torch, counters, lines, name, smi):
+    """A Model of transformer-big's widths and decoder (6 + 6 layers,
+    causal self-attention, the sinusoid at the step's position, synthetic
+    weights) served on the declared path through serve(), the launch
+    counters zeroed just before: every kernel of BIG_KERNELS launches, no
+    int8_matmul; then its graph loop bit-equal to its eager loop on 16
+    segments, and its tokens bit-equal across loop_unroll (the
+    self-caches written at the device step). Its tokens are not held to
+    the plain CPU path's: six layers at E=1024 over 32000 columns meet
+    near ties that the card's and the CPU's sum orders break apart (two
+    of 8 rows parted at plain logit gaps of 0.052 and -0.043 on an H100); the
+    benchmark's big-bulk holds served tokens to a float32 reference.
+    Returns (the phase's launches by kernel, the tokens compared)."""
+    from slimt_tpu_torch import Model, ModelConfig, Package
+    from slimt_tpu_torch.io.synthetic import synthetic_model_bytes
+    from slimt_tpu_torch.ops import qmm
+    from slimt_tpu_torch.text import spm_proto
+    from slimt_tpu_torch.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
+
+    config = ModelConfig(encoder_layers=BIG_LAYERS, decoder_layers=BIG_LAYERS,
+                         num_heads=BIG_HEADS, decoder_position_zero=False)
+    package = Package(synthetic_model_bytes(config=config, vocab_size=VOCAB, emb_dim=BIG_E,
+                                            ffn_dim=BIG_F, seed=0, decoder="self-attention"),
+                      spm_proto.serialize_model(build_spm_model(DEFAULT_WORDS,
+                                                                target_size=VOCAB)))
+    model = Model(config, package, device="cuda")
+    if model.decoder_kind != "self-attention":
+        raise RuntimeError(f"transformer-big: decoder kind {model.decoder_kind}")
+    for counter in counters.values():
+        counter.launches = 0
+    matmuls = qmm.int8_matmul.launches
+    start = time.perf_counter()
+    segments, hyps, sample = serve(model, lines)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = {key: counter.launches for key, counter in counters.items()}
+    log(f"serve transformer-big: {len(hyps)} segments in {wall:.3f} s; e.g. "
+        f"{sample[0][:60]!r}; launches {counts}; self-attention counters "
+        f"{ {k: model.counters()[k] for k in ('self_positions', 'self_cache_bytes')} } on "
+        f"{name} ({smi})")
+    missing = [key for key in BIG_KERNELS if not counts[key]]
+    if missing:
+        raise RuntimeError(f"transformer-big: kernels never launched: {missing}")
+    if qmm.int8_matmul.launches != matmuls:
+        raise RuntimeError("transformer-big: int8_matmul launched; the projection's argmax "
+                           "runs in #4's packed_int mode")
+    tokens = graph_against_eager("transformer-big", model, segments[:16])
+    longest = across_unrolls("transformer-big", model, loop_segments(model.vocabulary.eos_id))
+    log(f"loop transformer-big: the graph loop bit-equal to the eager loop ({tokens} tokens of "
+        f"16 segments); tokens equal for loop_unroll in {UNROLLS} (rows up to {longest} tokens)")
+    return {key: counts[key] for key in BIG_KERNELS}, tokens
+
+
+def transformer_big_phase(torch, counters, lines, load_host, params_from_numpy, name, smi):
+    """The transformer-big phase: #12 (check_self_attention), #1, #2 and
+    #4's packed_int mode at its widths against their plain paths, then
+    its Model served on the declared path. Returns the kernels record's
+    decode_self_attention row (its checks, times and launches; under
+    "transformer_big" the other kernels' checks and times at these widths
+    and each kernel's launches in the serving phase)."""
+    from slimt_tpu_torch.models import transformer as tfm
+    from slimt_tpu_torch.ops import decode_attn as dattn
+    from slimt_tpu_torch.ops import encoder_layer as enc
+    from slimt_tpu_torch.ops import logits_argmax as lam
+    from slimt_tpu_torch.ops import qmm
+
+    dev = torch.device("cuda", 0)
+    self_err, self_rows = check_self_attention(torch, dattn, dev)
+    affine_err, affine_times = check_big_affine(torch, qmm, dev)
+    layer_err, layer_times = check_big_layer(torch, enc, dev, load_host, params_from_numpy)
+    big = params_from_numpy(load_host(BIG_E, BIG_F, 1, 1, vocab=VOCAB), dev)
+    packed_err, packed_times = check_argmax_packed_int(torch, lam, tfm, [big])
+    del big
+    launches, tokens = serve_transformer_big(torch, counters, lines, name, smi)
+    head = self_rows[0]
+    return {"name": "decode_self_attention", "route": "cuda", "source": ATTN_SOURCE,
+            "replaces": None, "launches": launches["decode_self_attention"],
+            "launches_from": "serve transformer-big", "max_abs_err": self_err,
+            **{key: head[key] for key in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")},
+            "shape": f"B={SELF_ATTN_B} E={SELF_ATTN_E} cap={head['capacity']} "
+                     f"valid={head['valid']}",
+            "cases": self_rows,
+            "transformer_big": {
+                "launches": launches, "graph_eager_tokens": tokens,
+                "qmm_affine": {"max_abs_err": affine_err, "shapes": affine_times},
+                "encoder_layer": {"max_abs_err": layer_err, **layer_times},
+                "argmax_packed_int": {"max_abs_err": packed_err, **packed_times}}}
+
+
+def transformer_big_times() -> None:
+    """The --transformer-big mode: the build, then transformer_big_phase
+    alone, its row as one JSON line."""
+    import torch
+
+    name, smi = probe(torch)
+    from slimt_tpu_torch import ModelConfig
+    from slimt_tpu_torch.io import load_items
+    from slimt_tpu_torch.io.loader import load_weights
+    from slimt_tpu_torch.io.params import params_from_numpy
+    from slimt_tpu_torch.io.synthetic import synthetic_model_bytes
+    from slimt_tpu_torch.ops import _build
+    from slimt_tpu_torch.ops import launches as launch_counts
+    from slimt_tpu_torch.text.synthetic_vocab import DEFAULT_WORDS
+
+    start = time.perf_counter()
+    _build.library()
+    log(f"build: {time.perf_counter() - start:.2f} s into {_build.BUILD_DIR}")
+
+    def load_host(emb, ffn, enc_layers, dec_layers, vocab=64):
+        config = ModelConfig(encoder_layers=enc_layers, decoder_layers=dec_layers)
+        return load_weights(load_items(synthetic_model_bytes(
+            config=config, vocab_size=vocab, emb_dim=emb, ffn_dim=ffn, seed=0)), config)
+
+    lines = make_lines(np.random.default_rng(0), np.array(DEFAULT_WORDS), 96, 8, 120)
+    start = time.perf_counter()
+    row = transformer_big_phase(torch, launch_counts.serving_wrappers(), lines, load_host,
+                                params_from_numpy, name, smi)
+    log(f"transformer-big phase: {time.perf_counter() - start:.1f} s on {name} ({smi})")
+    log(json.dumps(row))
+
+
 def check_argmax(torch, lam, tfm, widths):
     """The argmax kernel bit-equal to plain in every method, at each
     width's params (tiny first; the narrow ones take the strided path at
@@ -1273,7 +1592,7 @@ def check_argmax_packed_int(torch, lam, tfm, widths):
     of 1024 and 1000 columns (a partial last tile), B in {1, 20, 64, 256,
     512}, the bias packed_int_bias of the served one, and a tie planted
     across tiles: the last tile's column takes column 3's weights and
-    bias, and rows 0 and 1 point along it. Then times it at the tiny
+    bias, and rows 0 and 1 point along it. Then times it at the first
     width, V = 32000, B in {1, 64, 256, 512}, against the chain, with the
     bound of each call's inputs (y, W and the bias read, the choices
     written). Returns (most differing indices in a case, which must be 0;
@@ -1315,13 +1634,14 @@ def check_argmax_packed_int(torch, lam, tfm, widths):
         f"packed_int_argmax; {ties} rows chose the first of two tied columns in two tiles")
     params = widths[0]
     aq = params["out"]["aq"]
+    emb = params["emb"]["q"].shape[1]
     w, b = tfm.prepare_output_projection(params)
     b_i32 = tfm.packed_int_bias(params, b)
     gen = torch.Generator(device=w.device)
     gen.manual_seed(6)
     by_b = {}
     for rows in (1, 64, 256, 512):
-        y = torch.randn((rows, EMB), device=w.device, generator=gen)
+        y = torch.randn((rows, emb), device=w.device, generator=gen)
 
         def kernel():
             return lam.argmax_packed_int_kernel(y, w, b_i32, aq)
@@ -1331,20 +1651,20 @@ def check_argmax_packed_int(torch, lam, tfm, widths):
 
         split = {("project" if "project" in name else "pick" if "pick" in name else name): ms
                  for name, ms in kernel_split(torch, kernel).items()}
-        bound_ms, by = bound(4 * rows * EMB + EMB * VOCAB + 4 * VOCAB + 4 * rows,
-                             int8_ops=2 * rows * EMB * VOCAB)
+        bound_ms, by = bound(4 * rows * emb + emb * VOCAB + 4 * VOCAB + 4 * rows,
+                             int8_ops=2 * rows * emb * VOCAB)
         by_b[rows] = {"ms": cuda_ms(torch, kernel, 50), "graph_ms": graph_ms(torch, kernel),
                       "device_ms": sum(split.values()), "split_ms": split,
                       "plain_ms": cuda_ms(torch, chain, 20), "plain_graph_ms": graph_ms(torch, chain),
                       "plain_device_ms": sum(kernel_split(torch, chain).values()),
                       "bound_ms": bound_ms, "bound_by": by}
         t = by_b[rows]
-        log(f"time argmax packed_int B={rows} V={VOCAB} E={EMB}: kernel {t['ms']:.4f} ms "
+        log(f"time argmax packed_int B={rows} V={VOCAB} E={emb}: kernel {t['ms']:.4f} ms "
             f"({t['graph_ms']:.4f} ms in a CUDA graph; device {t['device_ms']:.4f} ms, by "
             f"kernel { {k: round(v, 4) for k, v in split.items()} }), chain {t['plain_ms']:.4f} "
             f"ms ({t['plain_graph_ms']:.4f} ms in a CUDA graph; device "
             f"{t['plain_device_ms']:.4f} ms), bound {bound_ms:.4f} ms ({by})")
-    return float(differ), {"shape": f"B=256 V={VOCAB} E={EMB}", **by_b[256], "by_b": by_b}
+    return float(differ), {"shape": f"B=256 V={VOCAB} E={emb}", **by_b[256], "by_b": by_b}
 
 
 def padded_mask(torch, dev, b, t):
@@ -3499,6 +3819,10 @@ def main() -> None:
     lines = make_lines(rng, np.array(DEFAULT_WORDS), 96, 8, 120)
     long_lines = make_lines(rng, np.array(DEFAULT_WORDS), 4, 880, 920)
     counters = launch_counts.serving_wrappers()
+    # transformer-big: #12, and #1, #2 and #4 at its widths, then its Model
+    # on the declared path (the counters zeroed just before it serves).
+    self_attention_row = transformer_big_phase(torch, counters, lines, load_host,
+                                               params_from_numpy, name, smi)
     path_kernels = {"declared": ("qmm_affine", "encoder_layer", "argmax_packed_int"),
                     "fused_step": ("qmm_affine", "encoder_layer", "whole_decode_step"),
                     "fused": ("qmm_affine", "encoder_layer", "ssru_block", "ffn_block",
@@ -3880,7 +4204,8 @@ def main() -> None:
          **variants.get(key, {}),
          "knobs_launches": {label: counts.get(key, 0) for label, counts in knob_counts.items()}}
         for key, source, replaces, err, times, (bound_ms, by) in rows
-    ]}
+    ] + [dict(self_attention_row, knobs_launches={
+        label: counts.get("decode_self_attention", 0) for label, counts in knob_counts.items()})]}
     log(f"smoke: {time.perf_counter() - smoke_start:.1f} s, the build included, on {name} "
         f"({smi})")
     log(json.dumps(record))
@@ -3896,6 +4221,8 @@ if __name__ == "__main__":
         mesh_legs(sys.argv[2])
     elif sys.argv[1:2] == ["--unroll"]:
         unroll_times()
+    elif sys.argv[1:2] == ["--transformer-big"]:
+        transformer_big_times()
     elif sys.argv[1:2] == ["--trace-once"]:
         trace_once(sys.argv[2])
     elif sys.argv[1:2] == ["--trace-sessions"]:

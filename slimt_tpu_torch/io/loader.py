@@ -11,9 +11,15 @@ nested dict of numpy arrays (io/params.py carries it over to torch):
           "att": {"q"|"k"|"v"|"o": affine, "ln": ln},
           "ffn": {"w1": affine, "w2": affine, "ln": ln}}],
       "decoder": [per-layer {
-          "rnn": {"w": linear, "wf": affine, "ln": ln},
+          "rnn": {"w": linear, "wf": affine, "ln": ln},   # SSRU decoder
           "att": {...}, "ffn": {...}}],
     }
+
+A self-attention decoder (marian's transformer, `decoder_l*_self_*`)
+holds {"self": attention, "att": attention, "ffn": ffn} per layer in
+place of the SSRU's "rnn"; load_weights reads which one a checkpoint
+carries from its names, as marian's .bin carries it (and
+transformer.decoder_kind from the params it made).
     affine = {"q": int8 [in,out], "bq": f32[], "aq": f32[], "b": f32 [out]}
     linear = affine without "b"
     ln     = {"scale": f32 [E], "bias": f32 [E]}
@@ -141,6 +147,27 @@ def _ffn(items: _Items, prefix: str) -> dict:
     }
 
 
+# The decoder kinds, by the name of their first layer's first matrix.
+SSRU, SELF_ATTENTION = "ssru", "self-attention"
+DECODER_MARKERS = {SSRU: "decoder_l1_rnn_W", SELF_ATTENTION: "decoder_l1_self_Wq"}
+
+
+def _kind_of_names(names) -> str:
+    """The decoder kind of a checkpoint whose item names are `names`:
+    "self-attention" where decoder_l1_self_Wq is among them, "ssru" where
+    decoder_l1_rnn_W is. Both, or neither, raises ValueError naming what
+    was found."""
+    found = [kind for kind, marker in DECODER_MARKERS.items() if marker in names]
+    if len(found) == 1:
+        return found[0]
+    markers = " and ".join(DECODER_MARKERS[kind] for kind in found)
+    first = sorted(n for n in names if n.startswith("decoder_l1_"))[:6]
+    raise ValueError(
+        "cannot tell the decoder kind: the checkpoint holds "
+        + (f"both {markers}" if found else
+           f"neither {' nor '.join(DECODER_MARKERS.values())}; its decoder_l1_ items: {first}"))
+
+
 def load_weights(items: Sequence[Item], config: ModelConfig) -> dict:
     """Assemble the params pytree; warns on unused items like the
     reference's load_parameters (slimt/Transformer.cc:216-225)."""
@@ -193,8 +220,16 @@ def load_weights(items: Sequence[Item], config: ModelConfig) -> dict:
             }
         )
 
+    self_attention = _kind_of_names(pool.by_name) == SELF_ATTENTION
     for i in range(1, config.decoder_layers + 1):
         prefix = f"decoder_l{i}"
+        if self_attention:
+            params["decoder"].append({
+                "self": _attention(pool, f"{prefix}_self"),
+                "att": _attention(pool, f"{prefix}_context"),
+                "ffn": _ffn(pool, prefix),
+            })
+            continue
         rnn_prefix = f"{prefix}_rnn"
         params["decoder"].append(
             {

@@ -14,6 +14,7 @@ from typing import List, Optional
 import numpy as np
 
 from slimt_tpu_torch.config import ModelConfig
+from slimt_tpu_torch.io.loader import DECODER_MARKERS, SELF_ATTENTION, SSRU
 from slimt_tpu_torch.io.marian import (
     Item,
     item_from_array,
@@ -35,8 +36,11 @@ def synthetic_items(
     ffn_dim: int = 128,
     seed: int = 0,
     activation_quant: float = 20.0,
+    decoder: str = SSRU,
 ) -> List[Item]:
-    """Random model items with the reference's parameter names.
+    """Random model items with the reference's parameter names; the
+    decoder layers are SSRU ("ssru") or marian transformer layers of
+    causal self-attention ("self-attention": decoder_l*_self_*).
 
     `activation_quant` is used for every `*_QuantMultA`: real models
     ship calibrated per-tensor activation multipliers; a moderate
@@ -44,6 +48,8 @@ def synthetic_items(
     random weights used in tests.
     """
     config = config or ModelConfig()
+    if decoder not in DECODER_MARKERS:
+        raise ValueError(f"decoder={decoder!r} not in {tuple(DECODER_MARKERS)}")
     rng = np.random.default_rng(seed)
     items: List[Item] = []
 
@@ -108,6 +114,11 @@ def synthetic_items(
 
     for i in range(1, config.decoder_layers + 1):
         prefix = f"decoder_l{i}"
+        if decoder == SELF_ATTENTION:
+            attention(f"{prefix}_self")
+            attention(f"{prefix}_context")
+            ffn(prefix)
+            continue
         attention(f"{prefix}_context")
         # SSRU: W (linear, no bias) + Wf/bf + post-LN named "rnn_ffn"
         # (slimt/Modules.cc:385-396).

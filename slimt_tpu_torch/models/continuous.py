@@ -50,6 +50,7 @@ from slimt_tpu_torch.models.decode import (
     PROVIDERS,
     StepContext,
     as_uint16,
+    check_decoder,
     pack_bits16,
     unpack_bits16,
 )
@@ -149,7 +150,10 @@ def admit(pool: SlotPool, rows, kv_new, mask_new, cap_new) -> SlotPool:
 def make_pool(params, slots: int, t_slot: int, *, kv_dtype: Optional[str] = "int16",
               device=None) -> SlotPool:
     """An all-complete (empty) pool on the params' device (or `device`);
-    rows are populated by `admit`."""
+    rows are populated by `admit`. The pool, and so continuous batching,
+    holds the SSRU decoder's cells: a self-attention decoder raises
+    (check_decoder)."""
+    check_decoder(tfm.decoder_kind(params), path="continuous")
     if kv_dtype not in POOL_CACHES:
         raise ValueError(
             f"continuous decode supports joined KV dtypes only, not {kv_dtype!r}")

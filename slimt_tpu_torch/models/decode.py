@@ -98,6 +98,31 @@ def check_options(provider: Optional[str], kv_dtype: Optional[str]) -> None:
         raise ValueError(f"kv_dtype={kv_dtype!r} not in {tfm.KV_DTYPES}")
 
 
+def check_decoder(kind: str, provider: Optional[str] = None,
+                  kv_dtype: Optional[str] = "int16", path: str = "loop") -> None:
+    """The one guard of what the self-attention decoder (kind, from
+    transformer.decoder_kind) cannot run: raise ValueError on `path`
+    "mesh" (its self-caches live in the one-device loop only) and
+    "continuous" (the slot pool holds SSRU cells), and on the one-device
+    loop under the SSRU's block and whole-step providers or with a
+    cross-attention cache other than int16 (the declared one) or the
+    exact float32 split cache (None)."""
+    if kind != tfm.SELF_ATTENTION:
+        return
+    if path == "mesh":
+        raise ValueError("the self-attention decoder is not served on a mesh: its "
+                         "self-attention caches live in the one-device loop only")
+    if path == "continuous":
+        raise ValueError("continuous batching serves the SSRU decoder only: the "
+                         "self-attention decoder's caches are not in the slot pool")
+    if provider in ("fused", "fused_step"):
+        raise ValueError(f"provider={provider!r} runs SSRU kernels; the self-attention "
+                         f"decoder runs under {DECLARED_PROVIDERS + ('f32',)}")
+    if kv_dtype not in ("int16", None, "float32"):
+        raise ValueError(f"kv_dtype={kv_dtype!r}: the self-attention decoder's caches "
+                         "are int16 or float32")
+
+
 def cache_dtype(provider: Optional[str], kv_dtype: Optional[str]) -> Optional[str]:
     """The cache the loop builds for `kv_dtype`, with the JAX package's
     coercions: under fused_step any cache but bfloat16, float32 and int16
@@ -150,7 +175,8 @@ class StepContext:
     built once over the loop's fixed buffers: the cross-KV caches, the
     mask and the projection, the packed-int bias, the whole step's
     argument block (fused_step on CUDA), the embedding scale and the
-    position-0 signal. `step` is one decoder step over them; DecodeLoop
+    position-0 signal, and the decoder's kind (transformer.decoder_kind),
+    read once here. `step` is one decoder step over them; DecodeLoop
     and continuous.ChunkDecoder both run it."""
 
     def __init__(self, params, kv_caches, mask_add, projection, *, num_heads, provider,
@@ -172,12 +198,15 @@ class StepContext:
             )
         self.sqrt_e = _f32(math.sqrt(emb_dim))
         self.signal0 = tfm.sinusoidal_signal(0, 1, emb_dim, device=device)
+        self.kind = tfm.decoder_kind(params)
 
-    def step(self, prev, states, fresh, position=None):
+    def step(self, prev, states, fresh, position=None, at=None):
         """One decoder step after the words `prev` [B]: the zero embedding
         where `fresh` ([B] bool, or [1] for every row) is set, and the
         sinusoid at `position` (a [1] device step; None: position 0).
-        Returns decoder_step's (choice, new states, attention)."""
+        `at`, the device step, is where the self-attention decoder writes
+        its caches (decoder_step, which dispatches on the kind). Returns
+        decoder_step's (choice, new states, attention)."""
         embedded = tfm.embed(self.params, prev[:, None])
         prev_embed = torch.where(fresh[:, None, None], 0.0, embedded)
         if position is None:
@@ -190,7 +219,7 @@ class StepContext:
             self.params, states, x, self.mask_add, self.kv, self.num_heads,
             projection=self.projection, provider=self.provider, plan=self.plan,
             argmax_method=self.argmax_method, attn_kernel=self.attn_kernel,
-            packed_bias=self.packed_bias,
+            packed_bias=self.packed_bias, kind=self.kind, at=at,
         )
 
 
@@ -230,7 +259,15 @@ class DecodeLoop(StepContext, _Outputs):
     batch of the bucket copies its own into them, `load`), the carried
     state (step, limit, prev, states, complete) and the outputs (tokens,
     valid, alignment, padded to whole chunks). `run_chunk` advances them
-    `unroll` steps in place; on CUDA it is what loop_graph captures."""
+    `unroll` steps in place; on CUDA it is what loop_graph captures.
+
+    `states` is the SSRU decoder's [L, B, 1, E] block of cells, or the
+    self-attention decoder's per-layer caches (transformer.
+    make_self_caches, one position a step padded to whole chunks: int16
+    beside the int16 cross-attention cache, float32 beside the exact
+    split one), which each step writes at the
+    device step and which a new batch does not zero: no step reads a
+    position its batch has not written. The kind is read once, here."""
 
     def __init__(self, params, kv_caches, mask_add, projection, shortlist, *,
                  eos_id, num_heads, max_steps, unroll, provider, argmax_method,
@@ -246,18 +283,28 @@ class DecodeLoop(StepContext, _Outputs):
         layers = len(params["decoder"])
         emb_dim = params["emb"]["q"].shape[1]
         device = mask_add.device
-        self._make_outputs(batch, -(-max_steps // unroll) * unroll, t_src, with_alignment,
-                           device)
+        steps_padded = -(-max_steps // unroll) * unroll
+        self._make_outputs(batch, steps_padded, t_src, with_alignment, device)
 
         def zeros(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=device)
 
         self.step_at = zeros(1)
         self.prev = zeros(batch)
-        # One [L, B, 1, E] block: the whole-step kernel reads it in place.
-        self.states = zeros(layers, batch, 1, emb_dim, dtype=torch.float32)
         self.complete = zeros(batch, dtype=torch.bool)
         self.done = zeros(1, dtype=torch.bool)
+        if self.kind == tfm.SELF_ATTENTION:
+            self_dtype = "int16" if isinstance(kv_caches[0], dict) else "float32"
+            self.states = tfm.make_self_caches(params, batch, steps_padded, self_dtype, device)
+            self._zeroed = ()
+            self._carried = lambda: self.states
+            self._store = lambda states: None
+            return
+        # One [L, B, 1, E] block: the whole-step kernel reads it in place.
+        self.states = zeros(layers, batch, 1, emb_dim, dtype=torch.float32)
+        self._zeroed = (self.states,)
+        self._carried = lambda: tuple(self.states.unbind(0))
+        self._store = lambda states: torch.stack(states, out=self.states)
 
     def load(self, kv_caches, mask_add, projection, shortlist) -> None:
         """Copy a batch of this bucket's shapes into the input buffers."""
@@ -269,7 +316,7 @@ class DecodeLoop(StepContext, _Outputs):
     def reset(self, limit: int) -> None:
         """The carried state and outputs of a new batch; padding rows
         (fully masked) start complete."""
-        for buffer in (self.step_at, self.prev, self.states, self.done, self.tokens,
+        for buffer in (self.step_at, self.prev, *self._zeroed, self.done, self.tokens,
                        self.valid, self.align):
             buffer.zero_()
         self.limit.fill_(limit)
@@ -277,7 +324,7 @@ class DecodeLoop(StepContext, _Outputs):
 
     def _one_step(self, step, prev, states, complete):
         choice, new_states, attn = self.step(
-            prev, states, step == 0, None if self.position_zero else step)
+            prev, states, step == 0, None if self.position_zero else step, step)
         if self.shortlist is not None:
             choice = self.shortlist[choice.to(torch.long)]
         word = choice.to(torch.int32)
@@ -288,13 +335,13 @@ class DecodeLoop(StepContext, _Outputs):
         """`unroll` steps from the carried state, written back in place,
         and the all-complete flag `done`."""
         step, prev, complete = self.step_at, self.prev, self.complete
-        states = tuple(self.states.unbind(0))
+        states = self._carried()
         for _ in range(self.unroll):
             step, prev, states, complete = self._one_step(step, prev, states, complete)
         self.step_at.copy_(step)
         self.prev.copy_(prev)
         self.complete.copy_(complete)
-        torch.stack(states, out=self.states)
+        self._store(states)
         self.done.copy_(complete.all().reshape(1))
 
     def result(self) -> GreedyResult:
@@ -304,6 +351,10 @@ class DecodeLoop(StepContext, _Outputs):
     def buffer_bytes(self) -> int:
         return _nbytes((self.kv, self.mask_add, self.projection, self.shortlist,
                         self.states, self.tokens, self.valid, self.align))
+
+    def self_cache_bytes(self) -> int:
+        """The bytes of the self-attention decoder's caches (0 for SSRU)."""
+        return _nbytes(self.states) if self.kind == tfm.SELF_ATTENTION else 0
 
 
 class JobTally:
@@ -439,6 +490,7 @@ def greedy_decode(
     (a JobTally) gets the steps run and its loop marks. Spans:
     decode.cross_kv, decode.bind, decode.loop."""
     check_options(provider, kv_dtype)
+    check_decoder(tfm.decoder_kind(params), provider, kv_dtype)
     attn_kernel = gate_attn_kernel(attn_kernel, with_alignment, kv_dtype, provider)
     with span("decode.cross_kv"):
         kv_caches = tfm.precompute_cross_kv(
@@ -992,6 +1044,7 @@ def translate_mesh(
             graphs, loop_graph.DeviceGraphs):
         raise ValueError("a mesh decode on CUDA replays its chunks from `graphs`, a "
                          "loop_graph.DeviceGraphs (one cache for each device): pass one")
+    check_decoder(tfm.decoder_kind(sharded.at(0)), path="mesh")
     local = mesh.local_shape
     data, seqs = local["data"], local["seq"] if shard_sequence else 1
     tp = sharded.tensor_parallel

@@ -29,6 +29,12 @@ dtype). It loads marian .bin models and the JAX package's native .npz
 checkpoints (io/checkpoint.py). A config value that is none of these
 raises ValueError; nothing is substituted silently.
 
+The decoder is the Bergamot student's SSRU or marian's transformer
+decoder of causal self-attention (transformer-big), as the checkpoint's
+names say (`decoder_kind`, transformer.decoder_kind): the latter runs
+under the declared providers and "f32", on one device, with the int16
+or the float32 caches; the fused providers and a mesh raise ValueError.
+
 With a `mesh` (parallel.sharding.Mesh) the Model is multi-device, as the
 JAX Model is with a jax.sharding.Mesh: its weights tensor-parallel over
 "model" (or replicated, sharding="replicate"), each batch data-parallel
@@ -72,13 +78,14 @@ from slimt_tpu_torch.io.shortlist import ShortlistGenerator
 from slimt_tpu_torch.io.params import params_from_numpy
 from slimt_tpu_torch.models.decode import (
     JobTally,
+    check_decoder,
     compact_result,
     on_stream,
     translate_batch,
     unpack_compact,
 )
 from slimt_tpu_torch.models.loop_graph import DeviceGraphs, GraphCache
-from slimt_tpu_torch.models.transformer import ACT_DTYPES, KV_DTYPES
+from slimt_tpu_torch.models.transformer import ACT_DTYPES, KV_DTYPES, SELF_ATTENTION, decoder_kind
 from slimt_tpu_torch.ops.encoder_layer import MAX_T
 from slimt_tpu_torch.runtime.request import Hypothesis
 from slimt_tpu_torch.text.vocabulary import Vocabulary
@@ -273,6 +280,10 @@ class Model:
         else:
             host_params = load_weights(load_items(model_bytes), config)
             self.vocab_size, self.emb_dim, self.ffn_dim = model_dims(host_params)
+        # "ssru" or "self-attention", from the checkpoint's own layers.
+        self.decoder_kind = decoder_kind(host_params)
+        check_decoder(self.decoder_kind, config.qmm_provider, config.kv_cache_dtype,
+                      "loop" if mesh is None else "mesh")
         # Under "f32" the weights are dequantized here, once.
         dequantize = config.qmm_provider == "f32"
         self._data_size, self._shard_seq, self._collectives = 1, False, None
@@ -317,6 +328,8 @@ class Model:
         self._worker_lock = threading.Lock()
         # Added to by the dispatch worker alone, once a batch (counters()).
         self._counts = dict.fromkeys(COUNTERS, 0)
+        if self.decoder_kind == SELF_ATTENTION:
+            self._counts["self_positions"] = 0
 
     def counters(self) -> dict:
         """What this Model's forwards did, since it was made: `forwards`;
@@ -324,8 +337,15 @@ class Model:
         `source_slots` (B bucket x T bucket); `row_steps` (B bucket x the
         decode steps its loop ran, chunks x k) and `target_tokens` (served,
         EOS included); and its graph cache's `hits`, `misses`,
-        `evictions` and `capture_s` (0 without one: on the CPU)."""
+        `evictions` and `capture_s` (0 without one: on the CPU). A
+        self-attention decoder adds `self_positions` (the cache positions
+        its self-attention read: B bucket x the sum of step + 1 over the
+        steps run) and `self_cache_bytes` (the self-attention caches the
+        graph cache holds now)."""
         out = dict(self._counts)
+        if self.decoder_kind == SELF_ATTENTION:
+            held = [] if self._graphs is None else self._graphs.items()
+            out["self_cache_bytes"] = sum(bucket.state.self_cache_bytes() for _, bucket in held)
         graphs = self._graphs
         counts = {} if graphs is None else graphs.counts
         if isinstance(graphs, DeviceGraphs):  # one cache a device: summed
@@ -452,6 +472,7 @@ class Model:
             steps_cap = max(1, int(self.limit_factor * actual_max))
             source_tokens = int(np.sum(lengths))
             compact = self.config.compact_transfer and self.vocab_size <= 65535
+            self_attention = self.decoder_kind == SELF_ATTENTION
             device = self.device
             # A mesh takes the host arrays and places each shard itself; across
             # processes each process feeds its own block of the rows.
@@ -522,9 +543,14 @@ class Model:
                 counts["source_slots"] += b_pad * t_pad
                 counts["row_steps"] += b_pad * tally.steps
                 counts["target_tokens"] += target_tokens
+                extra = {}
+                if self_attention:
+                    # Step s reads positions 0..s of its self-cache.
+                    extra["self_positions"] = b_pad * tally.steps * (tally.steps + 1) // 2
+                    counts["self_positions"] += extra["self_positions"]
                 if job.on:
                     job.set(steps=tally.steps, target_tokens=target_tokens,
-                            **tally.device_ns())
+                            **tally.device_ns(), **extra)
             return (tokens, valid), align
 
         submitted = time.perf_counter_ns()

@@ -40,6 +40,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from slimt_tpu_torch.io.loader import SELF_ATTENTION, SSRU  # the decoder kinds
 from slimt_tpu_torch.ops import attention, decode_attn, fused_blocks, logits_argmax, qmm
 from slimt_tpu_torch.ops import encoder_layer as enc
 from slimt_tpu_torch.ops.logits_argmax import first_max, packed_argmax_16  # noqa: F401
@@ -480,6 +481,108 @@ def decoder_layer_forward(
     return _ffn_block(layer, out, provider), new_state, attn
 
 
+# The self-attention cache's dtypes: int16 per row (the declared path) and
+# float32 (the exact path, beside the exact split cross-attention cache).
+SELF_CACHES = ("int16", "float32")
+
+
+def decoder_kind(params: dict) -> str:
+    """"self-attention" where the decoder layers carry a self-attention
+    block (marian's transformer decoder), else "ssru"."""
+    decoder = params["decoder"]
+    first = decoder[0] if isinstance(decoder, (list, tuple)) else decoder
+    return SELF_ATTENTION if "self" in first else SSRU
+
+
+def make_self_caches(params: dict, batch: int, steps: int, dtype: str, device) -> tuple:
+    """Per decoder layer, the causal self-attention cache of a decode loop
+    of `batch` rows and `steps` positions: {"k", "v"} [B, steps, E] and the
+    inverse scales {"kqi", "vqi"} [B, steps] f32, per row (b, t) as the
+    cross-attention cache's (_per_row) for "int16"; float32 K and V with
+    scalar scales 1 for "float32". Zeros when made and never zeroed after:
+    a step writes its own position (write_self_cache) and attends to
+    the positions up to it only."""
+    if dtype not in SELF_CACHES:
+        raise ValueError(f"the self-attention cache takes {SELF_CACHES}, not {dtype!r}")
+    emb_dim = params["emb"]["q"].shape[1]
+    caches = []
+    for _ in params["decoder"]:
+        if dtype == "float32":
+            one = _f32(1.0)
+            caches.append({"k": torch.zeros((batch, steps, emb_dim), device=device),
+                           "v": torch.zeros((batch, steps, emb_dim), device=device),
+                           "kqi": one, "vqi": one})
+            continue
+        cache = {name: torch.zeros((batch, steps, emb_dim), dtype=torch.int16, device=device)
+                 for name in ("k", "v")}
+        cache.update({name: torch.zeros((batch, steps), device=device)
+                      for name in ("kqi", "vqi")})
+        caches.append(cache)
+    return tuple(caches)
+
+
+def write_self_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, at: torch.Tensor) -> None:
+    """Write one step's K and V rows [B, 1, E] at position `at` ([1] long,
+    a device step) of the cache, quantized per row where it is int16."""
+    if cache["k"].dtype == torch.int16:
+        for name, a in (("k", k), ("v", v)):
+            q, inv = _per_row(a, True)
+            cache[name].index_copy_(1, at, q)
+            cache[name + "qi"].index_copy_(1, at, inv)
+        return
+    cache["k"].index_copy_(1, at, k)
+    cache["v"].index_copy_(1, at, v)
+
+
+def self_attention_read(q: torch.Tensor, cache: dict, valid: torch.Tensor,
+                        num_heads: int) -> torch.Tensor:
+    """Decode attention (T_q = 1) of q [B, E] over the first `valid` ([1]
+    int32 on the device) positions of a self-attention cache. Returns
+    [B, E], before the O projection. The int16 cache goes to the
+    valid-length kernel (ops/decode_attn.decode_self_attention_int16; on
+    the CPU its plain path); the float32 one reads every position, those
+    from `valid` on masked out (they hold zeros or an earlier batch's
+    finite values, whose weight is exactly 0)."""
+    k = cache["k"]
+    if k.dtype == torch.int16:
+        return decode_attn.decode_self_attention_int16(
+            q, k, cache["v"], cache["kqi"], cache["vqi"], valid, num_heads)
+    positions = torch.arange(k.shape[1], device=k.device, dtype=valid.dtype)
+    mask = torch.where(positions < valid, _f32(0.0), _f32(MASK_MIN)).expand(k.shape[0], -1)
+    return decode_attn.attention_plain(q, k, cache["v"], None, None, mask, num_heads)[0]
+
+
+def self_attention_forward(att: dict, x: torch.Tensor, cache: dict, at: torch.Tensor,
+                           valid: torch.Tensor, num_heads: int,
+                           provider: Optional[str] = None) -> torch.Tensor:
+    """The decoder's causal self-attention block at one step, with the
+    residual and the post-LN: the step's K and V rows of x [B, 1, E] are
+    written into `cache` at `at`, then its query attends to the positions
+    before `valid` (at + 1)."""
+    q = _affine(att["q"], x, provider=provider)
+    k = _affine(att["k"], x, provider=provider)
+    v = _affine(att["v"], x, provider=provider)
+    write_self_cache(cache, k, v, at)
+    mixed = self_attention_read(q[:, 0, :], cache, valid, num_heads)
+    out = _affine(att["o"], mixed[:, None, :], provider=provider)
+    return layer_norm(x + out, att["ln"])
+
+
+def self_attention_decoder_layer(
+    layer: dict, cache: dict, x: torch.Tensor, at: torch.Tensor, valid: torch.Tensor,
+    mask_add: torch.Tensor, kv_cache, num_heads: int, provider: Optional[str] = None,
+    attn_kernel: bool = False,
+):
+    """marian's transformer decoder layer at one step: causal
+    self-attention over the layer's self-cache, cross-attention over any
+    cache of precompute_cross_kv, then the FFN, each followed by the
+    residual and a post-LN. Returns (out, attn of the cross-attention)."""
+    h = self_attention_forward(layer["self"], x, cache, at, valid, num_heads, provider)
+    out, attn = attention_forward(layer["att"], h, mask_add, num_heads, kv_cache, attn_kernel,
+                                  provider=provider)
+    return _ffn_block(layer, out, provider), attn
+
+
 def output_inv(params: dict) -> np.float32:
     """The tied projection's epilogue multiplier 1 / (out.aq * emb.scale),
     in float32 as the JAX package computes it."""
@@ -502,12 +605,20 @@ def decoder_step(
     argmax_method: str = "packed_int",
     attn_kernel: bool = False,
     packed_bias: Optional[torch.Tensor] = None,
+    kind: str = SSRU,
+    at: Optional[torch.Tensor] = None,
 ):
     """One greedy decode step over all decoder layers. prev_embed is
     the transformed [B, 1, E] input. Returns (choice [B] int32 — a
     column of the projection —, new_states, attn [B,H,1,T] of the last
     layer; under "fused_step" only head 0, [B,1,1,T]; zeros under
     `attn_kernel`).
+
+    `kind` is the decoder's (decoder_kind). For the SSRU decoder `states`
+    are its layers' cells [B, 1, E]. For the self-attention decoder they
+    are its per-layer self-caches (make_self_caches), written at `at`
+    (the device step, [1] int32) and returned, and each layer attends to
+    positions 0..at (self_attention_decoder_layer).
 
     provider "fused" runs each layer's SSRU and FFN as block kernels;
     `argmax_method` picks the greedy argmax (output_argmax). Provider
@@ -528,6 +639,10 @@ def decoder_step(
             plan=plan,
         )
         return choice, new_states, attn0[:, None, None, :]
+    if kind == SELF_ATTENTION:
+        return _self_attention_step(params, states, prev_embed, mask_add, kv_caches,
+                                    num_heads, projection, provider, argmax_method,
+                                    attn_kernel, packed_bias, at)
     x = prev_embed
     new_states = []
     guided = None
@@ -539,6 +654,20 @@ def decoder_step(
     choice = output_argmax(params, x[:, 0, :], provider, projection, argmax_method,
                            packed_bias)
     return choice, tuple(new_states), guided
+
+
+def _self_attention_step(params, caches, x, mask_add, kv_caches, num_heads, projection,
+                         provider, argmax_method, attn_kernel, packed_bias, at):
+    """decoder_step of the self-attention decoder: (choice, caches, attn)."""
+    position = at.to(torch.long)
+    valid = at + 1
+    guided = None
+    for layer, cache, kv in zip(params["decoder"], caches, kv_caches):
+        x, guided = self_attention_decoder_layer(layer, cache, x, position, valid, mask_add, kv,
+                                                 num_heads, provider, attn_kernel)
+    choice = output_argmax(params, x[:, 0, :], provider, projection, argmax_method,
+                           packed_bias)
+    return choice, caches, guided
 
 
 def prepare_output_projection(

@@ -92,6 +92,10 @@ _SIGNATURES = {
     "slimt_decode_attention": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P
     ),
+    # q, k, v, kqi, vqi, valid, out, b, cap, e, heads, scale, stream
+    "slimt_decode_self_attention": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P
+    ),
     # q, k, v, mask, out, b, t, e, heads, scale, stream
     "slimt_fused_sdpa": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # q, k, v, mask, out, bh, heads, t, d, scale, stream

@@ -39,6 +39,14 @@
 // A fully masked (padding) row has every score near -1e8 and still a
 // finite softmax.
 //
+// The self-attention decoder's variant (decode_self_attention_kernel and
+// its warp twin; entry slimt_decode_self_attention) runs the same steps
+// over the first n = *valid positions of a [b, cap, e] cache whose rows
+// are cap positions apart, with no mask: n is read from device memory at
+// each launch, so a captured CUDA graph replays it at each step, and the
+// kernel reads the n positions a step needs, not the whole capacity. The
+// grid and the shared memory follow the capacity, fixed at launch.
+//
 // Bounds on the H100. The kernel reads the cache once: 2 * T * E * 2
 // bytes per row (64 KB at T = 64, E = 256); at B = 64 that is 4.2 MB,
 // 1.3 us at the card's 3.35 TB/s. The f32 arithmetic is 4 T E operations
@@ -74,8 +82,8 @@ __device__ __forceinline__ void unpack8(const int4& packed, float* out) {
 // d / 8 lanes, each lane 8 int16 columns of a position: steps 1-4 of the
 // file's note, shared by the block and the warp kernel.
 struct Item {
-  int lanes, groups, grp, lane, t, e;
-  long long row_t;  // row * t
+  int lanes, groups, grp, lane, t, e;  // t: the positions read
+  long long row_t;  // row * the positions a row holds
   const int16_t* kp;
   const int16_t* vp;
   float qv[8];
@@ -83,9 +91,9 @@ struct Item {
 
   // The lane's q columns and the V slices of its group's first positions.
   __device__ Item(int tid, int threads, int row, int head, const float* q, const int16_t* k,
-                  const int16_t* v, int t_, int e_, int d)
+                  const int16_t* v, int t_, int stride, int e_, int d)
       : lanes(d / 8), groups(threads / (d / 8)), grp(tid / (d / 8)), lane(tid % (d / 8)), t(t_),
-        e(e_), row_t(static_cast<long long>(row) * t_) {
+        e(e_), row_t(static_cast<long long>(row) * stride) {
     const int c0 = head * d + 8 * lane;
     kp = k + row_t * e + c0;
     vp = v + row_t * e + c0;
@@ -101,9 +109,10 @@ struct Item {
     }
   }
 
-  // sc[j] = ((K[j] . q)_head * scale) * kqi[j] + mask[j], kInFlight
-  // positions a lane group a pass; the loop is uniform in a warp, as the
-  // shuffles need.
+  // sc[j] = ((K[j] . q)_head * scale) * kqi[j] + mask[j] (no mask term
+  // unless kMasked), kInFlight positions a lane group a pass; the loop is
+  // uniform in a warp, as the shuffles need.
+  template <bool kMasked>
   __device__ void scores(float* sc, const float* __restrict__ kqi, const float* __restrict__ mask,
                          float scale) const {
     for (int base = 0; base < t; base += kInFlight * groups) {
@@ -123,8 +132,10 @@ struct Item {
         for (int i = 0; i < 8; ++i) s = __fadd_rn(s, __fmul_rn(kf[i], qv[i]));
         for (int offset = lanes / 2; offset > 0; offset /= 2)
           s += __shfl_xor_sync(0xffffffffu, s, offset);
-        if (j < t && lane == 0)
-          sc[j] = __fadd_rn(__fmul_rn(__fmul_rn(s, scale), kqi[row_t + j]), mask[row_t + j]);
+        if (j < t && lane == 0) {
+          const float scaled = __fmul_rn(__fmul_rn(s, scale), kqi[row_t + j]);
+          sc[j] = kMasked ? __fadd_rn(scaled, mask[row_t + j]) : scaled;
+        }
       }
     }
   }
@@ -181,18 +192,21 @@ __device__ __forceinline__ void softmax_weights(float* sc, int t, const float* _
   for (int j = tid; j < t; j += threads) sc[j] = __fmul_rn(sc[j] / sum, vqi[row_t + j]);
 }
 
-// grid (b, heads); d = e / heads, d / 8 a power of two <= 32.
-__global__ void __launch_bounds__(kAttnThreads)
-decode_attention_kernel(const float* __restrict__ q, const int16_t* __restrict__ k,
-                        const int16_t* __restrict__ v, const float* __restrict__ kqi,
-                        const float* __restrict__ vqi, const float* __restrict__ mask,
-                        float* __restrict__ out, int t, int e, int d, float scale) {
+// grid (b, heads); d = e / heads, d / 8 a power of two <= 32. A row holds
+// `stride` positions, of which the first n are read (n == stride but in
+// the self-attention variant), masked by `mask` where kMasked.
+template <bool kMasked>
+__device__ __forceinline__ void attention_block(
+    const float* __restrict__ q, const int16_t* __restrict__ k, const int16_t* __restrict__ v,
+    const float* __restrict__ kqi, const float* __restrict__ vqi, const float* __restrict__ mask,
+    float* __restrict__ out, int n, int stride, int e, int d, float scale) {
   extern __shared__ __align__(16) float buf[];
   __shared__ float red[kAttnWarps];
+  const int t = n;
   float* part = buf;                  // [groups][d] partial sums of the V mix
   float* sc = buf + kAttnThreads * 8;  // [t] scores, then weights; then the slices
-  const Item item(threadIdx.x, kAttnThreads, blockIdx.x, blockIdx.y, q, k, v, t, e, d);
-  item.scores(sc, kqi, mask, scale);
+  const Item item(threadIdx.x, kAttnThreads, blockIdx.x, blockIdx.y, q, k, v, t, stride, e, d);
+  item.scores<kMasked>(sc, kqi, mask, scale);
   __syncthreads();
   softmax_weights(sc, t, vqi, item.row_t, threadIdx.x, kAttnThreads, [&](float x, bool is_max) {
     x = is_max ? warp_max(x) : warp_sum(x);
@@ -228,6 +242,28 @@ decode_attention_kernel(const float* __restrict__ q, const int16_t* __restrict__
   }
 }
 
+__global__ void __launch_bounds__(kAttnThreads)
+decode_attention_kernel(const float* __restrict__ q, const int16_t* __restrict__ k,
+                        const int16_t* __restrict__ v, const float* __restrict__ kqi,
+                        const float* __restrict__ vqi, const float* __restrict__ mask,
+                        float* __restrict__ out, int t, int e, int d, float scale) {
+  attention_block<true>(q, k, v, kqi, vqi, mask, out, t, t, e, d, scale);
+}
+
+// The positions read, *valid clamped to [0, cap].
+__device__ __forceinline__ int valid_positions(const int* __restrict__ valid, int cap) {
+  return min(max(__ldg(valid), 0), cap);
+}
+
+__global__ void __launch_bounds__(kAttnThreads)
+decode_self_attention_kernel(const float* __restrict__ q, const int16_t* __restrict__ k,
+                             const int16_t* __restrict__ v, const float* __restrict__ kqi,
+                             const float* __restrict__ vqi, const int* __restrict__ valid,
+                             float* __restrict__ out, int cap, int e, int d, float scale) {
+  attention_block<false>(q, k, v, kqi, vqi, nullptr, out, valid_positions(valid, cap), cap, e,
+                         d, scale);
+}
+
 // The same attention with a warp a (row, head), kItemWarps of them a
 // block, where the items alone fill the card (large B): no block-wide
 // barrier, the softmax and the lane groups' sums by shuffles in a fixed
@@ -242,19 +278,19 @@ constexpr int kItemWarps = 4;
 constexpr int kWarpKernelItems = 1600;
 constexpr int kWarpKernelT = 128;
 
-__global__ void __launch_bounds__(kItemWarps * 32)
-decode_attention_warp_kernel(const float* __restrict__ q, const int16_t* __restrict__ k,
-                             const int16_t* __restrict__ v, const float* __restrict__ kqi,
-                             const float* __restrict__ vqi, const float* __restrict__ mask,
-                             float* __restrict__ out, int items, int t, int e, int d, int heads,
-                             float scale) {
-  extern __shared__ __align__(16) float scores[];  // [kItemWarps][t]
+template <bool kMasked>
+__device__ __forceinline__ void attention_warp(
+    const float* __restrict__ q, const int16_t* __restrict__ k, const int16_t* __restrict__ v,
+    const float* __restrict__ kqi, const float* __restrict__ vqi, const float* __restrict__ mask,
+    float* __restrict__ out, int items, int n, int stride, int e, int d, int heads, float scale) {
+  extern __shared__ __align__(16) float scores[];  // [kItemWarps][stride]
+  const int t = n;
   const int lane = threadIdx.x % 32;
   const int index = blockIdx.x * kItemWarps + static_cast<int>(threadIdx.x) / 32;
   if (index >= items) return;  // a whole warp
-  float* sc = scores + threadIdx.x / 32 * t;
-  const Item item(lane, 32, index / heads, index % heads, q, k, v, t, e, d);
-  item.scores(sc, kqi, mask, scale);
+  float* sc = scores + threadIdx.x / 32 * stride;
+  const Item item(lane, 32, index / heads, index % heads, q, k, v, t, stride, e, d);
+  item.scores<kMasked>(sc, kqi, mask, scale);
   __syncwarp();
   softmax_weights(sc, t, vqi, item.row_t, lane, 32,
                   [](float x, bool is_max) { return is_max ? warp_max(x) : warp_sum(x); });
@@ -272,6 +308,25 @@ decode_attention_warp_kernel(const float* __restrict__ q, const int16_t* __restr
     dst[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
     dst[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
   }
+}
+
+__global__ void __launch_bounds__(kItemWarps * 32)
+decode_attention_warp_kernel(const float* __restrict__ q, const int16_t* __restrict__ k,
+                             const int16_t* __restrict__ v, const float* __restrict__ kqi,
+                             const float* __restrict__ vqi, const float* __restrict__ mask,
+                             float* __restrict__ out, int items, int t, int e, int d, int heads,
+                             float scale) {
+  attention_warp<true>(q, k, v, kqi, vqi, mask, out, items, t, t, e, d, heads, scale);
+}
+
+__global__ void __launch_bounds__(kItemWarps * 32)
+decode_self_attention_warp_kernel(const float* __restrict__ q, const int16_t* __restrict__ k,
+                                  const int16_t* __restrict__ v, const float* __restrict__ kqi,
+                                  const float* __restrict__ vqi, const int* __restrict__ valid,
+                                  float* __restrict__ out, int items, int cap, int e, int d,
+                                  int heads, float scale) {
+  attention_warp<false>(q, k, v, kqi, vqi, nullptr, out, items, valid_positions(valid, cap),
+                        cap, e, d, heads, scale);
 }
 
 }  // namespace
@@ -318,5 +373,49 @@ extern "C" int slimt_decode_attention(const void* q, const void* k,
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_attention_kernel<<<dim3(b, heads), kAttnThreads, smem, st>>>(
       qf, ks, vs, kqf, vqf, mf, of, t, e, d, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The self-attention decoder's cache: q, out [b, e] f32; k, v [b, cap, e]
+// int16; kqi, vqi [b, cap] f32; valid one int32, the positions 0..*valid-1
+// read (clamped to cap); all contiguous device pointers, 16-byte aligned
+// but valid. The shapes' rules and the choice of kernel are the entry
+// above's, with the capacity cap in place of t.
+extern "C" int slimt_decode_self_attention(const void* q, const void* k, const void* v,
+                                           const void* kqi, const void* vqi, const void* valid,
+                                           void* out, int b, int cap, int e, int heads,
+                                           float scale, void* stream) {
+  using namespace slimt;
+  const int d = heads > 0 ? e / heads : 0;
+  const int lanes = d / 8;
+  if (b < 1 || cap < 1 || e < 128 || e % 128 || heads < 1 || e % heads || d % 8 || lanes > 32 ||
+      (lanes & (lanes - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* qf = static_cast<const float*>(q);
+  const int16_t* ks = static_cast<const int16_t*>(k);
+  const int16_t* vs = static_cast<const int16_t*>(v);
+  const float* kqf = static_cast<const float*>(kqi);
+  const float* vqf = static_cast<const float*>(vqi);
+  const int* n = static_cast<const int*>(valid);
+  float* of = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long items = static_cast<long long>(b) * heads;
+  if (items >= kWarpKernelItems && cap <= kWarpKernelT) {
+    const size_t smem = sizeof(float) * kItemWarps * static_cast<size_t>(cap);
+    static size_t warp_cap = 48 * 1024;
+    const cudaError_t err = ensure_smem(decode_self_attention_warp_kernel, smem, &warp_cap);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    decode_self_attention_warp_kernel<<<(items + kItemWarps - 1) / kItemWarps, kItemWarps * 32,
+                                        smem, st>>>(qf, ks, vs, kqf, vqf, n, of,
+                                                    static_cast<int>(items), cap, e, d, heads,
+                                                    scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem = sizeof(float) * (kAttnThreads * 10 + static_cast<size_t>(cap));
+  static size_t smem_cap = 48 * 1024;
+  const cudaError_t err = ensure_smem(decode_self_attention_kernel, smem, &smem_cap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_self_attention_kernel<<<dim3(b, heads), kAttnThreads, smem, st>>>(
+      qf, ks, vs, kqf, vqf, n, of, cap, e, d, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,6 +12,12 @@ formulation (the TPU kernel's kq = K * q, reduced per head), which also
 serves the whole decode step's plain version over the int16 and the
 float joined caches. Attention weights are not
 returned: the kernel serves the alignment-free path only.
+
+`decode_self_attention_int16` is the same attention over the first
+`valid` positions of a self-attention decoder's int16 cache [B, C, E]
+(C the decode loop's step capacity), with no mask: `valid` is a device
+int32 that the CUDA kernel reads at each launch, so a captured graph
+replays it at every step; on the CPU, `self_attention_plain`.
 """
 
 from __future__ import annotations
@@ -129,4 +135,59 @@ def decode_attention_int16(q, k, v, kqi, vqi, mask, num_heads, _kernel=None) -> 
             q.contiguous(), k, v, kqi, vqi, mask.contiguous(), num_heads, _kernel)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kqi, vqi, mask, num_heads)[0]
+    raise ValueError(f"unsupported device {q.device}")
+
+
+def self_attention_plain(q, k, v, kqi, vqi, valid, num_heads) -> torch.Tensor:
+    """decode_self_attention_int16 on the CPU: attention_plain over the
+    first `valid` positions of the cache, unmasked."""
+    n = int(valid.reshape(-1)[0])
+    mask = torch.zeros((k.shape[0], n), dtype=torch.float32, device=q.device)
+    return attention_plain(q, k[:, :n], v[:, :n], kqi[:, :n], vqi[:, :n], mask, num_heads)[0]
+
+
+def decode_self_attention_kernel(q, k, v, kqi, vqi, valid, num_heads) -> torch.Tensor:
+    """Launch csrc/decode_attn.cu's valid-length kernels on CUDA tensors;
+    `launches` counts the launches."""
+    b, cap, e = k.shape
+    check_shapes(b, cap, e, num_heads)
+    if not q.is_cuda:
+        raise ValueError(f"the kernel takes CUDA tensors, got {q.device}")
+    for name, tensor, shape, dtype in (
+        ("q", q, (b, e), torch.float32), ("k", k, (b, cap, e), torch.int16),
+        ("v", v, (b, cap, e), torch.int16), ("kqi", kqi, (b, cap), torch.float32),
+        ("vqi", vqi, (b, cap), torch.float32), ("valid", valid, (1,), torch.int32),
+    ):
+        if tuple(tensor.shape) != shape or tensor.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {shape}, got "
+                             f"{tensor.dtype} {tuple(tensor.shape)}")
+        if tensor.device != q.device or not tensor.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+        if tensor.data_ptr() % (4 if name == "valid" else 16):
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty((b, e), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    code = lib.slimt_decode_self_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kqi.data_ptr(), vqi.data_ptr(),
+        valid.data_ptr(), out.data_ptr(), b, cap, e, num_heads,
+        ctypes.c_float(np.float32(1.0 / math.sqrt(e // num_heads))),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, code, "slimt_decode_self_attention")
+    launches.count(decode_self_attention_kernel)
+    return out
+
+
+decode_self_attention_kernel.launches = 0
+
+
+def decode_self_attention_int16(q, k, v, kqi, vqi, valid, num_heads) -> torch.Tensor:
+    """q [B, E] f32 (the step's self-attention query); k, v [B, C, E]
+    int16 self-attention cache with kqi, vqi [B, C] per-row dequant
+    scales; valid [1] int32, the positions 0..valid-1 to attend to (the
+    step + 1). Returns out [B, E], before the O projection."""
+    if q.is_cuda:
+        return decode_self_attention_kernel(q.contiguous(), k, v, kqi, vqi, valid, num_heads)
+    if q.device.type == "cpu":
+        return self_attention_plain(q, k, v, kqi, vqi, valid, num_heads)
     raise ValueError(f"unsupported device {q.device}")

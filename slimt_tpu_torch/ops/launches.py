@@ -59,6 +59,7 @@ SERVING = {
     "ssru_block": ("fused_blocks", "ssru_kernel"),
     "ffn_block": ("fused_blocks", "ffn_kernel"),
     "decode_attention": ("decode_attn", "decode_attention_kernel"),
+    "decode_self_attention": ("decode_attn", "decode_self_attention_kernel"),
     "argmax_affine": ("logits_argmax", "argmax_affine_kernel"),
     "argmax_packed_int": ("logits_argmax", "argmax_packed_int_kernel"),
     "fused_sdpa": ("attention", "fused_sdpa_kernel"),

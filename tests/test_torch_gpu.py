@@ -793,12 +793,12 @@ def _encoder_case(card, emb, ffn, b, t, seed):
     return layer, x, ((1.0 - mask) * -99999999.0)[:, None, None, :]
 
 
-def _close_positions(got, want, tol=2e-5, bound=0.25):
-    """>= 99% of positions within tol, every one within bound (an int8
+def _close_positions(got, want, tol=2e-5, bound=0.25, share=0.99):
+    """>= `share` of positions within tol, every one within bound (an int8
     rounding flip moves a position by up to ~0.06)."""
     err = (got - want).abs().amax(-1).flatten()
     assert torch.isfinite(got).all()
-    assert float((err <= tol).float().mean()) >= 0.99, float(err.max())
+    assert float((err <= tol).float().mean()) >= share, float(err.max())
     assert float(err.max()) <= bound
 
 
@@ -1972,3 +1972,146 @@ def test_declared_graph_loop_takes_packed_int_in_one_kernel(card, monkeypatch, s
         assert logits_argmax.argmax_packed_int_kernel.launches - picks == 4 * ran
         assert qmm.int8_matmul.launches == matmuls
         assert _same(got, want)
+
+
+# -- #12: the self-attention decoder's valid-length decode attention ----------
+SELF_E, SELF_HEADS = 1024, 16  # transformer-big's width and heads (d = 64)
+
+
+def _self_cache(card, b, cap, seed):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    q = torch.randn((b, SELF_E), device=card, generator=gen)
+    k, v = (torch.randint(-32767, 32768, (b, cap, SELF_E), device=card, dtype=torch.int16,
+                          generator=gen) for _ in range(2))
+    kqi, vqi = ((torch.rand((b, cap), device=card, generator=gen) * 1.5 + 0.5) / 32767.0
+                for _ in range(2))
+    return q, k, v, kqi, vqi
+
+
+@pytest.mark.parametrize("cap", [128, 192], ids=["warp-grid", "block-grid"])
+@pytest.mark.parametrize("b", [1, 64, 256])
+def test_self_attention_kernel_matches_plain(card, b, cap):
+    """#12 over the first 1, 17, 128 and `cap` positions of a [B, cap, E]
+    int16 cache against its plain path, one launch counted a call (at
+    B=256 and capacity 128 the warp grid, else the block grid)."""
+    q, k, v, kqi, vqi = _self_cache(card, b, cap, b + cap)
+    for n in (1, 17, 128, cap):
+        valid = torch.tensor([n], dtype=torch.int32, device=card)
+        before = decode_attn.decode_self_attention_kernel.launches
+        got = decode_attn.decode_self_attention_int16(q, k, v, kqi, vqi, valid, SELF_HEADS)
+        assert decode_attn.decode_self_attention_kernel.launches == before + 1
+        want = decode_attn.self_attention_plain(q, k, v, kqi, vqi, valid, SELF_HEADS)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= 2e-5, n
+
+
+@pytest.mark.parametrize("cap", [128, 192], ids=["warp-grid", "block-grid"])
+def test_self_attention_kernel_reads_its_length_at_each_replay(card, cap):
+    """#12 captured once in a CUDA graph: each replay reads the device
+    length as it is then, as the decode loop's graphs replay it a step."""
+    q, k, v, kqi, vqi = _self_cache(card, 256, cap, cap)
+    valid = torch.ones(1, dtype=torch.int32, device=card)
+    decode_attn.decode_self_attention_int16(q, k, v, kqi, vqi, valid, SELF_HEADS)  # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attn.decode_self_attention_int16(q, k, v, kqi, vqi, valid, SELF_HEADS)
+    for n in (1, 17, 128, cap, 5):
+        valid.fill_(n)
+        graph.replay()
+        want = decode_attn.self_attention_plain(q, k, v, kqi, vqi, valid, SELF_HEADS)
+        torch.cuda.synchronize()
+        assert float((out - want).abs().max()) <= 2e-5, n
+
+
+def _self_params(card):
+    config = ModelConfig(encoder_layers=1, decoder_layers=2, num_heads=4)
+    host = load_weights(load_items(synthetic_model_bytes(
+        config=config, vocab_size=LOOP_VOCAB, emb_dim=256, ffn_dim=1024, seed=5,
+        decoder="self-attention")), config)
+    return params_from_numpy(host, card)
+
+
+def test_self_attention_graph_loop_bit_equal_to_eager_loop(card):
+    """The self-attention decoder's graph loop (its self-caches written at
+    the device step, #12 over them) equals the eager loop for k in {1, 3,
+    8}, and a replay launches #12 once a layer a step."""
+    from slimt_tpu_torch.models import decode
+    from slimt_tpu_torch.models.loop_graph import GraphCache
+
+    params = _self_params(card)
+    ids, mask = _loop_batch(card, b=9)
+    kwargs = dict(num_heads=4, kv_dtype="int16", with_alignment=False,
+                  decoder_position_zero=False, eos_id=-1)
+    eager = _decode(params, ids, mask, loop_unroll=1, _eager=True, **kwargs)
+    graphs = GraphCache()
+    for k in (1, 3, 8):
+        _decode(params, ids, mask, loop_unroll=k, graphs=graphs, **kwargs)  # captures
+        chunks = decode.run_loop.chunks
+        launched = decode_attn.decode_self_attention_kernel.launches
+        got = _decode(params, ids, mask, loop_unroll=k, graphs=graphs, **kwargs)
+        torch.cuda.synchronize()
+        ran = decode.run_loop.chunks - chunks
+        assert decode_attn.decode_self_attention_kernel.launches - launched == 2 * k * ran
+        assert _same(got, eager), k
+    assert eager.valid.any() and not eager.valid[-1].any()
+
+
+def test_self_attention_model_serves_on_the_card(card):
+    """A Model of the self-attention decoder on the card: its graph-loop
+    tokens equal its eager loop's, and counters() holds the self-caches
+    its graph cache keeps."""
+    from slimt_tpu_torch import Model, Package
+    from slimt_tpu_torch.text import spm_proto
+    from slimt_tpu_torch.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
+
+    config = ModelConfig(encoder_layers=2, decoder_layers=2, num_heads=4,
+                         decoder_position_zero=False)
+    weights = synthetic_model_bytes(config=config, vocab_size=256, emb_dim=256, ffn_dim=1024,
+                                    seed=5, decoder="self-attention")
+    spm = spm_proto.serialize_model(build_spm_model(DEFAULT_WORDS, target_size=256))
+    model = Model(config, Package(weights, spm), device=card)
+    assert model.decoder_kind == "self-attention"
+    segments = [[3 + (i * 7 + j) % 200 for j in range(4 + 5 * i)] + [model.vocabulary.eos_id]
+                for i in range(6)]
+    graph = model.forward(segments, need_alignment=False)
+    model._eager_loop = True
+    eager = model.forward(segments, need_alignment=False)
+    assert [h.target for h in graph] == [h.target for h in eager]
+    counts = model.counters()
+    assert counts["misses"] == 1 and counts["self_positions"] > 0
+    # One bucket (B 8, T 32, so 48 steps): 2 layers of [8, 48, 256] int16 K
+    # and V and [8, 48] f32 scales.
+    assert counts["self_cache_bytes"] == 2 * 8 * 48 * (2 * 256 * 2 + 2 * 4)
+
+
+@pytest.mark.parametrize("t", [16, 64])
+def test_encoder_layer_kernel_at_transformer_big_widths(card, t):
+    """#2 at E=1024, F=4096 and 16 heads of 64 (transformer-big's encoder;
+    its gate takes E up to enc.MAX_E = 1024) against its plain path, by
+    _close_positions: the two SDPAs' heads agree to ~1e-6 but sum in
+    different orders, and a head's value on an int8 rounding boundary of
+    the O affine's input moves its position by one step of the product
+    (at B=2 T=64 one such flip moves 2 of the 128 positions, by 0.034)."""
+    assert tfm.layer_kernel_runs(True, False, None, None, t, 1024, 16)
+    layer, x, mask_add = _encoder_case(card, 1024, 4096, 2, t, seed=t)
+    before = enc.layer_kernel.launches
+    got = enc.encoder_layer_fused(x, layer, mask_add, 16)
+    assert enc.layer_kernel.launches == before + 1
+    want = enc.layer_plain(x, layer, mask_add, 16)
+    torch.cuda.synchronize()
+    _close_positions(got, want, share=0.98)
+
+
+@pytest.mark.parametrize("b", [1, 64, 256])
+def test_argmax_packed_int_at_transformer_big_width(card, b):
+    """#4's packed_int mode at E=1024 over the 32000-column tied projection,
+    bit-equal to #1 plus packed_int_argmax."""
+    y, w, b_i32, first = _packed_int_case(card, b, 32000, 1024, seed=b + 1024)
+    got = logits_argmax.argmax_affine(y, w, b_i32, 20.0, None, "packed_int")
+    want = _packed_int_chain(y, w, b_i32, 20.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got[:min(b, 2)].tolist() == [first] * min(b, 2)
